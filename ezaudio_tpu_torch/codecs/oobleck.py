@@ -1,0 +1,127 @@
+"""Oobleck VAE decoder (counterpart of ``ezaudio_tpu/codecs/oobleck.py``).
+
+Reference ``src/modules/stable_vae/models/autoencoders.py`` decoder:
+WNConv stem (k7) -> per-stride DecoderBlock [snake + ConvTranspose(k=2s,
+p=ceil(s/2)) + 3 dilated ResidualUnits (1, 3, 9)] -> snake -> Conv(k7, no
+bias) -> optional tanh; SnakeBeta with log-scale per-channel alpha/beta.
+
+Modules keep the reference's ``layers`` Sequential indices, so a reference
+state dict loads after its weight norm is folded
+(``convert/from_jax.py::fold_weight_norm``).  Inside, tensors are torch's
+(B, C, T); :class:`OobleckDecoder` takes and returns channel-last
+(B, L, C) like the JAX package.  The encoder waits for editing.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ezaudio_tpu_torch.ops.activations import snake_beta_vae
+
+
+class SnakeBeta(nn.Module):
+    """x + 1/b sin^2(a x) on (B, C, T), with a = exp(alpha), b = exp(beta)."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.alpha = nn.Parameter(torch.zeros(channels))
+        self.beta = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, x):
+        a = self.alpha.exp().to(x.dtype)[None, :, None]
+        b = self.beta.exp().to(x.dtype)[None, :, None]
+        return snake_beta_vae(x, a, b)
+
+
+class ResidualUnit(nn.Module):
+    def __init__(self, channels: int, dilation: int):
+        super().__init__()
+        self.dilation = dilation
+        self.layers = nn.Sequential(
+            SnakeBeta(channels),
+            nn.Conv1d(channels, channels, 7, dilation=dilation, padding=3 * dilation),
+            SnakeBeta(channels),
+            nn.Conv1d(channels, channels, 1))
+
+    def forward(self, x):
+        return x + self.layers(x)
+
+
+class DecoderBlock(nn.Module):
+    def __init__(self, in_channels: int, out_channels: int, stride: int):
+        super().__init__()
+        self.layers = nn.Sequential(
+            SnakeBeta(in_channels),
+            nn.ConvTranspose1d(in_channels, out_channels, 2 * stride, stride=stride,
+                               padding=math.ceil(stride / 2)),
+            *(ResidualUnit(out_channels, d) for d in (1, 3, 9)))
+
+    def forward(self, x):
+        return self.layers(x)
+
+
+class OobleckDecoder(nn.Module):
+    def __init__(self, out_channels: int = 1, channels: int = 128, latent_dim: int = 128,
+                 c_mults: Sequence[int] = (1, 2, 4, 8), strides: Sequence[int] = (2, 4, 6, 10),
+                 final_tanh: bool = False):
+        super().__init__()
+        mults = (1,) + tuple(c_mults)
+        n = len(strides)
+        layers = [nn.Conv1d(latent_dim, mults[-1] * channels, 7, padding=3)]
+        for i in range(n, 0, -1):
+            layers.append(DecoderBlock(mults[i] * channels, mults[i - 1] * channels,
+                                       strides[i - 1]))
+        layers += [SnakeBeta(mults[0] * channels),
+                   nn.Conv1d(mults[0] * channels, out_channels, 7, padding=3, bias=False)]
+        if final_tanh:
+            layers.append(nn.Tanh())
+        self.layers = nn.Sequential(*layers)
+
+    def forward(self, z):
+        """(B, L, latent_dim) -> (B, L*prod(strides), out_channels)."""
+        return self.layers(z.transpose(1, 2)).transpose(1, 2)
+
+
+class AudioVAE(nn.Module):
+    """The decode half of the reference ``AudioAutoencoder`` (Oobleck/vae)."""
+
+    def __init__(self, io_channels: int = 1, channels: int = 128, latent_dim: int = 128,
+                 c_mults: Sequence[int] = (1, 2, 4, 8), strides: Sequence[int] = (2, 4, 6, 10),
+                 final_tanh: bool = False):
+        super().__init__()
+        self.latent_dim = latent_dim
+        self.downsampling_ratio = math.prod(strides)
+        self.decoder = OobleckDecoder(io_channels, channels, latent_dim, c_mults,
+                                      strides, final_tanh)
+
+    def decode(self, z):
+        return self.decoder(z)
+
+
+def vae_sample(mean_scale, sample: bool = True,
+               generator: Optional[torch.Generator] = None):
+    """VAEBottleneck.encode (bottleneck.py:54-90): split mean||scale on the
+    channel axis, stdev = softplus(scale) + 1e-4, reparameterize."""
+    mean, scale = mean_scale.chunk(2, dim=-1)
+    if not sample:
+        return mean
+    stdev = F.softplus(scale) + 1e-4
+    return mean + stdev * torch.randn(mean.shape, generator=generator,
+                                      device=mean.device, dtype=mean.dtype)
+
+
+def vae_from_config(cfg: dict) -> AudioVAE:
+    """Build from a reference-format vae config.json dict."""
+    m = cfg["model"]
+    dec = m["decoder"]["config"]
+    if m["bottleneck"]["type"] != "vae":
+        raise NotImplementedError(f"bottleneck {m['bottleneck']['type']!r}")
+    return AudioVAE(io_channels=m.get("io_channels", 1), channels=dec["channels"],
+                    latent_dim=m["latent_dim"], c_mults=tuple(dec["c_mults"]),
+                    strides=tuple(dec["strides"]),
+                    final_tanh=dec.get("final_tanh", False))

@@ -1,0 +1,184 @@
+"""Carry weights from the JAX package's parameter trees into the port.
+
+The JAX package keeps channel-last layouts: Linear ``kernel`` (in, out),
+Conv1d ``kernel`` (k, in, out), ConvTranspose1d ``kernel`` (k, in, out)
+time-flipped into correlation orientation.  The port keeps the reference
+torch layouts and names, so these functions are the inverse of the JAX
+package's torch -> jax converters:
+
+  * :func:`maskdit_state_dict_from_jax` — ``dit_params["params"]`` ->
+    :class:`~ezaudio_tpu_torch.models.maskdit.MaskDiT` state dict;
+  * :func:`vae_state_dict_from_jax` — AudioVAE params (``decoder``
+    subtree) -> :class:`~ezaudio_tpu_torch.codecs.oobleck.AudioVAE`;
+  * :func:`t5_state_dict_from_jax` — T5 params ->
+    :class:`~ezaudio_tpu_torch.text.t5.T5Encoder`.
+
+Inputs are nested dicts of numpy arrays (``jax.device_get`` of the
+trees); outputs map names to float32 ``torch.Tensor``.  Because the port
+uses the reference names, a reference DiT state dict loads directly, and a
+reference VAE state dict after :func:`fold_weight_norm`.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float32))
+
+
+def _lin(dst, prefix, p):
+    dst[f"{prefix}.weight"] = _t(np.asarray(p["kernel"]).T)
+    if "bias" in p:
+        dst[f"{prefix}.bias"] = _t(p["bias"])
+
+
+def _norm(dst, prefix, p):
+    dst[f"{prefix}.weight"] = _t(p["weight"])
+    if "bias" in p:
+        dst[f"{prefix}.bias"] = _t(p["bias"])
+
+
+def _conv(dst, prefix, p):
+    dst[f"{prefix}.weight"] = _t(np.asarray(p["kernel"]).transpose(2, 1, 0))
+    if "bias" in p:
+        dst[f"{prefix}.bias"] = _t(p["bias"])
+
+
+def _conv_t(dst, prefix, p):
+    # (k, in, out) correlation orientation -> torch (in, out, k)
+    dst[f"{prefix}.weight"] = _t(np.asarray(p["kernel"])[::-1].transpose(1, 2, 0))
+    dst[f"{prefix}.bias"] = _t(p["bias"])
+
+
+def _attention(dst, prefix, p):
+    for name in ("to_q", "to_k", "to_v", "proj"):
+        _lin(dst, f"{prefix}.{name}", p[name])
+    for name in ("norm_q", "norm_k"):
+        if name in p:
+            _norm(dst, f"{prefix}.{name}", p[name])
+
+
+def _block(dst, prefix, p, cfg):
+    _norm(dst, f"{prefix}.norm1", p["norm1"])
+    _norm(dst, f"{prefix}.norm3", p["norm3"])
+    _attention(dst, f"{prefix}.attn", p["attn"])
+    if cfg.get("rope_mode", "none") == "shared":
+        head_dim = cfg["embed_dim"] // cfg["num_heads"]
+        dst[f"{prefix}.attn.rotary.inv_freq"] = 1.0 / (
+            10000.0 ** (torch.arange(0, head_dim, 2, dtype=torch.float32) / head_dim))
+    _lin(dst, f"{prefix}.mlp.net.0.proj", p["mlp"]["proj_in"])
+    _lin(dst, f"{prefix}.mlp.net.2", p["mlp"]["proj_out"])
+    if "cross_attn" in p:
+        _norm(dst, f"{prefix}.norm2", p["norm2"])
+        _attention(dst, f"{prefix}.cross_attn", p["cross_attn"])
+    if "norm_context" in p:
+        _norm(dst, f"{prefix}.norm_context", p["norm_context"])
+    a = p["adaln"]
+    _lin(dst, f"{prefix}.adaln.lora_a", a["lora_a"])
+    _lin(dst, f"{prefix}.adaln.lora_b", a["lora_b"])
+    if "scale_shift_table" in a:
+        dst[f"{prefix}.adaln.scale_shift_table"] = _t(a["scale_shift_table"])
+    if "skip_fusion" in p:
+        sf = p["skip_fusion"]
+        _lin(dst, f"{prefix}.skip_linear", sf["skip_linear"])
+        if "skip_norm" in sf:
+            _norm(dst, f"{prefix}.skip_norm", sf["skip_norm"])
+
+
+def maskdit_state_dict_from_jax(params: Dict[str, Any], cfg: dict) -> Dict[str, torch.Tensor]:
+    """JAX MaskDiT params (``{'mask_embed', 'model': {...}}``) -> port
+    MaskDiT state dict.  ``cfg`` is the ``model:`` config block."""
+    sd: Dict[str, torch.Tensor] = {}
+    if "mask_embed" in params:
+        sd["mask_embed"] = _t(params["mask_embed"])
+    m = params["model"]
+    p_size, in_ch = cfg.get("patch_size", 1), cfg["in_chans"]
+    k = np.asarray(m["patch_embed"]["kernel"]).reshape(p_size, in_ch, -1)
+    sd["model.patch_embed.proj.weight"] = _t(k.transpose(2, 1, 0))
+    sd["model.patch_embed.proj.bias"] = _t(m["patch_embed"]["bias"])
+    _lin(sd, "model.time_embed.mlp.0", m["time_embed"]["fc1"])
+    _lin(sd, "model.time_embed.mlp.2", m["time_embed"]["fc2"])
+    _lin(sd, "model.context_embed.0", m["context_embed"]["fc1"])
+    _lin(sd, "model.context_embed.2", m["context_embed"]["fc2"])
+    _lin(sd, "model.time_ada_final", m["time_ada_final"])
+    _lin(sd, "model.time_ada", m["time_ada"])
+    half = cfg["depth"] // 2
+    for i in range(half):
+        _block(sd, f"model.in_blocks.{i}", m[f"in_blocks_{i}"], cfg)
+        _block(sd, f"model.out_blocks.{i}", m[f"out_blocks_{i}"], cfg)
+    _block(sd, "model.mid_block", m["mid_block"], cfg)
+    fb = m["final_block"]
+    _norm(sd, "model.final_block.norm", fb["norm"])
+    _lin(sd, "model.final_block.linear", fb["linear"])
+    if "final_conv" in fb:
+        _conv(sd, "model.final_block.final_layer", fb["final_conv"])
+    return sd
+
+
+def _snake(dst, prefix, p):
+    dst[f"{prefix}.alpha"] = _t(p["alpha"])
+    dst[f"{prefix}.beta"] = _t(p["beta"])
+
+
+def vae_state_dict_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX AudioVAE params -> port AudioVAE state dict (decoder only)."""
+    dec = params["decoder"]
+    n = sum(1 for k in dec if k.startswith("block"))
+    sd: Dict[str, torch.Tensor] = {}
+    _conv(sd, "decoder.layers.0", dec["stem"])
+    for j in range(n):
+        bp, pre = dec[f"block{j}"], f"decoder.layers.{1 + j}.layers"
+        _snake(sd, f"{pre}.0", bp["act"])
+        _conv_t(sd, f"{pre}.1", bp["up"])
+        for r in range(3):
+            rp, rpre = bp[f"res{r}"], f"{pre}.{2 + r}.layers"
+            _snake(sd, f"{rpre}.0", rp["act1"])
+            _conv(sd, f"{rpre}.1", rp["conv1"])
+            _snake(sd, f"{rpre}.2", rp["act2"])
+            _conv(sd, f"{rpre}.3", rp["conv2"])
+    _snake(sd, f"decoder.layers.{1 + n}", dec["act"])
+    _conv(sd, f"decoder.layers.{2 + n}", dec["head"])
+    return sd
+
+
+def t5_state_dict_from_jax(params: Dict[str, Any], num_layers: int) -> Dict[str, torch.Tensor]:
+    """JAX T5Encoder params -> port T5Encoder state dict."""
+    sd: Dict[str, torch.Tensor] = {"embed_tokens.weight": _t(params["embedding"])}
+    for i in range(num_layers):
+        b, pre = params[f"block_{i}"], f"block.{i}.layer"
+        sd[f"{pre}.0.layer_norm.weight"] = _t(b["ln_attn"]["weight"])
+        for name in ("q", "k", "v", "o"):
+            sd[f"{pre}.0.SelfAttention.{name}.weight"] = _t(
+                np.asarray(b["attn"][name]["kernel"]).T)
+        if "relative_attention_bias" in b["attn"]:
+            sd[f"{pre}.0.SelfAttention.relative_attention_bias.weight"] = _t(
+                b["attn"]["relative_attention_bias"])
+        sd[f"{pre}.1.layer_norm.weight"] = _t(b["ln_ff"]["weight"])
+        for name, p in b["ff"].items():
+            sd[f"{pre}.1.DenseReluDense.{name}.weight"] = _t(np.asarray(p["kernel"]).T)
+    sd["final_layer_norm.weight"] = _t(params["final_layer_norm"]["weight"])
+    return sd
+
+
+def fold_weight_norm(sd: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """Fold torch ``weight_norm`` (dim=0) pairs ``*.weight_g``/``*.weight_v``
+    into ``*.weight`` = g * v / ||v|| (norm over every axis but the first;
+    for ConvTranspose1d that is per input channel, as torch defines it)."""
+    out: Dict[str, torch.Tensor] = {}
+    for k, v in sd.items():
+        v = torch.as_tensor(np.asarray(v)) if not isinstance(v, torch.Tensor) else v
+        if k.endswith(".weight_g"):
+            continue
+        if k.endswith(".weight_v"):
+            base = k[: -len("_v")]
+            g = torch.as_tensor(np.asarray(sd[base + "_g"]))
+            norm = v.float().pow(2).sum(dim=tuple(range(1, v.ndim)), keepdim=True).sqrt()
+            out[base] = g.reshape(-1, *([1] * (v.ndim - 1))) / norm.clamp_min(1e-12) * v
+        else:
+            out[k] = v
+    return out

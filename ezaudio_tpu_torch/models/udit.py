@@ -1,0 +1,99 @@
+"""UDiT: U-shaped 1D diffusion transformer with long skips
+(counterpart of ``ezaudio_tpu/models/udit.py::UDiT``).
+
+This slice covers the EzAudio settings: 1d input, AdaLN-SOLA time fusion
+(shared ``time_ada`` -> 6*dim and ``time_ada_final`` -> 2*dim), per-block
+cross-attention to the context, ``none`` positional embeddings.
+depth//2 in-blocks collect skips, a mid block, depth//2 out-blocks pop
+them in reverse, then the FinalBlock.  Layer caching (``deep_cache``) and
+ControlNet skips raise until they are ported.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ezaudio_tpu_torch.models.blocks import DiTBlock, FinalBlock
+from ezaudio_tpu_torch.ops.embeddings import (MLPEmbedder, PatchEmbed1D, PEWrapper,
+                                              TimestepEmbedder)
+
+
+class UDiT(nn.Module):
+    def __init__(self, img_size: int = 500, patch_size: int = 1, in_chans: int = 257,
+                 input_type: str = "1d", out_chans: Optional[int] = None,
+                 embed_dim: int = 1024, depth: int = 24, num_heads: int = 16,
+                 mlp_ratio: float = 4.0, qkv_bias: bool = False,
+                 qk_scale: Optional[float] = None, qk_norm: Optional[str] = None,
+                 act_layer: str = "geglu", norm_layer: str = "layernorm",
+                 context_norm: bool = False, use_checkpoint: bool = False,
+                 time_fusion: str = "ada_sola_bias", ada_sola_rank: int = 32,
+                 ada_sola_alpha: float = 32, cls_dim: Optional[int] = None,
+                 context_dim: Optional[int] = 1024, context_fusion: str = "cross",
+                 context_max_length: Optional[int] = None,
+                 context_pe_method: str = "none", pe_method: str = "none",
+                 rope_mode: str = "none", use_conv: bool = True, skip: bool = True,
+                 skip_norm: bool = True):
+        super().__init__()
+        if input_type != "1d":
+            raise NotImplementedError(f"input_type={input_type!r}")
+        if cls_dim is not None:
+            raise NotImplementedError("cls_dim")
+        if context_dim is None or context_fusion != "cross":
+            raise NotImplementedError(f"context_fusion={context_fusion!r}")
+        self.out_chans = out_chans or in_chans
+        self.skip = skip
+        self.patch_embed = PatchEmbed1D(patch_size, in_chans, embed_dim)
+        self.x_pe = PEWrapper(pe_method)
+        self.context_embed = MLPEmbedder(context_dim, embed_dim)
+        self.context_pe = PEWrapper(context_pe_method)
+        self.time_embed = TimestepEmbedder(embed_dim)
+        self.time_ada_final = nn.Linear(embed_dim, 2 * embed_dim)
+        self.time_ada = nn.Linear(embed_dim, 6 * embed_dim)
+
+        def block(with_skip: bool):
+            return DiTBlock(
+                embed_dim, num_heads, context_dim=embed_dim, mlp_ratio=mlp_ratio,
+                qkv_bias=qkv_bias, qk_scale=qk_scale, qk_norm=qk_norm,
+                act_layer=act_layer, norm_layer=norm_layer, time_fusion=time_fusion,
+                ada_sola_rank=ada_sola_rank, ada_sola_alpha=ada_sola_alpha,
+                skip=with_skip, skip_norm=skip_norm and with_skip,
+                rope_mode=rope_mode, context_norm=context_norm)
+
+        half = depth // 2
+        self.in_blocks = nn.ModuleList([block(False) for _ in range(half)])
+        self.mid_block = block(False)
+        self.out_blocks = nn.ModuleList([block(skip) for _ in range(half)])
+        self.final_block = FinalBlock(embed_dim, patch_size, self.out_chans,
+                                      norm_layer=norm_layer, use_conv=use_conv)
+
+    def forward(self, x, timesteps, context, x_mask=None, context_mask=None,
+                controlnet_skips=None, deep_cache=None, collect_deep_k=None):
+        """x: (B, T, in_chans); timesteps: (B,) or scalar; context:
+        (B, Lc, context_dim); context_mask: (B, Lc) bool."""
+        if controlnet_skips is not None or deep_cache is not None or collect_deep_k is not None:
+            raise NotImplementedError("ControlNet skips and layer caching are not ported yet")
+        timesteps = torch.as_tensor(timesteps, device=x.device)
+        if timesteps.ndim == 0:
+            timesteps = timesteps.expand(x.shape[0])
+        x = self.x_pe(self.patch_embed(x))
+        context_token = self.context_pe(self.context_embed(context))
+
+        time_token = F.silu(self.time_embed(timesteps))
+        time_ada_final = self.time_ada_final(time_token)
+        time_ada = self.time_ada(time_token)
+
+        skips = []
+        for blk in self.in_blocks:
+            x = blk(x, time_token, time_ada, None, context_token, x_mask, context_mask)
+            if self.skip:
+                skips.append(x)
+        x = self.mid_block(x, time_token, time_ada, None, context_token, x_mask,
+                           context_mask)
+        for blk in self.out_blocks:
+            skip = skips.pop() if self.skip else None
+            x = blk(x, time_token, time_ada, skip, context_token, x_mask, context_mask)
+        return self.final_block(x, time_ada_final)

@@ -1,0 +1,77 @@
+"""Kernel 2: fused Oobleck ResidualUnit (``csrc/resunit.cu``) and its
+plain twin.
+
+``fused_residual_unit(x, w7, b7, w1, b1, a1, be1, a2, be2, dilation)``
+computes ``x + W1 . snake2(conv7_d(snake1(x)) + b7) + b1`` on channel-last
+``x`` (B, L, C) — the function of
+``ezaudio_tpu/ops/pallas/resunit.py::fused_residual_unit``, with its
+layouts: ``w7`` (7, C, C) as (tap, in, out), ``w1`` (C, C) as (in, out),
+``a*``/``be*`` the exp'd per-channel snake parameters.  A CPU tensor goes
+to :func:`residual_unit_plain`; a CUDA tensor launches the kernel or
+raises.  ``fused_residual_unit.launches`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from ezaudio_tpu_torch.ops.activations import snake_beta_vae
+from ezaudio_tpu_torch.ops.kernels import _build
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_SMEM_LIMIT = 232448
+
+
+def residual_unit_plain(x, w7, b7, w1, b1, a1, be1, a2, be2, dilation: int):
+    """The kernel's function in plain PyTorch (same math as
+    ``residual_unit_reference`` of the JAX package)."""
+    a1, be1, a2, be2 = (t.to(x.dtype) for t in (a1, be1, a2, be2))
+    h = snake_beta_vae(x, a1, be1)
+    h = F.conv1d(h.transpose(1, 2), w7.permute(2, 1, 0), b7,
+                 padding=3 * dilation, dilation=dilation).transpose(1, 2)
+    h = snake_beta_vae(h, a2, be2)
+    return x + (h @ w1 + b1)
+
+
+def _lib():
+    lib = _build.load("resunit")
+    fn = lib.ez_resunit_fwd
+    if fn.argtypes is None:
+        P, I = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, P]
+        fn.restype = I
+    return fn
+
+
+def fused_residual_unit(x, w7, b7, w1, b1, a1, be1, a2, be2, dilation: int):
+    if x.device.type == "cpu":
+        return residual_unit_plain(x, w7, b7, w1, b1, a1, be1, a2, be2, dilation)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_residual_unit: unsupported device {x.device}")
+    B, L, C = x.shape
+    d = int(dilation)
+    if w7.shape != (7, C, C) or w1.shape != (C, C) or b7.shape != (C,) or b1.shape != (C,):
+        raise ValueError("fused_residual_unit: weight shapes do not match C")
+    if x.dtype not in _DTYPES or any(t.dtype != x.dtype for t in (w7, b7, w1, b1)):
+        raise TypeError("fused_residual_unit: x and weights must share a float32/bfloat16 dtype")
+    if C % 128 != 0 or d < 1 or 4 * (32 * C + (32 + 6 * d) * 32 + 32 * 128) > _SMEM_LIMIT:
+        raise ValueError(f"fused_residual_unit: unsupported C={C}, dilation={d}")
+    for t in (x, w7, b7, w1, b1):
+        if t.device != x.device or not t.is_contiguous():
+            raise ValueError("fused_residual_unit: inputs must be contiguous on one device")
+    ab = torch.stack([a1, be1, a2, be2]).to(device=x.device, dtype=torch.float32).contiguous()
+    if ab.shape != (4, C):
+        raise ValueError("fused_residual_unit: snake parameters must be (C,)")
+    y = torch.empty_like(x)
+    err = _lib()(x.data_ptr(), w7.data_ptr(), b7.data_ptr(), w1.data_ptr(),
+                 b1.data_ptr(), ab.data_ptr(), y.data_ptr(), B, L, C, d,
+                 _DTYPES[x.dtype], torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "ez_resunit_fwd")
+    fused_residual_unit.launches += 1
+    return y
+
+
+fused_residual_unit.launches = 0

@@ -1,0 +1,110 @@
+"""``chip_smoke.py`` without a GPU: it must refuse (non-zero exit, no
+result line), and its phases must run end to end at a tiny size on the CPU,
+with the kernels' plain versions standing in and counted as launches."""
+
+import os
+import shutil
+import subprocess
+import sys
+import time
+
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _run(cwd):
+    return subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd, capture_output=True,
+                          text=True, timeout=120)
+
+
+@pytest.mark.parametrize("alone", [False, True])
+def test_refuses_without_cuda_or_the_port(tmp_path, alone):
+    if torch.cuda.is_available() and not alone:
+        pytest.skip("this host has a GPU: chip_smoke.py would run")
+    cwd = REPO
+    if alone:
+        shutil.copy(os.path.join(REPO, "chip_smoke.py"), tmp_path)
+        cwd = tmp_path
+    out = _run(cwd)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
+
+
+def test_phases_rehearse_on_cpu(monkeypatch):
+    import chip_smoke as cs
+    import ezaudio_tpu_torch.ops.kernels.attention as ka
+    import ezaudio_tpu_torch.ops.kernels.resunit as kr
+    from ezaudio_tpu_torch.config import get_model_config
+
+    def time_cpu(fn, reps=1, iters=1):
+        t0 = time.perf_counter()
+        fn()
+        return (time.perf_counter() - t0) * 1e3
+
+    def counted(plain, wrapper):
+        def run(*a, **k):
+            wrapper.launches += 1
+            return plain(*a, **k)
+        return run
+
+    monkeypatch.setattr(cs, "time_ms", time_cpu)
+    monkeypatch.setattr(ka, "attention_plain", counted(ka.attention_plain, ka.fused_attention))
+    monkeypatch.setattr(kr, "residual_unit_plain",
+                        counted(kr.residual_unit_plain, kr.fused_residual_unit))
+    gen = torch.Generator().manual_seed(0)
+    rows = cs.check_attention("cpu", gen, [(1, 2, 20, 20, 64, False), (2, 2, 20, 9, 72, True)])
+    assert len(rows) == 4 and all(r["max_abs_err"] == 0.0 for r in rows)
+    rows = cs.check_resunit("cpu", gen, [(1, 100, 128, 9), (2, 37, 128, 1)])
+    assert all(r["max_abs_err"] == 0.0 for r in rows)
+
+    cfg = get_model_config("s3_l").to_dict()
+    cfg["model"].update(embed_dim=32, depth=2, num_heads=4, context_dim=16,
+                        ada_sola_rank=2, ada_sola_alpha=2)
+    cfg["text_encoder"]["model"] = "tiny"
+    results, totals = cs.main_path("cpu", config=cfg, length=0.1)
+    assert [r["attention_launches"] for r in results] == [600, 600]
+    assert [r["resunit_launches"] for r in results] == [12, 12]
+    assert totals == [1200, 24]
+    row = cs.card_vs_cpu(gen, dev="cpu", cfg=cfg)
+    assert row["max_abs_err"] == 0.0 and row["attention_launches"] == 18
+
+
+def _attention_variant(q, k, v, fault=None):
+    """Attention as a bf16 kernel might compute it: scores summed in another
+    order (f64, then f32), p rounded to bf16.  ``fault`` keeps p in f32,
+    keeps the accumulator in bf16, or drops the second key tile."""
+    s = (q.double() @ k.double().transpose(-1, -2) * q.shape[-1] ** -0.5).float()
+    if fault == "drop_tile":
+        s[..., 32:64] = float("-inf")
+    p = torch.softmax(s, dim=-1)
+    if fault != "p_f32":
+        p = p.bfloat16()
+    if fault != "bf16_acc":
+        return (p.double() @ v.double()).bfloat16()
+    acc = torch.zeros(q.shape, dtype=torch.bfloat16)
+    for j in range(k.shape[2]):
+        acc = acc + p[..., j:j + 1] * v[:, :, j:j + 1, :]
+    return acc
+
+
+@pytest.mark.parametrize("fault,passes", [(None, True), ("p_f32", False),
+                                          ("bf16_acc", False), ("drop_tile", False)])
+def test_bf16_attention_limit_separates_rounding_from_faults(fault, passes):
+    import chip_smoke as cs
+    from ezaudio_tpu_torch.ops.kernels.attention import attention_plain
+
+    gen = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn(2, 4, L, 64, generator=gen).bfloat16() for L in (128, 160, 160))
+    got = _attention_variant(q, k, v, fault)
+    ok, _, share = cs.attention_agreement(got, attention_plain(q, k, v), v)
+    assert ok == passes, share

@@ -1,0 +1,192 @@
+"""The port's whole text-to-audio slice on the CPU: against the JAX
+``EzAudio`` on carried weights, against the committed reference-torch
+pipeline golden, and the package rules (no JAX import, no silent CPU,
+uncovered arguments raise)."""
+
+import dataclasses
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from ezaudio_tpu_torch.api.ezaudio import EzAudio
+from ezaudio_tpu_torch.convert.from_jax import (fold_weight_norm,
+                                                maskdit_state_dict_from_jax,
+                                                t5_state_dict_from_jax,
+                                                vae_state_dict_from_jax)
+from ezaudio_tpu_torch.text.t5 import T5EncoderConfig, t5_state_dict_from_hf
+from tests.test_torch_modules import _np_tree
+
+FIXTURES = os.path.join(os.path.dirname(__file__), "fixtures")
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One torch thread per test (xdist runs six workers); restored after."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def tiny_pair():
+    """JAX tiny EzAudio and the port on the same carried weights."""
+    from tests.tiny_config import (TINY_CONFIG, TINY_T5, TINY_VAE_CONFIG,
+                                   make_tiny_ezaudio)
+
+    jez = make_tiny_ezaudio()
+    rng = np.random.default_rng(11)
+    jez.dit_params = {"params": _np_tree(jez.dit_params["params"], rng)}
+    jez.t5_params = _np_tree(jez.t5_params, rng)
+    jez.autoencoder.params = _np_tree(jez.autoencoder.params, rng)
+
+    ez = EzAudio(config=TINY_CONFIG, vae_config=TINY_VAE_CONFIG,
+                 t5_config=T5EncoderConfig(**dataclasses.asdict(TINY_T5)), device="cpu")
+    ez.dit.load_state_dict(maskdit_state_dict_from_jax(
+        jez.dit_params["params"], TINY_CONFIG["model"]))
+    ez.t5.load_state_dict(t5_state_dict_from_jax(jez.t5_params, TINY_T5.num_layers))
+    ez.autoencoder.model.load_state_dict(vae_state_dict_from_jax(jez.autoencoder.params))
+    return jez, ez
+
+
+class TestAgainstJax:
+    def test_generate_matches_jax(self, tiny_pair):
+        """Two prompts, CFG 3 + rescale 0.75, 3 DDIM steps, eta 0, same
+        initial latents: waveform atol 1e-4 and corr > 0.9999."""
+        jez, ez = tiny_pair
+        prompts = ["a dog barking", "rain on a tin roof"]
+        noise = np.random.default_rng(2).standard_normal((2, 50, 8)).astype(np.float32)
+        kw = dict(length=1.0, guidance_scale=3.0, guidance_rescale=0.75,
+                  ddim_steps=3, eta=0.0, random_seed=0, initial_latents=noise)
+        _, want = jez.generate_audio(prompts, **kw)
+        _, got = ez.generate_audio(prompts, **kw)
+        assert got.shape == want.shape == (2, 800)
+        np.testing.assert_allclose(got, want, atol=1e-4)
+        assert np.corrcoef(got.ravel(), want.ravel())[0, 1] > 0.9999
+
+    def test_text_embedding_matches_jax(self, tiny_pair):
+        """HashTokenizer ids and T5 embeddings: atol 1e-5."""
+        jez, ez = tiny_pair
+        want, want_mask = jez.embed_text(["", "a dog barking"])
+        got, got_mask = ez.embed_text(["", "a dog barking"])
+        np.testing.assert_array_equal(got_mask.numpy(), np.asarray(want_mask))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
+
+    def test_empty_prompts_turn_guidance_off(self, tiny_pair):
+        _, ez = tiny_pair
+        noise = np.random.default_rng(3).standard_normal((1, 25, 8)).astype(np.float32)
+        kw = dict(length=0.5, ddim_steps=2, eta=0.0, initial_latents=noise)
+        _, a = ez.generate_audio([""], guidance_scale=5, **kw)
+        _, b = ez.generate_audio([""], guidance_scale=None, **kw)
+        np.testing.assert_array_equal(a, b)
+
+    def test_eta_noise_is_seeded(self, tiny_pair):
+        _, ez = tiny_pair
+        kw = dict(length=0.5, ddim_steps=2, eta=1.0)
+        _, a = ez.generate_audio("wind", random_seed=4, **kw)
+        _, b = ez.generate_audio("wind", random_seed=4, **kw)
+        _, c = ez.generate_audio("wind", random_seed=5, **kw)
+        assert a.shape == (400,) and np.isfinite(a).all()
+        np.testing.assert_array_equal(a, b)
+        assert not np.array_equal(a, c)
+
+
+class TestAgainstReferenceGolden:
+    def test_pipeline_golden(self):
+        """Reference torch pipeline (HashTokenizer -> T5 -> 25-step DDIM +
+        CFG + rescale -> decode), its state dicts loaded by name: atol 1e-4
+        and corr > 0.9999, as tests/test_parity.py holds the JAX package."""
+        from scripts.gen_goldens import TINY_DIT_CFG
+
+        d = dict(np.load(os.path.join(FIXTURES, "pipeline_tiny.npz"), allow_pickle=False))
+        config = dict(
+            model_name="EzAudio-PipelineTiny", model=dict(TINY_DIT_CFG),
+            autoencoder=dict(name="stable_vae", dim=8, sr=256, latent_sr=32, q_first=True,
+                             scale=float(d["scale"]), shift=float(d["shift"])),
+            text_encoder=dict(model="tiny-t5", max_length=int(d["max_length"]), cfg=0.1),
+            diff=dict(num_train_timesteps=1000, beta_schedule="scaled_linear",
+                      beta_start=0.00085, beta_end=0.012, prediction_type="v_prediction",
+                      rescale_betas_zero_snr=True, timestep_spacing="trailing",
+                      clip_sample=False))
+        vae_config = dict(model=dict(
+            decoder=dict(type="oobleck", config=dict(
+                out_channels=1, channels=8, c_mults=[1, 2], strides=[2, 4], latent_dim=8,
+                use_snake=True, final_tanh=False)),
+            bottleneck=dict(type="vae"), latent_dim=8, io_channels=1))
+        t5_cfg = T5EncoderConfig(vocab_size=256, d_model=24, d_kv=8, d_ff=32,
+                                 num_layers=2, num_heads=4)
+        ez = EzAudio(config=config, vae_config=vae_config, t5_config=t5_cfg, device="cpu")
+
+        def part(prefix):
+            return {k[len(prefix):]: torch.from_numpy(v) for k, v in d.items()
+                    if k.startswith(prefix)}
+
+        ez.dit.load_state_dict(part("dit."))
+        ez.t5.load_state_dict(t5_state_dict_from_hf(part("t5.")))
+        ez.autoencoder.model.decoder.load_state_dict(fold_weight_norm(part("dec.")))
+
+        _, wav = ez.generate_audio(
+            [str(d["prompt"][0])], length=1.0, guidance_scale=float(d["guidance"]),
+            guidance_rescale=float(d["rescale"]), ddim_steps=int(d["steps"]), eta=0.0,
+            random_seed=0, initial_latents=d["noise"].transpose(0, 2, 1))
+        want = d["wav"][:, 0, :]
+        assert wav.shape == want.shape
+        np.testing.assert_allclose(wav, want, atol=1e-4)
+        assert np.corrcoef(wav.ravel(), want.ravel())[0, 1] > 0.9999
+
+
+class TestPackageRules:
+    def test_imports_neither_jax_nor_the_jax_package(self):
+        code = (
+            "import importlib, pkgutil, sys, ezaudio_tpu_torch\n"
+            "for m in pkgutil.walk_packages(ezaudio_tpu_torch.__path__, 'ezaudio_tpu_torch.'):\n"
+            "    importlib.import_module(m.name)\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax')\n"
+            "       or m == 'ezaudio_tpu' or m.startswith('ezaudio_tpu.')]\n"
+            "assert not bad, bad\n"
+            "print(len([m for m in sys.modules if m.startswith('ezaudio_tpu_torch')]))\n")
+        out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                             text=True, timeout=120)
+        assert out.returncode == 0, out.stderr
+        assert int(out.stdout.split()[-1]) >= 25
+
+    def test_no_silent_cpu(self):
+        from ezaudio_tpu_torch.utils import resolve_device
+        from tests.tiny_config import TINY_CONFIG
+
+        if torch.cuda.is_available():
+            pytest.skip("this host has a GPU: the default device is usable")
+        with pytest.raises(RuntimeError, match="CUDA"):
+            resolve_device(None)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            EzAudio(config=TINY_CONFIG)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            EzAudio(model_name="s3_l")
+
+    @pytest.mark.parametrize("kw", [dict(sampler="dpm"), dict(fused=True),
+                                    dict(quant="int8"), dict(layer_cache=(2, 2)),
+                                    dict(guidance_interval=(100, 900)),
+                                    dict(attn_impl="flash"), dict(cfg_refresh=2)])
+    def test_uncovered_arguments_raise(self, tiny_pair, kw):
+        _, ez = tiny_pair
+        with pytest.raises(NotImplementedError):
+            ez.generate_audio("x", length=0.5, ddim_steps=1, **kw)
+
+    def test_s3_l_config_shapes(self):
+        """The packaged s3_l config builds the published widths (on the
+        meta device: no memory)."""
+        from ezaudio_tpu_torch.config import get_model_config
+        from ezaudio_tpu_torch.models.maskdit import maskdit_from_config
+
+        cfg = get_model_config("s3_l")
+        with torch.device("meta"):
+            dit = maskdit_from_config(cfg.model.to_dict())
+        n = sum(p.numel() for p in dit.parameters())
+        assert len(dit.model.in_blocks) == 12 and len(dit.model.out_blocks) == 12
+        assert dit.model.in_blocks[0].attn.head_dim == 64
+        assert 0.5e9 < n < 0.7e9, n
