@@ -23,7 +23,9 @@ Phases, each fatal on failure:
 
 It exits non-zero, with no result line, when CUDA is unavailable or the
 port's sources are missing.  Bounds use the H100 SXM data-sheet peaks:
-3.35 TB/s, 67 TFLOP/s f32 (CUDA cores), 989 TFLOP/s bf16 (tensor cores).
+3.35 TB/s, 495 TFLOP/s TF32 and 989 TFLOP/s bf16 (tensor cores); an f32
+product costs three TF32 products (3xTF32), so f32 work is bounded at
+495 / 3 TFLOP/s.
 """
 
 from __future__ import annotations
@@ -36,7 +38,11 @@ import sys
 import time
 
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+# f32 at the f32-accurate tensor-core rate: the kernels compute every f32
+# product as three TF32 products (3xTF32, csrc/mma_tf32.cuh), which is as
+# accurate as f32 at these tolerances and 2.5x the 67 TFLOP/s of the CUDA
+# cores.  One TF32 product is not accurate enough (tests/test_torch_chip_smoke.py).
+PEAK_FLOPS = {"float32": 495e12 / 3, "bfloat16": 989e12}
 # Attention agreement with the plain version.  f32: every element within
 # ATTN_F32_ATOL (sums in another order).  bf16: both sides round p to bf16,
 # and a p summed in another order now and then lands on the other side of a
@@ -93,9 +99,13 @@ def bound_ms(nbytes: float, flops: float, dtype: str):
 
 
 # ---------------------------------------------------------------------------
+# (B, H, Lq, Lk, head_dim, key mask); B = 2 is one prompt's CFG pair.
 ATTN_CASES = [(2, 16, 500, 500, 64, False),   # s3_l self-attention
-              (2, 16, 500, 100, 72, True)]    # s3_xl cross-attention, T5 padding
+              (2, 16, 500, 100, 64, True),    # s3_l cross-attention, T5 padding
+              (2, 16, 500, 100, 72, True)]    # s3_xl cross-attention (head_dim 72)
+# (B, L, C, dilation): the four decoder blocks of one 10 s clip.
 RESUNIT_CASES = ([(1, 5000, 512, d) for d in (1, 3, 9)]
+                 + [(1, 30000, 256, 9), (1, 120000, 128, 9)]
                  + [(1, 240000, 128, d) for d in (1, 3, 9)]
                  + [(2, 1001, 256, 9)])       # many tiles, ragged last tile
 

@@ -1,10 +1,11 @@
-"""Build and load the hand-written CUDA kernels (``csrc/*.cu``).
+"""Build and load the hand-written CUDA kernels (``csrc/*.cu``, sharing
+``csrc/*.cuh``).
 
 Each source is compiled by ``nvcc`` for ``sm_90a`` into its own shared
 library with a plain C interface and loaded with ``ctypes`` — no PyTorch
 headers, so a build takes seconds.  Libraries go to a build directory
 (``$EZAUDIO_TORCH_BUILD_DIR``, default ``build/ezaudio_tpu_torch`` beside
-the package), named by a hash of source and flags, and are reused while
+the package), named by a hash of source, headers and flags, and are reused while
 that hash holds.  :func:`build_all` starts one ``nvcc`` per source at
 once.  Nothing here runs at import time.
 """
@@ -42,8 +43,14 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> str:
-    with open(os.path.join(CSRC_DIR, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    """``lib<name>-<hash>.so``, hashed over the source, every shared header
+    (``csrc/*.cuh``) and the flags, so an edited header is rebuilt."""
+    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for fname in [f"{name}.cu", *headers]:
+        with open(os.path.join(CSRC_DIR, fname), "rb") as f:
+            h.update(fname.encode() + b"\0" + f.read())
+    digest = h.hexdigest()[:12]
     return os.path.join(build_dir(), f"lib{name}-{digest}.so")
 
 

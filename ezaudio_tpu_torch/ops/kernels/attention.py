@@ -24,8 +24,7 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 def key_bias(key_mask: torch.Tensor) -> torch.Tensor:
     """(B, Lk) bool key mask -> additive f32 bias, 0 or -1e30."""
-    zero = torch.zeros((), dtype=torch.float32, device=key_mask.device)
-    return torch.where(key_mask.bool(), zero, torch.full_like(zero, _NEG))
+    return torch.where(key_mask.bool(), 0.0, _NEG).to(torch.float32)
 
 
 def attention_plain(q, k, v, key_mask: Optional[torch.Tensor] = None,

@@ -40,6 +40,14 @@ def test_refuses_without_cuda_or_the_port(tmp_path, alone):
     assert '"ok"' not in out.stdout
 
 
+def test_mma_rate_refuses_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a GPU: mma_rate.py would run")
+    out = subprocess.run([sys.executable, "mma_rate.py"], cwd=REPO, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode != 0 and "tflops" not in out.stdout
+
+
 def test_phases_rehearse_on_cpu(monkeypatch):
     import chip_smoke as cs
     import ezaudio_tpu_torch.ops.kernels.attention as ka
@@ -108,3 +116,50 @@ def test_bf16_attention_limit_separates_rounding_from_faults(fault, passes):
     got = _attention_variant(q, k, v, fault)
     ok, _, share = cs.attention_agreement(got, attention_plain(q, k, v), v)
     assert ok == passes, share
+
+
+def _tf32(x):
+    """x rounded to TF32 (10-bit mantissa), to nearest with ties away from
+    zero, as ``csrc/mma_tf32.cuh::to_tf32`` does."""
+    return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32_matmul(a, b, split):
+    """``a @ b`` as the tensor cores compute it from TF32 operands, with
+    exact products: one TF32 product (``split=1``) or the 3xTF32 split
+    ``a_hi b_hi + a_hi b_lo + a_lo b_hi`` (``split=3``)."""
+    ah, bh = _tf32(a), _tf32(b)
+    out = ah.double() @ bh.double()
+    if split == 3:
+        al, bl = _tf32(a - ah), _tf32(b - bh)
+        out = out + ah.double() @ bl.double() + al.double() @ bh.double()
+    return out.float()
+
+
+@pytest.mark.parametrize("split,passes", [(3, True), (1, False)])
+def test_f32_limits_need_3xtf32(split, passes):
+    """The f32 limits of ``chip_smoke.py`` pass kernels whose products are
+    3xTF32 and fail kernels that use one TF32 product: attention at f32
+    (``attention_agreement``, atol 1e-4) and the ResidualUnit (RESUNIT_TOL).
+    On these inputs 3xTF32 stays near 1e-6, one TF32 product near 5e-4
+    (attention) and 2e-3 (ResidualUnit)."""
+    import chip_smoke as cs
+    from ezaudio_tpu_torch.ops.activations import snake_beta_vae
+    from ezaudio_tpu_torch.ops.kernels.attention import attention_plain
+    from ezaudio_tpu_torch.ops.kernels.resunit import residual_unit_plain
+
+    gen = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn(1, 4, 64, 64, generator=gen) for _ in range(3))
+    s = _tf32_matmul(q, k.transpose(-1, -2), split) * 64 ** -0.5
+    got = _tf32_matmul(torch.softmax(s, -1), v, split)
+    ok, err, _ = cs.attention_agreement(got, attention_plain(q, k, v), v)
+    assert ok == passes, err
+
+    d = 9
+    x, w7, b7, w1, b1, a1, be1, a2, be2 = cs.resunit_args("cpu", gen, 1, 128, 128)
+    h = torch.nn.functional.pad(snake_beta_vae(x, a1, be1), (0, 0, 3 * d, 3 * d))
+    conv = sum(_tf32_matmul(h[:, j * d:j * d + 128], w7[j], split).double()
+               for j in range(7)).float()
+    got = x + (_tf32_matmul(snake_beta_vae(conv + b7, a2, be2), w1, split) + b1)
+    err = (got - residual_unit_plain(x, w7, b7, w1, b1, a1, be1, a2, be2, d)).abs().max()
+    assert bool(err <= cs.RESUNIT_TOL) == passes, err.item()

@@ -12,8 +12,10 @@ Without a GPU every test skips.
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from chip_smoke import attention_agreement
+from ezaudio_tpu_torch.ops.activations import snake_beta_vae
 from ezaudio_tpu_torch.ops.kernels.attention import attention_plain, fused_attention
 from ezaudio_tpu_torch.ops.kernels.resunit import (fused_residual_unit,
                                                    residual_unit_plain)
@@ -65,10 +67,14 @@ class TestKernelsOnGPU:
     bf16 limit stated there; ResidualUnit atol 1e-3)."""
 
     @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-    @pytest.mark.parametrize("Lk,D", [(500, 64), (100, 72), (37, 9)])
-    def test_attention(self, rng, dtype, Lk, D):
+    @pytest.mark.parametrize("D", [9, 64, 72, 128])
+    @pytest.mark.parametrize("Lk", [500, 100, 37])
+    @pytest.mark.parametrize("Lq", [500, 37])
+    def test_attention(self, rng, dtype, Lq, Lk, D):
+        """Ragged query and key tiles (500 = 7 * 64 + 52, 37 < 64), head dims
+        padded (9), exact (64, 128) and between (72) the kernel's tile widths."""
         dev = _cuda()
-        q, k, v = (torch.from_numpy(a).to(dev, dtype) for a in _qkv(rng, 2, 4, 500, Lk, D))
+        q, k, v = (torch.from_numpy(a).to(dev, dtype) for a in _qkv(rng, 2, 4, Lq, Lk, D))
         mask = torch.from_numpy(_tail_mask(2, Lk, [Lk - 7, Lk])).to(dev)
         before = fused_attention.launches
         got = fused_attention(q, k, v, key_mask=mask)
@@ -77,10 +83,53 @@ class TestKernelsOnGPU:
         ok, err, share = attention_agreement(got, want, v)
         assert ok, f"max error {err}, {share} of the elements beyond one ulp"
 
-    @pytest.mark.parametrize("dilation", [1, 3, 9])
-    def test_resunit(self, rng, dilation):
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_attention_fully_masked_row(self, rng, dtype):
+        """A batch whose keys are all masked stays uniform over them, as in
+        the plain version."""
         dev = _cuda()
-        args = [torch.from_numpy(a).to(dev) for a in _resunit_inputs(rng, 2, 300, 128)]
+        q, k, v = (torch.from_numpy(a).to(dev, dtype) for a in _qkv(rng, 2, 2, 70, 90, 64))
+        mask = torch.from_numpy(_tail_mask(2, 90, [0, 90])).to(dev)
+        got = fused_attention(q, k, v, key_mask=mask)
+        want = attention_plain(q, k, v, key_mask=mask)
+        ok, err, share = attention_agreement(got, want, v)
+        assert ok, f"max error {err}, {share} of the elements beyond one ulp"
+
+    @pytest.mark.parametrize("C", [128, 256, 512])
+    @pytest.mark.parametrize("dilation", [1, 3, 9])
+    def test_resunit(self, rng, dilation, C):
+        """C = 128, 256, 512 run as clusters of 1, 2 and 4 blocks; L = 300
+        leaves a ragged last 64-row tile."""
+        dev = _cuda()
+        args = [torch.from_numpy(a).to(dev) for a in _resunit_inputs(rng, 2, 300, C)]
+        before = fused_residual_unit.launches
         got = fused_residual_unit(*args, dilation)
+        assert fused_residual_unit.launches == before + 1
         want = residual_unit_plain(*args, dilation)
         torch.testing.assert_close(got, want, rtol=0, atol=1e-3)
+
+    @pytest.mark.parametrize("C", [128, 512])
+    def test_resunit_bf16(self, rng, C):
+        """The bf16 MMA path against its function in f32: snake1 and snake2
+        rounded to bf16 as the operand type does, sums in f32.  Sums in
+        another order move a rounded G by one bf16 ulp now and then, and y
+        is rounded to bf16, so the limit is 2 % of max |y|: a wrong fragment
+        or operand layout is off by the order of |y| itself."""
+        dev = _cuda()
+        args = [torch.from_numpy(a).to(dev, torch.bfloat16)
+                for a in _resunit_inputs(rng, 2, 300, C)]
+        got = fused_residual_unit(*args, 9).float()
+        x, w7, b7, w1, b1, a1, be1, a2, be2 = (a.float() for a in args)
+        bf = lambda t: t.bfloat16().float()  # noqa: E731
+        h = bf(snake_beta_vae(x, a1, be1))
+        h = F.conv1d(h.transpose(1, 2), w7.permute(2, 1, 0), b7, padding=27,
+                     dilation=9).transpose(1, 2)
+        want = x + (bf(snake_beta_vae(h, a2, be2)) @ w1 + b1)
+        err = (got - want).abs().max().item()
+        assert err <= 0.02 * want.abs().max().item(), err
+
+    def test_resunit_refuses_what_the_kernel_cannot_take(self, rng):
+        dev = _cuda()
+        args = [torch.from_numpy(a).to(dev) for a in _resunit_inputs(rng, 1, 100, 96)]
+        with pytest.raises(RuntimeError, match=r"\(1, 100, 96\)"):
+            fused_residual_unit(*args, 1)
