@@ -18,8 +18,25 @@ Phases, each fatal on failure:
   5. the whole path on the card (kernels) against the CPU (plain versions)
      on the same weights and initial latents: s3_l at full width, depth 2,
      1 s, 3 steps, eta 0;
-  6. a ``{"kernels": [...]}`` line, then the card's name and power limit,
+  6. editing on the same EzAudio: ``editing_audio`` at its defaults
+     (CFG 3.5, rescale 0, 100 steps, eta 1) on a seeded 10 s clip, mask
+     [4 s, 7 s), boundary 2 s (clamped to half the mask: a 6 s window);
+  7. long generation: ``generate_long(length=20, window=10, overlap=2)``,
+     one generate and two outpainting edits;
+  8. the fast samplers, 10 s, 1 prompt: DPM-Solver++ at 25 steps; DPM +
+     ``layer_cache=(2, 2)`` + ``guidance_interval`` + ``cfg_refresh=2`` at 25;
+     DDIM + ``layer_cache=(2, 2)`` at 100; ``sampler='distilled'`` at 8;
+  9. card against CPU on the same weights and draws, s3_l at full width,
+     depth 4 (layer caching needs 1 <= k < depth/2): ``editing_audio`` at
+     eta 0, and DPM + ``layer_cache`` + ``guidance_interval`` + ``cfg_refresh``;
+ 10. the launches of each path, a ``{"kernels": [...]}`` line (launches
+     summed over the paths of phases 4-8), the card's name and power limit,
      and last ``{"ok": true, "device": {...}}``.
+
+Every path of phases 4 and 6-8 is driven with the launch counters set to
+0 just before it and read just after, and must launch each kernel exactly
+as often as its model calls and decodes imply; every ResidualUnit shape
+those paths give the kernel must be among the shapes of phase 3.
 
 It exits non-zero, with no result line, when CUDA is unavailable or the
 port's sources are missing.  Bounds use the H100 SXM data-sheet peaks:
@@ -30,6 +47,7 @@ product costs three TF32 products (3xTF32), so f32 work is bounded at
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -103,11 +121,18 @@ def bound_ms(nbytes: float, flops: float, dtype: str):
 ATTN_CASES = [(2, 16, 500, 500, 64, False),   # s3_l self-attention
               (2, 16, 500, 100, 64, True),    # s3_l cross-attention, T5 padding
               (2, 16, 500, 100, 72, True)]    # s3_xl cross-attention (head_dim 72)
-# (B, L, C, dilation): the four decoder blocks of one 10 s clip.
+# (B, L, C, dilation): the four decoder blocks of one 10 s clip, which are
+# also the encoder's blocks of a 10 s window in reverse order.
 RESUNIT_CASES = ([(1, 5000, 512, d) for d in (1, 3, 9)]
                  + [(1, 30000, 256, 9), (1, 120000, 128, 9)]
                  + [(1, 240000, 128, d) for d in (1, 3, 9)]
-                 + [(2, 1001, 256, 9)])       # many tiles, ragged last tile
+                 + [(2, 1001, 256, 9)]        # many tiles, ragged last tile
+                 # encode and decode of phase 6's 6 s window and of phase 7's
+                 # last 3 s window: an editing window is padded to 480 samples,
+                 # not to the kernel's 64-row tile, so most of these are ragged
+                 + [(1, 144000, 128, 1), (1, 72000, 128, 3), (1, 18000, 256, 9),
+                    (1, 3000, 512, 1), (1, 36000, 128, 9), (1, 9000, 256, 3),
+                    (1, 1500, 512, 9)])
 
 
 def attention_agreement(got, want, v):
@@ -230,54 +255,175 @@ def read_counters():
     return fused_attention.launches, fused_residual_unit.launches
 
 
-def main_path(dev="cuda", config=None, length=10.0):
-    import numpy as np
-    import torch
-
+def build_ezaudio(dev="cuda", config=None):
+    """``EzAudio("s3_l")`` (or ``config``) on seeded random weights."""
     from ezaudio_tpu_torch.api.ezaudio import EzAudio
-    from ezaudio_tpu_torch.codecs.oobleck import ResidualUnit
 
     t0 = time.perf_counter()
     ez = EzAudio("s3_l", config=config, device=dev, seed=0)
     sync(dev)
     log(f"main: EzAudio('s3_l') built in {time.perf_counter() - t0:.2f} s, "
         f"{sum(p.numel() for p in ez.dit.parameters()) / 1e9:.3f} B DiT params")
-    depth = ez.params_cfg.model.depth
-    want_attn = 2 * (depth + 1) * 100  # self + cross per block per step
-    want_res = sum(isinstance(m, ResidualUnit) for m in ez.autoencoder.model.modules())
-    n_samples = int(length * ez.latent_sr) * ez.autoencoder.downsampling_ratio
+    return ez
+
+
+def want_attention(depth: int, steps: int, layer_cache=None) -> int:
+    """Attention launches of one sampler run: each full call runs depth + 1
+    blocks, each cached call the 2k blocks around the deep cache, and every
+    block launches self- and cross-attention once (a CFG pair is one call)."""
+    full, cached, k = steps, 0, 0
+    if layer_cache is not None:
+        k, interval = layer_cache
+        cached = (steps // interval) * (interval - 1)
+        full = steps - cached
+    return 2 * (full * (depth + 1) + cached * 2 * k)
+
+
+@contextlib.contextmanager
+def resunit_shapes(seen: set):
+    """Add the (L, C) of every ResidualUnit the codec gives the kernel's
+    wrapper to ``seen``."""
+    from ezaudio_tpu_torch.codecs import oobleck_fast
+
+    orig = oobleck_fast.fused_residual_unit
+
+    def record(x, *args):
+        seen.add(tuple(x.shape[1:]))
+        return orig(x, *args)
+
+    oobleck_fast.fused_residual_unit = record
+    try:
+        yield
+    finally:
+        oobleck_fast.fused_residual_unit = orig
+
+
+def uncovered_shapes(paths, cases=RESUNIT_CASES):
+    """The ResidualUnit (L, C) of the paths that phase 3 does not hold
+    against the plain version."""
+    checked = {(L, C) for _, L, C, _ in cases}
+    return sorted({tuple(s) for p in paths for s in p["resunit_shapes"]} - checked)
+
+
+def run_path(name, dev, fn, want_attn, want_res, audio_s, want_len):
+    """Drive one path with the counters set to 0 just before it and read
+    just after; check its launches and output.  ``audio_s`` is the seconds
+    of audio the call generates, or a function of the ResidualUnit shapes
+    the call gave the kernel (an edit: its window, the longest of them)."""
+    import numpy as np
+    import torch
+
     cuda = torch.device(dev).type == "cuda"
-    prompts = ["a dog barking in the rain", "footsteps on gravel",
-               "a violin playing a slow melody", "thunder rolling in the distance"]
-    results, totals = [], [0, 0]
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    sync(dev)
+    seen = set()
     reset_counters()
-    for n in (1, 4):
-        attn0, res0 = read_counters()
-        if cuda:
-            torch.cuda.reset_peak_memory_stats()
-        sync(dev)
+    with resunit_shapes(seen):
         t0 = time.perf_counter()
-        sr, wav = ez.generate_audio(prompts[:n], length=length, random_seed=1234)
+        wav = fn()
         sync(dev)
         wall = time.perf_counter() - t0
-        attn, res = read_counters()
-        attn, res = attn - attn0, res - res0
-        peak = torch.cuda.max_memory_allocated() / 2**30 if cuda else None
-        row = dict(prompts=n, wav_shape=list(wav.shape), wall_s=wall,
-                   audio_s_per_s=n * length / wall, peak_mem_gib=peak,
-                   attention_launches=attn, resunit_launches=res,
-                   wav_abs_max=float(np.abs(wav).max()), wav_std=float(wav.std()))
-        log("main " + json.dumps(row))
-        if wav.shape != (n, n_samples) or not np.isfinite(wav).all():
-            raise AssertionError(f"main path output {wav.shape}, finite={np.isfinite(wav).all()}")
-        if attn != want_attn or res != want_res:
-            raise AssertionError(f"launch counts {attn}, {res}: want {want_attn}, {want_res}")
-        results.append(row)
-    totals = list(read_counters())
-    del ez
-    if cuda:
-        torch.cuda.empty_cache()
-    return results, totals
+    attn, res = read_counters()
+    if callable(audio_s):
+        audio_s = audio_s(seen)
+    row = dict(path=name, wav_shape=list(wav.shape), wall_s=wall, audio_s=audio_s,
+               audio_s_per_s=audio_s / wall,
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30 if cuda else None,
+               attention_launches=attn, resunit_launches=res,
+               resunit_shapes=sorted(seen, reverse=True),
+               wav_abs_max=float(np.abs(wav).max()), wav_std=float(wav.std()))
+    log(f"{name} " + json.dumps(row))
+    if wav.shape[-1] != want_len or not np.isfinite(wav).all():
+        raise AssertionError(f"{name}: output {wav.shape}, finite={np.isfinite(wav).all()}")
+    if attn != want_attn or res != want_res:
+        raise AssertionError(f"{name}: launch counts {attn}, {res}: want {want_attn}, {want_res}")
+    return row
+
+
+def main_path(ez, length=10.0):
+    """Phase 4: ``generate_audio`` at its defaults for 1 and 4 prompts."""
+    from ezaudio_tpu_torch.codecs.oobleck import ResidualUnit
+
+    depth = ez.params_cfg.model.depth
+    want_res = sum(isinstance(m, ResidualUnit) for m in ez.autoencoder.model.decoder.modules())
+    n_samples = int(length * ez.latent_sr) * ez.autoencoder.downsampling_ratio
+    prompts = ["a dog barking in the rain", "footsteps on gravel",
+               "a violin playing a slow melody", "thunder rolling in the distance"]
+    rows = []
+    for n in (1, 4):
+        row = run_path(f"main[{n}]", ez.device,
+                       lambda: ez.generate_audio(prompts[:n], length=length,
+                                                 random_seed=1234)[1],
+                       2 * (depth + 1) * 100, want_res, n * length, n_samples)
+        if row["wav_shape"] != [n, n_samples]:
+            raise AssertionError(f"main path output {row['wav_shape']}")
+        rows.append(row)
+    return rows
+
+
+def seeded_clip(sr: int, seconds: float):
+    """A seeded test clip: two tones and noise."""
+    import numpy as np
+
+    t = np.arange(int(seconds * sr)) / sr
+    noise = np.random.default_rng(0).standard_normal(t.shape)
+    return (0.4 * np.sin(2 * np.pi * 220 * t) + 0.2 * np.sin(2 * np.pi * 1375 * t)
+            + 0.05 * noise).astype(np.float32)
+
+
+def edit_paths(ez, length=10.0, long_steps=100):
+    """Phases 6 and 7: ``editing_audio`` at its defaults on a ``length`` s
+    clip (mask [0.4, 0.7) of it, boundary 0.2 of it), and
+    ``generate_long`` to twice ``length`` in windows of ``length``."""
+    from ezaudio_tpu_torch.codecs.oobleck import ResidualUnit
+
+    depth = ez.params_cfg.model.depth
+    per_decode = sum(isinstance(m, ResidualUnit) for m in ez.autoencoder.model.decoder.modules())
+    per_encode = sum(isinstance(m, ResidualUnit) for m in ez.autoencoder.model.encoder.modules())
+    clip = seeded_clip(ez.sr, length)
+    edit = dict(boundary=0.2 * length, mask_start=0.4 * length, mask_length=0.3 * length)
+    rows = [run_path("editing", ez.device,
+                     lambda: ez.editing_audio("a dog barking", gt_file=clip,
+                                              random_seed=7, **edit)[1],
+                     2 * (depth + 1) * 100, per_encode + per_decode,
+                     lambda seen: max(L for L, _ in seen) / ez.sr, len(clip))]
+    log(f"long: {long_steps} steps per call")
+    rows.append(run_path(
+        "long", ez.device,
+        lambda: ez.generate_long("rain on a tin roof", length=2 * length, window=length,
+                                 overlap=0.2 * length, ddim_steps=long_steps,
+                                 random_seed=11)[1],
+        3 * 2 * (depth + 1) * long_steps, per_decode + 2 * (per_encode + per_decode),
+        2 * length, int(2 * length * ez.sr)))
+    return rows
+
+
+SAMPLER_RUNS = [
+    ("dpm", dict(sampler="dpm", ddim_steps=25)),
+    ("dpm_cache_band_refresh", dict(sampler="dpm", ddim_steps=25, layer_cache=(2, 2),
+                                    guidance_interval=(300, 800), cfg_refresh=2)),
+    ("ddim_cache", dict(ddim_steps=100, layer_cache=(2, 2))),
+    ("distilled", dict(sampler="distilled", ddim_steps=8)),
+]
+
+
+def sampler_paths(ez, length=10.0, runs=SAMPLER_RUNS):
+    """Phase 8: each fast sampler once, ``length`` s, 1 prompt."""
+    from ezaudio_tpu_torch.codecs.oobleck import ResidualUnit
+
+    depth = ez.params_cfg.model.depth
+    per_decode = sum(isinstance(m, ResidualUnit) for m in ez.autoencoder.model.decoder.modules())
+    n_samples = int(length * ez.latent_sr) * ez.autoencoder.downsampling_ratio
+    rows = []
+    for name, kw in runs:
+        want = want_attention(depth, kw["ddim_steps"], kw.get("layer_cache"))
+        rows.append(run_path(
+            name, ez.device,
+            lambda: ez.generate_audio("a dog barking in the rain", length=length,
+                                      random_seed=5, **kw)[1],
+            want, per_decode, length, n_samples))
+    return rows
 
 
 def card_vs_cpu(gen, dev="cuda", cfg=None):
@@ -320,6 +466,95 @@ def card_vs_cpu(gen, dev="cuda", cfg=None):
     if attn == 0 or res == 0:
         raise AssertionError("reduced pipeline did not reach both kernels")
     return row
+
+
+@contextlib.contextmanager
+def same_draws():
+    """Every draw of the port (``utils.randn``) from a CPU generator seeded
+    by its call index, then moved to the device: card and CPU runs get the
+    same initial latents and VAE posterior noise."""
+    import torch
+
+    from ezaudio_tpu_torch import utils
+
+    orig, count = utils.randn, [0]
+
+    def randn(shape, generator, device, dtype=torch.float32):
+        count[0] += 1
+        g = torch.Generator().manual_seed(1000 + count[0])
+        return torch.randn(tuple(shape), generator=g, dtype=dtype).to(device)
+
+    utils.randn = randn
+    try:
+        yield
+    finally:
+        utils.randn = orig
+
+
+def agreement(name, got, want, extra):
+    """Card (``got``) against CPU (``want``): max error within PIPE_REL_TOL
+    of the CPU output's range and correlation above PIPE_MIN_CORR."""
+    import numpy as np
+
+    err = float(np.abs(got - want).max())
+    scale = float(np.abs(want).max())
+    corr = float(np.corrcoef(got.ravel(), want.ravel())[0, 1])
+    row = dict(extra, shape=list(got.shape), max_abs_err=err, ref_abs_max=scale,
+               rel_err=err / scale, corr=corr, rel_tol=PIPE_REL_TOL, min_corr=PIPE_MIN_CORR)
+    log(f"{name} " + json.dumps(row))
+    if not (np.isfinite(got).all() and err <= PIPE_REL_TOL * scale and corr > PIPE_MIN_CORR):
+        raise AssertionError(f"{name}: card and CPU disagree")
+    return row
+
+
+def card_vs_cpu_fast(dev="cuda", cfg=None, length=1.0):
+    """Phase 9: card against CPU, s3_l at full width and depth 4, the same
+    weights and draws: (a) ``editing_audio`` at eta 0 (hard paste) on a
+    clip of 1.5 ``length`` seconds, compared over its edit window; (b) DPM +
+    ``layer_cache=(1, 2)`` + ``guidance_interval`` + ``cfg_refresh=2`` for
+    ``length`` seconds."""
+    import copy
+
+    from ezaudio_tpu_torch.api.ezaudio import EzAudio
+    from ezaudio_tpu_torch.config import get_model_config
+
+    cfg = copy.deepcopy(cfg if cfg is not None else get_model_config("s3_l").to_dict())
+    cfg["model"]["depth"] = 4
+    gpu = EzAudio(config=cfg, device=dev, seed=4)
+    cpu = EzAudio(config=cfg, device="cpu", seed=4)
+    for a, b in ((gpu.dit, cpu.dit), (gpu.t5, cpu.t5),
+                 (gpu.autoencoder.model, cpu.autoencoder.model)):
+        b.load_state_dict({k: v.cpu() for k, v in a.state_dict().items()})
+
+    def both(fn):
+        """``fn(ez)`` on the card, then on the CPU, with the same draws;
+        the outputs and the card run's launches."""
+        outs = []
+        for ez in (gpu, cpu):
+            reset_counters()
+            with same_draws():
+                outs.append(fn(ez))
+            if ez is gpu:
+                launches = read_counters()
+        return outs, dict(attention_launches=launches[0], resunit_launches=launches[1])
+
+    clip = seeded_clip(gpu.sr, 1.5 * length)
+    (wg, wc), launches = both(lambda ez: ez.editing_audio(
+        "a dog barking", gt_file=clip, boundary=0.25 * length, mask_start=0.5 * length,
+        mask_length=0.5 * length, ddim_steps=3, eta=0.0, random_seed=3)[1])
+    lo, hi = round(0.25 * length * gpu.sr), round(1.25 * length * gpu.sr)  # the window
+    rows = [agreement("card_vs_cpu_edit", wg[lo:hi], wc[lo:hi], launches)]
+    if launches["attention_launches"] == 0 or launches["resunit_launches"] == 0:
+        raise AssertionError("card_vs_cpu_edit did not reach both kernels")
+
+    (wg, wc), launches = both(lambda ez: ez.generate_audio(
+        ["wind through trees", "a dog barking"], length=length, ddim_steps=6, sampler="dpm",
+        layer_cache=(1, 2), guidance_interval=(300, 800), cfg_refresh=2, random_seed=0)[1])
+    rows.append(agreement("card_vs_cpu_dpm_cache", wg, wc, launches))
+    if (launches["attention_launches"] != want_attention(4, 6, (1, 2))
+            or launches["resunit_launches"] == 0):
+        raise AssertionError(f"card_vs_cpu_dpm_cache launches {launches}")
+    return rows
 
 
 def _kernel_class(name: str) -> str:
@@ -413,8 +648,21 @@ def main(argv) -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     attn_rows = check_attention("cuda", gen)
     res_rows = check_resunit("cuda", gen)
-    _, launches = main_path()
+    ez = build_ezaudio()
+    paths = main_path(ez)
     card_vs_cpu(gen)
+    paths += edit_paths(ez)
+    paths += sampler_paths(ez)
+    del ez
+    torch.cuda.empty_cache()
+    card_vs_cpu_fast()
+    missing = uncovered_shapes(paths)
+    if missing:
+        raise AssertionError(f"ResidualUnit shapes of the paths not checked in phase 3: {missing}")
+    launches = [sum(p["attention_launches"] for p in paths),
+                sum(p["resunit_launches"] for p in paths)]
+    log("launches " + json.dumps({p["path"]: [p["attention_launches"], p["resunit_launches"]]
+                                  for p in paths}))
 
     a = attn_rows[0]   # s3_l self-attention, f32: the main path's shape
     r = next(x for x in res_rows if x["shape"] == [1, 240000, 128] and x["dilation"] == 9)

@@ -1,17 +1,25 @@
-"""EzAudio: the end-user text-to-audio facade (counterpart of
-``ezaudio_tpu/api/ezaudio.py::EzAudio``), staged generation path.
+"""EzAudio: the end-user facade (counterpart of
+``ezaudio_tpu/api/ezaudio.py::EzAudio``), staged path.
 
-``generate_audio(text, length=10, guidance_scale=5, guidance_rescale=0.75,
-ddim_steps=100, eta=1, random_seed=None)`` -> (sr, waveform):
-HashTokenizer/tokenizer.json ids -> T5 -> CFG-paired DDIM over MaskDiT ->
-``scale_shift_re`` -> Oobleck decode in chunks of up to 4 clips.
-``text`` may be a list (batched prompts, waveform (B, T)); an all-empty
-batch turns guidance off.
+  * ``generate_audio(text, length=10, guidance_scale=5, guidance_rescale=0.75,
+    ddim_steps=100, eta=1, random_seed=None, sampler='ddim', ...)`` ->
+    (sr, waveform): HashTokenizer/tokenizer.json ids -> T5 -> CFG-paired
+    sampler over MaskDiT -> ``scale_shift_re`` -> Oobleck decode in chunks
+    of up to 4 clips.  ``text`` may be a list (waveform (B, T)); an
+    all-empty batch turns guidance off.  Samplers: ``'ddim'``, ``'dpm'``
+    (DPM-Solver++(2M)), ``'distilled'`` (a distilled student, no CFG);
+    ``guidance_interval``, ``layer_cache`` and ``cfg_refresh`` as in the
+    JAX package;
+  * ``editing_audio(text, boundary, gt_file, mask_start, mask_length, ...)``:
+    mask-based inpainting/outpainting of a clip with boundary windowing;
+  * ``generate_long(text, length, window=10, overlap=2, ...)``: chained
+    outpainting past the training window.
 
 Runs on CUDA unless ``device="cpu"`` is passed; with no GPU and no device
 it raises.  Weights are random, drawn from ``seed``: loading the published
-checkpoints waits for those files.  Arguments this slice does not cover
-raise ``NotImplementedError``.
+checkpoints waits for those files.  ``fused``, ``quant``, ``attn_impl`` and
+``mesh`` raise ``NotImplementedError``.  Every random draw goes through
+``utils.randn`` (ROADMAP F1).
 """
 
 from __future__ import annotations
@@ -23,11 +31,15 @@ import numpy as np
 import torch
 from torch import nn
 
+from ezaudio_tpu_torch import utils
 from ezaudio_tpu_torch.codecs.facade import AutoencoderFacade
 from ezaudio_tpu_torch.codecs.oobleck import vae_from_config
 from ezaudio_tpu_torch.config import ConfigDict, MODEL_REGISTRY, load_config
+from ezaudio_tpu_torch.data.audio_io import load_wav, peak_normalize
 from ezaudio_tpu_torch.diffusion.ddim import DDIMSchedule
-from ezaudio_tpu_torch.diffusion.sampling import sample_latents
+from ezaudio_tpu_torch.diffusion.distill import distill_tables, distilled_sample
+from ezaudio_tpu_torch.diffusion.dpm import dpm_solver_sample
+from ezaudio_tpu_torch.diffusion.sampling import sample_latents, sample_latents_layer_cached
 from ezaudio_tpu_torch.models.maskdit import maskdit_from_config
 from ezaudio_tpu_torch.ops.norms import LayerNorm, RMSNorm
 from ezaudio_tpu_torch.text.t5 import T5Encoder, T5EncoderConfig, T5LayerNorm
@@ -41,6 +53,14 @@ _T5_CONFIGS = {
     "google/flan-t5-xl": T5EncoderConfig.flan_t5_xl,
 }
 _NORMS = (LayerNorm, RMSNorm, T5LayerNorm)
+SAMPLERS = ("ddim", "dpm", "distilled")
+
+
+def _refuse(**args):
+    """Raise for the arguments whose items are not ported yet."""
+    named = [k for k, on in args.items() if on]
+    if named:
+        raise NotImplementedError(f"not ported yet: {', '.join(named)}")
 
 
 @torch.no_grad()
@@ -149,8 +169,17 @@ class EzAudio:
 
     @torch.inference_mode()
     def _generate_latents(self, texts, frames, guidance_scale, guidance_rescale,
-                          ddim_steps, eta, random_seed, initial_latents=None):
+                          ddim_steps, eta, random_seed, initial_latents=None, gt=None,
+                          gt_mask=None, guidance_interval=None, sampler="ddim",
+                          layer_cache=None, cfg_refresh=1):
+        """Sampled latents (B, frames, C).  ``gt`` (B, frames, C) and
+        ``gt_mask`` (B, frames, 1) condition MaskDiT for editing; their rows
+        repeat across the CFG pair."""
+        if sampler not in SAMPLERS:
+            raise ValueError(f"sampler must be one of {SAMPLERS}, got {sampler!r}")
         B = len(texts)
+        if random_seed is None:
+            random_seed = np.random.randint(0, MAX_SEED)
         gen = torch.Generator(device=self.device).manual_seed(int(random_seed))
         cond, cond_mask = self.embed_text(texts)
         if guidance_scale:
@@ -166,17 +195,51 @@ class EzAudio:
             if noise.shape != shape:
                 raise ValueError(f"initial_latents {tuple(noise.shape)}, expected {shape}")
         else:
-            noise = torch.randn(shape, generator=gen, device=self.device, dtype=self.dtype)
+            noise = utils.randn(shape, gen, self.device, self.dtype)
+        if gt is not None:
+            gt = torch.as_tensor(gt, dtype=self.dtype, device=self.device)
+            gt_mask = torch.as_tensor(gt_mask, device=self.device).bool()
 
-        def model_fn(lat, t):
+        def apply(lat, t, **kw):
+            # cond-first CFG order: a single batch (out of band) is ctx[:n]
             n = lat.shape[0]
-            out, _ = self.dit(lat, t, ctx[:n], context_mask=cmask[:n])
+            if gt is not None:
+                r = n // gt.shape[0]
+                kw.update(gt=gt.repeat(r, 1, 1), mae_mask_infer=gt_mask.repeat(r, 1, 1))
+            out, _ = self.dit(lat, t, ctx[:n], context_mask=cmask[:n], **kw)
             return out
 
-        return sample_latents(model_fn, self.noise_scheduler, noise, int(ddim_steps),
-                              guidance_scale=guidance_scale,
+        steps, schedule = int(ddim_steps), self.noise_scheduler
+        cache_fns, interval = None, 1
+        if layer_cache is not None:
+            k, interval = (int(v) for v in layer_cache)
+            cache_fns = (lambda lat, t: apply(lat, t, collect_deep_k=k),
+                         lambda lat, t, deep: apply(lat, t, deep_cache=(k, deep)))
+        if sampler == "dpm":
+            return dpm_solver_sample(
+                apply, schedule, noise, steps, guidance_scale=guidance_scale,
+                guidance_rescale=guidance_rescale, layer_cache_fns=cache_fns,
+                cache_interval=interval, guidance_interval=guidance_interval,
+                cfg_refresh_interval=int(cfg_refresh))
+        if sampler == "distilled":
+            # DDIM on the student's grid, single batch: guidance is distilled in
+            return distilled_sample(apply, schedule, noise, distill_tables(schedule, steps))
+        if cache_fns is not None:
+            return sample_latents_layer_cached(
+                *cache_fns, schedule, noise, steps, cache_interval=interval,
+                guidance_scale=guidance_scale, guidance_rescale=guidance_rescale,
+                eta=float(eta), guidance_interval=guidance_interval, generator=gen)
+        return sample_latents(apply, schedule, noise, steps, guidance_scale=guidance_scale,
                               guidance_rescale=guidance_rescale, eta=float(eta),
-                              generator=gen)
+                              generator=gen, guidance_interval=guidance_interval)
+
+    def _decode(self, pred):
+        """Latents (B, L, C) -> waveform (B, T) on the host; the x480
+        decoder inflates activations ~1000x, so <= 4 clips at once."""
+        B, chunk = pred.shape[0], min(pred.shape[0], 4)
+        wav = torch.cat([self.autoencoder.decode(pred[i: i + chunk])
+                         for i in range(0, B, chunk)], dim=0)[..., 0]
+        return wav.float().cpu().numpy()
 
     # ------------------------------------------------------------------
     @torch.inference_mode()
@@ -201,18 +264,26 @@ class EzAudio:
     ) -> Tuple[int, np.ndarray]:
         """Generate audio from text; returns (sr, waveform).
 
+        ``sampler``: ``'ddim'`` (reference parity, eta-noised), ``'dpm'``
+        (DPM-Solver++(2M), deterministic) or ``'distilled'`` (a distilled
+        student: DDIM on its grid, no CFG pair).
+
+        ``guidance_interval=(t_lo, t_hi)``: the CFG pair only for
+        timesteps inside the band, the conditional model alone elsewhere.
+
+        ``layer_cache=(k, interval)``: every ``interval``-th step runs the
+        full depth and caches the deep U-stack activation; the other steps
+        recompute only ``k`` in-blocks and ``k`` out-blocks around it.
+
+        ``cfg_refresh=P`` (``sampler='dpm'`` only): the uncond branch on
+        every P-th in-band step (every P-th cache group), the carried
+        guidance delta on the others.
+
         ``initial_latents``: optional (B, frames, C) starting noise in
         place of the seeded draw; the eta noise of each step comes from a
         generator seeded with ``random_seed``.
         """
-        unsupported = {"sampler": sampler != "ddim", "fused": bool(fused),
-                       "quant": quant is not None, "layer_cache": layer_cache is not None,
-                       "guidance_interval": guidance_interval is not None,
-                       "attn_impl": attn_impl is not None,
-                       "cfg_refresh": int(cfg_refresh) != 1}
-        named = [k for k, on in unsupported.items() if on]
-        if named:
-            raise NotImplementedError(f"not ported yet: {', '.join(named)}")
+        _refuse(fused=bool(fused), quant=quant is not None, attn_impl=attn_impl is not None)
         batched = not isinstance(text, str)
         texts = list(text) if batched else [text]
         if all(t == "" for t in texts):
@@ -220,15 +291,152 @@ class EzAudio:
             guidance_scale = None
         if randomize_seed or random_seed is None:
             random_seed = np.random.randint(0, MAX_SEED)
+        if sampler == "distilled":
+            # guidance is folded into the student; the cache and band
+            # schedules are defined on the full-grid samplers
+            guidance_scale = None
+            if layer_cache is not None or guidance_interval is not None:
+                raise ValueError("sampler='distilled' does not compose with layer_cache "
+                                 "or guidance_interval")
+        if int(cfg_refresh) != 1 and sampler != "dpm":
+            raise ValueError("cfg_refresh > 1 is implemented for sampler='dpm' only "
+                             f"(got sampler={sampler!r})")
 
         frames = int(length * self.latent_sr)
         latents = self._generate_latents(
             texts, frames, guidance_scale, guidance_rescale, ddim_steps, eta,
-            random_seed, initial_latents=initial_latents)
-        pred = scale_shift_re(latents, self.scale, self.shift)
-        # the x480 decoder inflates activations ~1000x: decode <= 4 clips at once
-        B, chunk = pred.shape[0], min(pred.shape[0], 4)
-        wav = torch.cat([self.autoencoder.decode(pred[i: i + chunk])
-                         for i in range(0, B, chunk)], dim=0)[..., 0]
-        wav = wav.float().cpu().numpy()
+            random_seed, initial_latents=initial_latents,
+            guidance_interval=guidance_interval, sampler=sampler,
+            layer_cache=layer_cache, cfg_refresh=cfg_refresh)
+        wav = self._decode(scale_shift_re(latents, self.scale, self.shift))
         return self.sr, (wav if batched else wav[0])
+
+    # ------------------------------------------------------------------
+    def generate_long(
+        self,
+        text: str,
+        length: float,
+        window: float = 10.0,
+        overlap: float = 2.0,
+        guidance_scale: Optional[float] = 5,
+        guidance_rescale: float = 0.75,
+        ddim_steps: int = 100,
+        eta: float = 1,
+        random_seed: Optional[int] = None,
+        quant: Optional[str] = None,
+        layer_cache: Optional[Tuple[int, int]] = None,
+        attn_impl: Optional[str] = None,
+    ) -> Tuple[int, np.ndarray]:
+        """Audio longer than the training window by chained outpainting:
+        the first ``window`` seconds, then ``editing_audio`` extensions with
+        ``overlap`` seconds of boundary context, seeds ``random_seed + step``."""
+        _refuse(quant=quant is not None, attn_impl=attn_impl is not None)
+        if not window > overlap >= 0:
+            raise ValueError(f"need window > overlap >= 0, got {window}, {overlap}")
+        sr = self.sr
+        if random_seed is None:
+            random_seed = np.random.randint(0, MAX_SEED)
+        _, audio = self.generate_audio(
+            text, length=min(window, length), guidance_scale=guidance_scale,
+            guidance_rescale=guidance_rescale, ddim_steps=ddim_steps, eta=eta,
+            random_seed=random_seed, layer_cache=layer_cache)
+        step = 0
+        while len(audio) < int(length * sr):
+            step += 1
+            cur_s = len(audio) / sr
+            ext = min(window - overlap, length - cur_s)
+            _, audio = self.editing_audio(
+                text, boundary=overlap, gt_file=audio, mask_start=cur_s, mask_length=ext,
+                guidance_scale=guidance_scale, guidance_rescale=guidance_rescale,
+                ddim_steps=ddim_steps, eta=eta, random_seed=random_seed + step,
+                layer_cache=layer_cache)
+        return sr, audio[: int(length * sr)]
+
+    # ------------------------------------------------------------------
+    @torch.inference_mode()
+    def editing_audio(
+        self,
+        text: str,
+        boundary: float,
+        gt_file: Union[str, np.ndarray],
+        mask_start: float,
+        mask_length: float,
+        guidance_scale: Optional[float] = 3.5,
+        guidance_rescale: float = 0.0,
+        ddim_steps: int = 100,
+        eta: float = 1,
+        random_seed: Optional[int] = None,
+        randomize_seed: bool = False,
+        quant: Optional[str] = None,
+        layer_cache: Optional[Tuple[int, int]] = None,
+        attn_impl: Optional[str] = None,
+        crossfade: float = 0.0,
+    ) -> Tuple[int, np.ndarray]:
+        """Regenerate ``[mask_start, mask_start + mask_length)`` seconds of
+        ``gt_file`` (a wav path or a waveform), with ``boundary`` seconds of
+        context on each side; a mask past the end extends the clip
+        (outpainting).  Returns (sr, waveform).
+
+        ``crossfade`` (seconds; 0 is the reference's hard paste): blend
+        generated and gt latents linearly over this span just inside each
+        mask edge.  A mask of fewer than 2 latent frames takes the hard
+        paste (the JAX package writes its ramp outside such a mask,
+        ROADMAP F4).
+        """
+        _refuse(quant=quant is not None, attn_impl=attn_impl is not None)
+        if text == "":
+            guidance_scale = None
+        if randomize_seed:
+            random_seed = np.random.randint(0, MAX_SEED)
+        sr = self.sr
+        if isinstance(gt_file, str):
+            gt = load_wav(gt_file, sr)
+        else:
+            gt = np.asarray(gt_file, np.float32)
+        gt = peak_normalize(gt)
+
+        # host index arithmetic exactly as the JAX package (Python round)
+        mask_end = mask_start + mask_length
+        audio_length = len(gt) / sr
+        mask_start = min(mask_start, audio_length)
+        if mask_end > audio_length:  # outpainting: zero-pad the tail
+            gt = np.pad(gt, (0, round((mask_end - audio_length) * sr)), "constant")
+            audio_length = len(gt) / sr
+        output_audio = gt.copy()
+
+        boundary = min((mask_end - mask_start) / 2, boundary)
+        start_idx = max(mask_start - boundary, 0)
+        end_idx = min(mask_end + boundary, audio_length)
+        mask_start -= start_idx
+        mask_end -= start_idx
+
+        window = gt[round(start_idx * sr): round(end_idx * sr)]
+        window_p = np.pad(window, (0, (-len(window)) % self.autoencoder.downsampling_ratio))
+        enc_gen = torch.Generator(device=self.device).manual_seed(int(random_seed or 0))
+        gt_latent = self.autoencoder.encode(window_p[None, :, None], generator=enc_gen)
+        B, L, _ = gt_latent.shape
+
+        s0, s1 = round(mask_start * self.latent_sr), round(mask_end * self.latent_sr)
+        gt_mask = torch.zeros((B, L, 1), dtype=torch.bool, device=self.device)
+        gt_mask[:, s0:s1] = True
+        latents = self._generate_latents(
+            [text], L, guidance_scale, guidance_rescale, ddim_steps, eta, random_seed,
+            gt=gt_latent, gt_mask=gt_mask, layer_cache=layer_cache)
+        pred = scale_shift_re(latents, self.scale, self.shift)
+        # paste the unmasked gt back (inference.py:104-105), then decode
+        if crossfade > 0.0 and s1 - s0 >= 2:
+            xf = max(1, min(round(crossfade * self.latent_sr), (s1 - s0) // 2))
+            w = np.zeros(L, np.float32)
+            w[s0:s1] = 1.0
+            ramp = np.arange(1, xf + 1, dtype=np.float32) / (xf + 1)
+            w[s0: s0 + xf] = ramp
+            w[s1 - xf: s1] = ramp[::-1]
+            w = torch.from_numpy(w).to(self.device)[None, :, None]
+            pred = w * pred + (1.0 - w) * gt_latent
+        else:
+            pred = torch.where(gt_mask, pred, gt_latent)
+        wav = self._decode(pred)[0]
+
+        chunk = round((end_idx - start_idx) * sr)
+        output_audio[round(start_idx * sr): round(start_idx * sr) + chunk] = wav[:chunk]
+        return sr, output_audio

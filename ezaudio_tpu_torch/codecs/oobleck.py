@@ -1,15 +1,19 @@
-"""Oobleck VAE decoder (counterpart of ``ezaudio_tpu/codecs/oobleck.py``).
+"""Oobleck VAE (counterpart of ``ezaudio_tpu/codecs/oobleck.py``).
 
-Reference ``src/modules/stable_vae/models/autoencoders.py`` decoder:
-WNConv stem (k7) -> per-stride DecoderBlock [snake + ConvTranspose(k=2s,
-p=ceil(s/2)) + 3 dilated ResidualUnits (1, 3, 9)] -> snake -> Conv(k7, no
-bias) -> optional tanh; SnakeBeta with log-scale per-channel alpha/beta.
+Reference ``src/modules/stable_vae/models/autoencoders.py``:
 
-Modules keep the reference's ``layers`` Sequential indices, so a reference
-state dict loads after its weight norm is folded
-(``convert/from_jax.py::fold_weight_norm``).  Inside, tensors are torch's
-(B, C, T); :class:`OobleckDecoder` takes and returns channel-last
-(B, L, C) like the JAX package.  The encoder waits for editing.
+  * encoder: WNConv stem (k7) -> per-stride EncoderBlock [3 dilated
+    ResidualUnits (1, 3, 9) at the block's input width + snake + strided
+    Conv(k=2s, p=ceil(s/2))] -> snake -> Conv(k3) to 2*latent (mean || scale);
+  * decoder: WNConv stem (k7) -> per-stride DecoderBlock [snake +
+    ConvTranspose(k=2s, p=ceil(s/2)) + 3 dilated ResidualUnits (1, 3, 9)]
+    -> snake -> Conv(k7, no bias) -> optional tanh;
+
+SnakeBeta with log-scale per-channel alpha/beta.  Modules keep the
+reference's ``layers`` Sequential indices, so a reference state dict loads
+after its weight norm is folded (``convert/from_jax.py::fold_weight_norm``).
+Inside, tensors are torch's (B, C, T); encoder and decoder take and return
+channel-last (B, L, C) like the JAX package.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ezaudio_tpu_torch import utils
 from ezaudio_tpu_torch.ops.activations import snake_beta_vae
 
 
@@ -52,6 +57,19 @@ class ResidualUnit(nn.Module):
         return x + self.layers(x)
 
 
+class EncoderBlock(nn.Module):
+    def __init__(self, in_channels: int, out_channels: int, stride: int):
+        super().__init__()
+        self.layers = nn.Sequential(
+            *(ResidualUnit(in_channels, d) for d in (1, 3, 9)),
+            SnakeBeta(in_channels),
+            nn.Conv1d(in_channels, out_channels, 2 * stride, stride=stride,
+                      padding=math.ceil(stride / 2)))
+
+    def forward(self, x):
+        return self.layers(x)
+
+
 class DecoderBlock(nn.Module):
     def __init__(self, in_channels: int, out_channels: int, stride: int):
         super().__init__()
@@ -63,6 +81,23 @@ class DecoderBlock(nn.Module):
 
     def forward(self, x):
         return self.layers(x)
+
+
+class OobleckEncoder(nn.Module):
+    def __init__(self, in_channels: int = 1, channels: int = 128, latent_dim: int = 256,
+                 c_mults: Sequence[int] = (1, 2, 4, 8), strides: Sequence[int] = (2, 4, 6, 10)):
+        super().__init__()
+        mults = (1,) + tuple(c_mults)
+        layers = [nn.Conv1d(in_channels, mults[0] * channels, 7, padding=3)]
+        for i, s in enumerate(strides):
+            layers.append(EncoderBlock(mults[i] * channels, mults[i + 1] * channels, s))
+        layers += [SnakeBeta(mults[-1] * channels),
+                   nn.Conv1d(mults[-1] * channels, latent_dim, 3, padding=1)]
+        self.layers = nn.Sequential(*layers)
+
+    def forward(self, x):
+        """(B, T, in_channels) -> (B, T/prod(strides), latent_dim)."""
+        return self.layers(x.transpose(1, 2)).transpose(1, 2)
 
 
 class OobleckDecoder(nn.Module):
@@ -88,7 +123,8 @@ class OobleckDecoder(nn.Module):
 
 
 class AudioVAE(nn.Module):
-    """The decode half of the reference ``AudioAutoencoder`` (Oobleck/vae)."""
+    """The reference ``AudioAutoencoder`` for the Oobleck/vae configuration:
+    encoder (to mean || scale), VAE bottleneck, decoder."""
 
     def __init__(self, io_channels: int = 1, channels: int = 128, latent_dim: int = 128,
                  c_mults: Sequence[int] = (1, 2, 4, 8), strides: Sequence[int] = (2, 4, 6, 10),
@@ -96,8 +132,14 @@ class AudioVAE(nn.Module):
         super().__init__()
         self.latent_dim = latent_dim
         self.downsampling_ratio = math.prod(strides)
+        self.encoder = OobleckEncoder(io_channels, channels, 2 * latent_dim, c_mults, strides)
         self.decoder = OobleckDecoder(io_channels, channels, latent_dim, c_mults,
                                       strides, final_tanh)
+
+    def encode(self, audio, sample: bool = True,
+               generator: Optional[torch.Generator] = None):
+        """audio (B, T, 1) -> latent (B, T/prod(strides), latent_dim)."""
+        return vae_sample(self.encoder(audio), sample, generator)
 
     def decode(self, z):
         return self.decoder(z)
@@ -111,12 +153,12 @@ def vae_sample(mean_scale, sample: bool = True,
     if not sample:
         return mean
     stdev = F.softplus(scale) + 1e-4
-    return mean + stdev * torch.randn(mean.shape, generator=generator,
-                                      device=mean.device, dtype=mean.dtype)
+    return mean + stdev * utils.randn(mean.shape, generator, mean.device, mean.dtype)
 
 
 def vae_from_config(cfg: dict) -> AudioVAE:
-    """Build from a reference-format vae config.json dict."""
+    """Build from a reference-format vae config.json dict (the encoder
+    mirrors the decoder's geometry)."""
     m = cfg["model"]
     dec = m["decoder"]["config"]
     if m["bottleneck"]["type"] != "vae":

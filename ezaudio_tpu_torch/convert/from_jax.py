@@ -8,8 +8,8 @@ package's torch -> jax converters:
 
   * :func:`maskdit_state_dict_from_jax` — ``dit_params["params"]`` ->
     :class:`~ezaudio_tpu_torch.models.maskdit.MaskDiT` state dict;
-  * :func:`vae_state_dict_from_jax` — AudioVAE params (``decoder``
-    subtree) -> :class:`~ezaudio_tpu_torch.codecs.oobleck.AudioVAE`;
+  * :func:`vae_state_dict_from_jax` — AudioVAE params (``encoder`` and
+    ``decoder`` subtrees) -> :class:`~ezaudio_tpu_torch.codecs.oobleck.AudioVAE`;
   * :func:`t5_state_dict_from_jax` — T5 params ->
     :class:`~ezaudio_tpu_torch.text.t5.T5Encoder`.
 
@@ -125,22 +125,36 @@ def _snake(dst, prefix, p):
     dst[f"{prefix}.beta"] = _t(p["beta"])
 
 
+def _resunit(dst, prefix, p):
+    _snake(dst, f"{prefix}.layers.0", p["act1"])
+    _conv(dst, f"{prefix}.layers.1", p["conv1"])
+    _snake(dst, f"{prefix}.layers.2", p["act2"])
+    _conv(dst, f"{prefix}.layers.3", p["conv2"])
+
+
 def vae_state_dict_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-    """JAX AudioVAE params -> port AudioVAE state dict (decoder only)."""
+    """JAX AudioVAE params -> port AudioVAE state dict (encoder and decoder)."""
+    sd: Dict[str, torch.Tensor] = {}
+    enc = params["encoder"]
+    n = sum(1 for k in enc if k.startswith("block"))
+    _conv(sd, "encoder.layers.0", enc["stem"])
+    for i in range(n):
+        bp, pre = enc[f"block{i}"], f"encoder.layers.{1 + i}.layers"
+        for r in range(3):
+            _resunit(sd, f"{pre}.{r}", bp[f"res{r}"])
+        _snake(sd, f"{pre}.3", bp["act"])
+        _conv(sd, f"{pre}.4", bp["down"])
+    _snake(sd, f"encoder.layers.{1 + n}", enc["act"])
+    _conv(sd, f"encoder.layers.{2 + n}", enc["head"])
     dec = params["decoder"]
     n = sum(1 for k in dec if k.startswith("block"))
-    sd: Dict[str, torch.Tensor] = {}
     _conv(sd, "decoder.layers.0", dec["stem"])
     for j in range(n):
         bp, pre = dec[f"block{j}"], f"decoder.layers.{1 + j}.layers"
         _snake(sd, f"{pre}.0", bp["act"])
         _conv_t(sd, f"{pre}.1", bp["up"])
         for r in range(3):
-            rp, rpre = bp[f"res{r}"], f"{pre}.{2 + r}.layers"
-            _snake(sd, f"{rpre}.0", rp["act1"])
-            _conv(sd, f"{rpre}.1", rp["conv1"])
-            _snake(sd, f"{rpre}.2", rp["act2"])
-            _conv(sd, f"{rpre}.3", rp["conv2"])
+            _resunit(sd, f"{pre}.{2 + r}", bp[f"res{r}"])
     _snake(sd, f"decoder.layers.{1 + n}", dec["act"])
     _conv(sd, f"decoder.layers.{2 + n}", dec["head"])
     return sd

@@ -31,8 +31,10 @@ class MaskDiT(nn.Module):
             self.mask_embed = nn.Parameter(torch.zeros(out_chans))
 
     def forward(self, x, timesteps, context=None, x_mask=None, context_mask=None,
-                gt=None, mae_mask_infer=None):
-        """Returns (output, mae_mask) with mae_mask float (B, L, C)."""
+                gt=None, mae_mask_infer=None, collect_deep_k=None, deep_cache=None):
+        """Returns (output, mae_mask) with mae_mask float (B, L, C).
+        ``collect_deep_k`` / ``deep_cache`` go to UDiT's layer caching;
+        with ``collect_deep_k`` the output is the pair ``(out, deep)``."""
         B, L, C = x.shape
         mae_mask = torch.ones_like(x)
         if self.mae:
@@ -47,8 +49,8 @@ class MaskDiT(nn.Module):
             else:
                 gt = embed
             x = torch.cat([x, gt, mae_mask[:, :, 0:1]], dim=-1)
-        out = self.model(x, timesteps, context, x_mask=x_mask,
-                         context_mask=context_mask)
+        out = self.model(x, timesteps, context, x_mask=x_mask, context_mask=context_mask,
+                         collect_deep_k=collect_deep_k, deep_cache=deep_cache)
         return out, mae_mask
 
 

@@ -5,8 +5,9 @@ This slice covers the EzAudio settings: 1d input, AdaLN-SOLA time fusion
 (shared ``time_ada`` -> 6*dim and ``time_ada_final`` -> 2*dim), per-block
 cross-attention to the context, ``none`` positional embeddings.
 depth//2 in-blocks collect skips, a mid block, depth//2 out-blocks pop
-them in reverse, then the FinalBlock.  Layer caching (``deep_cache``) and
-ControlNet skips raise until they are ported.
+them in reverse, then the FinalBlock.  Cross-step layer caching
+(``collect_deep_k`` / ``deep_cache``) splits that stack; ControlNet skips
+raise until they are ported.
 """
 
 from __future__ import annotations
@@ -73,9 +74,26 @@ class UDiT(nn.Module):
     def forward(self, x, timesteps, context, x_mask=None, context_mask=None,
                 controlnet_skips=None, deep_cache=None, collect_deep_k=None):
         """x: (B, T, in_chans); timesteps: (B,) or scalar; context:
-        (B, Lc, context_dim); context_mask: (B, Lc) bool."""
-        if controlnet_skips is not None or deep_cache is not None or collect_deep_k is not None:
-            raise NotImplementedError("ControlNet skips and layer caching are not ported yet")
+        (B, Lc, context_dim); context_mask: (B, Lc) bool.
+
+        Layer caching (1 <= k < depth//2):
+
+          * ``collect_deep_k=k``: the full forward, returning ``(out,
+            deep)`` with ``deep`` the activation after
+            ``out_blocks[half-k-1]``;
+          * ``deep_cache=(k, deep)``: run ``in_blocks[:k]``, substitute
+            ``deep`` for the middle of the U, run ``out_blocks[half-k:]``
+            and the final block.  Exact at the step that collected ``deep``.
+        """
+        if controlnet_skips is not None:
+            raise NotImplementedError("ControlNet skips are not ported yet")
+        half = len(self.in_blocks)
+        if deep_cache is not None and collect_deep_k is not None:
+            raise ValueError("pass deep_cache or collect_deep_k, not both")
+        cache_k = deep_cache[0] if deep_cache is not None else None
+        for k in (cache_k, collect_deep_k):
+            if k is not None and not 1 <= k < half:
+                raise ValueError(f"layer cache k={k} must satisfy 1 <= k < {half}")
         timesteps = torch.as_tensor(timesteps, device=x.device)
         if timesteps.ndim == 0:
             timesteps = timesteps.expand(x.shape[0])
@@ -86,14 +104,24 @@ class UDiT(nn.Module):
         time_ada_final = self.time_ada_final(time_token)
         time_ada = self.time_ada(time_token)
 
+        def run(blk, x, skip=None):
+            return blk(x, time_token, time_ada, skip, context_token, x_mask, context_mask)
+
         skips = []
-        for blk in self.in_blocks:
-            x = blk(x, time_token, time_ada, None, context_token, x_mask, context_mask)
+        for blk in self.in_blocks[:half if cache_k is None else cache_k]:
+            x = run(blk, x)
             if self.skip:
                 skips.append(x)
-        x = self.mid_block(x, time_token, time_ada, None, context_token, x_mask,
-                           context_mask)
-        for blk in self.out_blocks:
-            skip = skips.pop() if self.skip else None
-            x = blk(x, time_token, time_ada, skip, context_token, x_mask, context_mask)
-        return self.final_block(x, time_ada_final)
+        deep = None
+        if cache_k is None:
+            x = run(self.mid_block, x)
+            out_blocks = self.out_blocks
+        else:
+            x = deep_cache[1].to(x.dtype)
+            out_blocks = self.out_blocks[half - cache_k:]
+        for i, blk in enumerate(out_blocks):
+            x = run(blk, x, skips.pop() if self.skip else None)
+            if collect_deep_k is not None and i == half - collect_deep_k - 1:
+                deep = x
+        out = self.final_block(x, time_ada_final)
+        return (out, deep) if collect_deep_k is not None else out

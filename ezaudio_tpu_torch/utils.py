@@ -12,6 +12,17 @@ def scale_shift_re(x, scale: float, shift: float):
     return (x / scale) - shift
 
 
+def randn(shape, generator: Optional[torch.Generator], device, dtype=torch.float32):
+    """A standard-normal draw from ``generator``.
+
+    Every draw of the port's entry points goes through this one function
+    (initial latents, the VAE posterior sample, the DDIM eta noise), so a
+    parity test can substitute the JAX package's ``jax.random`` draws,
+    which torch cannot reproduce (ROADMAP F1).
+    """
+    return torch.randn(tuple(shape), generator=generator, device=device, dtype=dtype)
+
+
 def resolve_device(device: Optional[Union[str, torch.device]]) -> torch.device:
     """The device an entry point runs on: CUDA unless the caller names one.
 

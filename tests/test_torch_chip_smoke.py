@@ -76,15 +76,33 @@ def test_phases_rehearse_on_cpu(monkeypatch):
     assert all(r["max_abs_err"] == 0.0 for r in rows)
 
     cfg = get_model_config("s3_l").to_dict()
-    cfg["model"].update(embed_dim=32, depth=2, num_heads=4, context_dim=16,
+    cfg["model"].update(embed_dim=32, depth=6, num_heads=4, context_dim=16,
                         ada_sola_rank=2, ada_sola_alpha=2)
     cfg["text_encoder"]["model"] = "tiny"
-    results, totals = cs.main_path("cpu", config=cfg, length=0.1)
-    assert [r["attention_launches"] for r in results] == [600, 600]
-    assert [r["resunit_launches"] for r in results] == [12, 12]
-    assert totals == [1200, 24]
+    ez = cs.build_ezaudio("cpu", config=cfg)
+    rows = cs.main_path(ez, length=0.1)
+    assert [r["attention_launches"] for r in rows] == [1400, 1400]
+    assert [r["resunit_launches"] for r in rows] == [12, 12]
     row = cs.card_vs_cpu(gen, dev="cpu", cfg=cfg)
-    assert row["max_abs_err"] == 0.0 and row["attention_launches"] == 18
+    assert row["max_abs_err"] == 0.0 and row["attention_launches"] == 42
+
+    # every path's launches are checked inside run_path; pin the counts here
+    rows = cs.edit_paths(ez, length=0.1, long_steps=4) + cs.sampler_paths(ez, length=0.1)
+    counts = {r["path"]: [r["attention_launches"], r["resunit_launches"]] for r in rows}
+    assert counts == {"editing": [1400, 24], "long": [168, 60], "dpm": [350, 12],
+                      "dpm_cache_band_refresh": [278, 12], "ddim_cache": [1100, 12],
+                      "distilled": [112, 12]}
+    assert rows[0]["wav_shape"] == [2400] and rows[1]["wav_shape"] == [4800]
+    # the edit's boundary is clamped to half its mask: a 0.06 s window, which
+    # the encoder and the decoder give the kernel at 1440 samples
+    assert rows[0]["audio_s"] == pytest.approx(0.06)
+    assert rows[0]["resunit_shapes"] == [(1440, 128), (720, 128), (180, 256), (30, 512)]
+    assert cs.uncovered_shapes(rows[:1]) == [(30, 512), (180, 256), (720, 128), (1440, 128)]
+    assert cs.uncovered_shapes(rows[:1], [(1, 1440, 128, 1), (1, 720, 128, 3),
+                                          (1, 180, 256, 9), (1, 30, 512, 1)]) == []
+    rows = cs.card_vs_cpu_fast(dev="cpu", cfg=cfg, length=0.1)
+    assert [r["max_abs_err"] for r in rows] == [0.0, 0.0]
+    assert rows[1]["attention_launches"] == 42
 
 
 def _attention_variant(q, k, v, fault=None):

@@ -85,6 +85,27 @@ class TestAgainstJax:
         _, b = ez.generate_audio([""], guidance_scale=None, **kw)
         np.testing.assert_array_equal(a, b)
 
+    @pytest.mark.parametrize("kw", [
+        dict(sampler="dpm"),
+        dict(layer_cache=(1, 2)),
+        dict(guidance_interval=(100, 900)),
+        dict(sampler="dpm", cfg_refresh=2),
+        dict(sampler="dpm", layer_cache=(1, 2), guidance_interval=(100, 900)),
+        dict(sampler="distilled"),
+    ])
+    def test_sampler_arguments_match_jax(self, tiny_pair, kw):
+        """The fast-sampler arguments of generate_audio, 3 steps, eta 0,
+        same initial latents: waveform atol 1e-4 and corr > 0.9999."""
+        jez, ez = tiny_pair
+        noise = np.random.default_rng(4).standard_normal((1, 50, 8)).astype(np.float32)
+        kw = dict(kw, length=1.0, guidance_scale=3.0, guidance_rescale=0.5, ddim_steps=3,
+                  eta=0.0, random_seed=0, initial_latents=noise)
+        _, want = jez.generate_audio("a dog barking", **kw)
+        _, got = ez.generate_audio("a dog barking", **kw)
+        assert got.shape == want.shape == (800,)
+        np.testing.assert_allclose(got, want, atol=1e-4)
+        assert np.corrcoef(got, want)[0, 1] > 0.9999
+
     def test_eta_noise_is_seeded(self, tiny_pair):
         _, ez = tiny_pair
         kw = dict(length=0.5, ddim_steps=2, eta=1.0)
@@ -96,40 +117,46 @@ class TestAgainstJax:
         assert not np.array_equal(a, c)
 
 
+def golden_ezaudio():
+    """The port's EzAudio on the reference-torch pipeline golden's state
+    dicts (loaded by name) and its golden arrays."""
+    from scripts.gen_goldens import TINY_DIT_CFG
+
+    d = dict(np.load(os.path.join(FIXTURES, "pipeline_tiny.npz"), allow_pickle=False))
+    config = dict(
+        model_name="EzAudio-PipelineTiny", model=dict(TINY_DIT_CFG),
+        autoencoder=dict(name="stable_vae", dim=8, sr=256, latent_sr=32, q_first=True,
+                         scale=float(d["scale"]), shift=float(d["shift"])),
+        text_encoder=dict(model="tiny-t5", max_length=int(d["max_length"]), cfg=0.1),
+        diff=dict(num_train_timesteps=1000, beta_schedule="scaled_linear",
+                  beta_start=0.00085, beta_end=0.012, prediction_type="v_prediction",
+                  rescale_betas_zero_snr=True, timestep_spacing="trailing",
+                  clip_sample=False))
+    vae_config = dict(model=dict(
+        decoder=dict(type="oobleck", config=dict(
+            out_channels=1, channels=8, c_mults=[1, 2], strides=[2, 4], latent_dim=8,
+            use_snake=True, final_tanh=False)),
+        bottleneck=dict(type="vae"), latent_dim=8, io_channels=1))
+    t5_cfg = T5EncoderConfig(vocab_size=256, d_model=24, d_kv=8, d_ff=32,
+                             num_layers=2, num_heads=4)
+    ez = EzAudio(config=config, vae_config=vae_config, t5_config=t5_cfg, device="cpu")
+
+    def part(prefix):
+        return {k[len(prefix):]: torch.from_numpy(v) for k, v in d.items()
+                if k.startswith(prefix)}
+
+    ez.dit.load_state_dict(part("dit."))
+    ez.t5.load_state_dict(t5_state_dict_from_hf(part("t5.")))
+    ez.autoencoder.model.decoder.load_state_dict(fold_weight_norm(part("dec.")))
+    return ez, d
+
+
 class TestAgainstReferenceGolden:
     def test_pipeline_golden(self):
         """Reference torch pipeline (HashTokenizer -> T5 -> 25-step DDIM +
         CFG + rescale -> decode), its state dicts loaded by name: atol 1e-4
         and corr > 0.9999, as tests/test_parity.py holds the JAX package."""
-        from scripts.gen_goldens import TINY_DIT_CFG
-
-        d = dict(np.load(os.path.join(FIXTURES, "pipeline_tiny.npz"), allow_pickle=False))
-        config = dict(
-            model_name="EzAudio-PipelineTiny", model=dict(TINY_DIT_CFG),
-            autoencoder=dict(name="stable_vae", dim=8, sr=256, latent_sr=32, q_first=True,
-                             scale=float(d["scale"]), shift=float(d["shift"])),
-            text_encoder=dict(model="tiny-t5", max_length=int(d["max_length"]), cfg=0.1),
-            diff=dict(num_train_timesteps=1000, beta_schedule="scaled_linear",
-                      beta_start=0.00085, beta_end=0.012, prediction_type="v_prediction",
-                      rescale_betas_zero_snr=True, timestep_spacing="trailing",
-                      clip_sample=False))
-        vae_config = dict(model=dict(
-            decoder=dict(type="oobleck", config=dict(
-                out_channels=1, channels=8, c_mults=[1, 2], strides=[2, 4], latent_dim=8,
-                use_snake=True, final_tanh=False)),
-            bottleneck=dict(type="vae"), latent_dim=8, io_channels=1))
-        t5_cfg = T5EncoderConfig(vocab_size=256, d_model=24, d_kv=8, d_ff=32,
-                                 num_layers=2, num_heads=4)
-        ez = EzAudio(config=config, vae_config=vae_config, t5_config=t5_cfg, device="cpu")
-
-        def part(prefix):
-            return {k[len(prefix):]: torch.from_numpy(v) for k, v in d.items()
-                    if k.startswith(prefix)}
-
-        ez.dit.load_state_dict(part("dit."))
-        ez.t5.load_state_dict(t5_state_dict_from_hf(part("t5.")))
-        ez.autoencoder.model.decoder.load_state_dict(fold_weight_norm(part("dec.")))
-
+        ez, d = golden_ezaudio()
         _, wav = ez.generate_audio(
             [str(d["prompt"][0])], length=1.0, guidance_scale=float(d["guidance"]),
             guidance_rescale=float(d["rescale"]), ddim_steps=int(d["steps"]), eta=0.0,
@@ -153,7 +180,7 @@ class TestPackageRules:
         out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                              text=True, timeout=120)
         assert out.returncode == 0, out.stderr
-        assert int(out.stdout.split()[-1]) >= 25
+        assert int(out.stdout.split()[-1]) >= 36
 
     def test_no_silent_cpu(self):
         from ezaudio_tpu_torch.utils import resolve_device
@@ -168,13 +195,29 @@ class TestPackageRules:
         with pytest.raises(RuntimeError, match="CUDA"):
             EzAudio(model_name="s3_l")
 
-    @pytest.mark.parametrize("kw", [dict(sampler="dpm"), dict(fused=True),
-                                    dict(quant="int8"), dict(layer_cache=(2, 2)),
-                                    dict(guidance_interval=(100, 900)),
-                                    dict(attn_impl="flash"), dict(cfg_refresh=2)])
+    @pytest.mark.parametrize("kw", [dict(fused=True), dict(quant="int8"),
+                                    dict(attn_impl="flash")])
     def test_uncovered_arguments_raise(self, tiny_pair, kw):
         _, ez = tiny_pair
         with pytest.raises(NotImplementedError):
+            ez.generate_audio("x", length=0.5, ddim_steps=1, **kw)
+
+    def test_mesh_raises(self):
+        from tests.tiny_config import TINY_CONFIG
+
+        with pytest.raises(NotImplementedError, match="mesh"):
+            EzAudio(config=TINY_CONFIG, device="cpu", mesh=object())
+
+    @pytest.mark.parametrize("kw", [dict(sampler="ddim", cfg_refresh=2),
+                                    dict(sampler="distilled", layer_cache=(1, 2)),
+                                    dict(sampler="distilled", guidance_interval=(100, 900))])
+    def test_sampler_guards_raise_as_jax_does(self, tiny_pair, kw):
+        """The port raises ValueError where the JAX package raises
+        (ValueError, or an assert for 'distilled')."""
+        jez, ez = tiny_pair
+        with pytest.raises((AssertionError, ValueError)):
+            jez.generate_audio("x", length=0.5, ddim_steps=1, **kw)
+        with pytest.raises(ValueError):
             ez.generate_audio("x", length=0.5, ddim_steps=1, **kw)
 
     def test_s3_l_config_shapes(self):
