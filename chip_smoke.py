@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py            # every phase; needs one CUDA card
     python3 chip_smoke.py --profile  # build + torch.profiler breakdown of
-                                     # the main path (5 steps), no checks
+                                     # the main path (5 steps), staged and
+                                     # fused, no checks
 
 Phases, each fatal on failure:
   1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
@@ -29,14 +30,33 @@ Phases, each fatal on failure:
   9. card against CPU on the same weights and draws, s3_l at full width,
      depth 4 (layer caching needs 1 <= k < depth/2): ``editing_audio`` at
      eta 0, and DPM + ``layer_cache`` + ``guidance_interval`` + ``cfg_refresh``;
- 10. the launches of each path, a ``{"kernels": [...]}`` line (launches
-     summed over the paths of phases 4-8), the card's name and power limit,
-     and last ``{"ok": true, "device": {...}}``.
+ 10. ``fused=True`` at phase 4's recipe for 1 and 4 prompts on the same
+     EzAudio: the first call (eager warm-up, CUDA graph capture and
+     instantiation, one replay), then two replays; the waveform must equal
+     phase 4's within FUSED_TOL and each replay must launch the kernels as
+     often as a staged call does;
+ 11. ``quant="int8"``, 1 prompt, 100 steps, staged and fused: every
+     (M, K, N) of the int8 products the DiT gave, ``int8_dot`` on the card
+     against its plain version on the CPU (bit-equal), the staged launches
+     equal to the f32 path's, fused int8 equal to staged int8;
+ 12. a ``GenerationServer`` (DPM 25 steps, batches of up to 4, length
+     buckets 5 s and 10 s): four 10 s and two 4 s requests and phase 6's
+     edit; fewer generate batches than generate requests, two served
+     waveforms against their solo calls and the edit against the direct
+     call; then the same requests twice with ``fused=True`` (the first pass
+     captures a graph per signature, the second replays them), each equal
+     to the staged server's waveforms;
+ 13. the launches of each path, a ``{"kernels": [...]}`` line (launches
+     summed over the paths of phases 4-8 and 10-12), the card's name and
+     power limit, and last ``{"ok": true, "device": {...}}``.
 
-Every path of phases 4 and 6-8 is driven with the launch counters set to
-0 just before it and read just after, and must launch each kernel exactly
-as often as its model calls and decodes imply; every ResidualUnit shape
-those paths give the kernel must be among the shapes of phase 3.
+Every path of phases 4, 6-8, 11 and 12 is driven with the launch counters
+set to 0 just before it and read just after, and must launch each kernel
+exactly as often as its model calls and decodes imply.  A fused call runs
+as a CUDA graph whose replays do not pass through the kernels' Python
+wrappers: its launches are those its capture recorded, times its replays.
+Every ResidualUnit shape the paths give the kernel must be among the
+shapes of phase 3.
 
 It exits non-zero, with no result line, when CUDA is unavailable or the
 port's sources are missing.  Bounds use the H100 SXM data-sheet peaks:
@@ -76,6 +96,10 @@ BF16_OFF_SHARE = 1e-3
 RESUNIT_TOL = 1e-4
 PIPE_REL_TOL = 1e-3
 PIPE_MIN_CORR = 0.9999
+# fused against staged on the card: the same kernels on the same inputs in
+# the same order, so equal; the limit leaves room for a library routine
+# that chooses another algorithm inside a graph
+FUSED_TOL = 1e-5
 
 
 def log(msg: str) -> None:
@@ -110,6 +134,28 @@ def time_ms(fn, reps: int = 5, iters: int = 10) -> float:
     return statistics.median(times)
 
 
+def graph_ms(fn, iters: int = 10, reps: int = 5) -> float:
+    """Median device time of one call of ``fn``, replayed from a CUDA graph
+    of ``iters`` calls: no host launch cost (CUDA events)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    return statistics.median(times)
+
+
 def bound_ms(nbytes: float, flops: float, dtype: str):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
@@ -132,7 +178,9 @@ RESUNIT_CASES = ([(1, 5000, 512, d) for d in (1, 3, 9)]
                  # not to the kernel's 64-row tile, so most of these are ragged
                  + [(1, 144000, 128, 1), (1, 72000, 128, 3), (1, 18000, 256, 9),
                     (1, 3000, 512, 1), (1, 36000, 128, 9), (1, 9000, 256, 3),
-                    (1, 1500, 512, 9)])
+                    (1, 1500, 512, 9)]
+                 # decode of phase 12's 5 s length bucket, two clips
+                 + [(2, 2500, 512, 9), (2, 15000, 256, 3), (2, 60000, 128, 1)])
 
 
 def attention_agreement(got, want, v):
@@ -338,7 +386,12 @@ def run_path(name, dev, fn, want_attn, want_res, audio_s, want_len):
         raise AssertionError(f"{name}: output {wav.shape}, finite={np.isfinite(wav).all()}")
     if attn != want_attn or res != want_res:
         raise AssertionError(f"{name}: launch counts {attn}, {res}: want {want_attn}, {want_res}")
+    row["wav"] = wav  # kept for the comparisons of later phases, not logged
     return row
+
+
+PROMPTS = ["a dog barking in the rain", "footsteps on gravel",
+           "a violin playing a slow melody", "thunder rolling in the distance"]
 
 
 def main_path(ez, length=10.0):
@@ -348,12 +401,10 @@ def main_path(ez, length=10.0):
     depth = ez.params_cfg.model.depth
     want_res = sum(isinstance(m, ResidualUnit) for m in ez.autoencoder.model.decoder.modules())
     n_samples = int(length * ez.latent_sr) * ez.autoencoder.downsampling_ratio
-    prompts = ["a dog barking in the rain", "footsteps on gravel",
-               "a violin playing a slow melody", "thunder rolling in the distance"]
     rows = []
     for n in (1, 4):
         row = run_path(f"main[{n}]", ez.device,
-                       lambda: ez.generate_audio(prompts[:n], length=length,
+                       lambda: ez.generate_audio(PROMPTS[:n], length=length,
                                                  random_seed=1234)[1],
                        2 * (depth + 1) * 100, want_res, n * length, n_samples)
         if row["wav_shape"] != [n, n_samples]:
@@ -423,6 +474,287 @@ def sampler_paths(ez, length=10.0, runs=SAMPLER_RUNS):
             lambda: ez.generate_audio("a dog barking in the rain", length=length,
                                       random_seed=5, **kw)[1],
             want, per_decode, length, n_samples))
+    return rows
+
+
+def last_program(ez):
+    """The fused program ``ez`` ran last."""
+    return next(reversed(ez._fused.values()))
+
+
+def mem_gib(fn):
+    import torch
+
+    return fn() / 2**30 if torch.cuda.is_available() else None
+
+
+def fused_run(name, ez, fn, want_attn, want_res, audio_s, replays=2, like=None):
+    """A fused call's first run (warm-up, capture, instantiation, one
+    replay) and ``replays`` more, each checked: equal output across
+    replays, the capture's launches equal to a staged call's, the output
+    within FUSED_TOL of ``like`` (the staged waveform).  Launches are those
+    of one replay times the replays."""
+    import numpy as np
+    import torch
+
+    cuda = torch.device(ez.device).type == "cuda"
+    sync(ez.device)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    mem_before = mem_gib(torch.cuda.memory_allocated)
+    reset_counters()
+    seen = set()
+    with resunit_shapes(seen):
+        t0 = time.perf_counter()
+        wav = fn()
+        sync(ez.device)
+        first_s = time.perf_counter() - t0
+    prog = last_program(ez)
+    mem_after = mem_gib(torch.cuda.memory_allocated)
+    peak_first = mem_gib(torch.cuda.max_memory_allocated)
+    walls = []
+    for _ in range(replays):
+        t0 = time.perf_counter()
+        again = fn()
+        sync(ez.device)
+        walls.append(time.perf_counter() - t0)
+        if not np.array_equal(again, wav):
+            raise AssertionError(f"{name}: a replay gave another waveform")
+    per = dict(prog.launches) if cuda else None
+    calls = prog.replays if cuda else 1 + replays
+    err = None if like is None else float(np.abs(wav - like).max())
+    row = dict(path=name, wav_shape=list(wav.shape), first_call_s=first_s,
+               **{k: v for k, v in prog.timings.items()}, replay_s=walls,
+               audio_s=audio_s, audio_s_per_s=audio_s / statistics.median(walls),
+               mem_before_gib=mem_before, mem_after_capture_gib=mem_after,
+               peak_first_call_gib=peak_first, launches_per_replay=per, replays=calls,
+               max_abs_err_vs_staged=err, tol=FUSED_TOL,
+               resunit_shapes=sorted(seen, reverse=True))
+    log(f"{name} " + json.dumps(row))
+    if not np.isfinite(wav).all():
+        raise AssertionError(f"{name}: output not finite")
+    if err is not None and not err <= FUSED_TOL:
+        raise AssertionError(f"{name}: fused and staged differ by {err}")
+    if cuda and per != {"attention": want_attn, "resunit": want_res}:
+        raise AssertionError(f"{name}: launches per replay {per}: want {want_attn}, {want_res}")
+    if not cuda and read_counters() != (want_attn * calls, want_res * calls):
+        raise AssertionError(f"{name}: eager launches {read_counters()}")
+    row.update(attention_launches=want_attn * calls, resunit_launches=want_res * calls,
+               wav=wav)
+    return row
+
+
+def fused_paths(ez, staged, length=10.0, replays=2):
+    """Phase 10: ``fused=True`` at the main path's recipe for 1 and 4
+    prompts; ``staged`` holds phase 4's rows (their waveforms)."""
+    from ezaudio_tpu_torch.codecs.oobleck import ResidualUnit
+
+    depth = ez.params_cfg.model.depth
+    want_res = sum(isinstance(m, ResidualUnit) for m in ez.autoencoder.model.decoder.modules())
+    rows = []
+    for n, like in zip((1, 4), staged):
+        rows.append(fused_run(
+            f"fused[{n}]", ez,
+            lambda: ez.generate_audio(PROMPTS[:n], length=length, random_seed=1234,
+                                      fused=True)[1],
+            2 * (depth + 1) * 100, want_res, n * length, replays, like["wav"]))
+    return rows
+
+
+@contextlib.contextmanager
+def int8_shapes(seen: set):
+    """Add the (M, K, N) of every int8 product of the DiT to ``seen``."""
+    from ezaudio_tpu_torch.ops import quant
+
+    orig = quant.int8_matmul
+
+    def record(a, b):
+        seen.add((a.shape[0], a.shape[1], b.shape[0]))
+        return orig(a, b)
+
+    quant.int8_matmul = record
+    try:
+        yield
+    finally:
+        quant.int8_matmul = orig
+
+
+def check_int8(dev, gen, shapes):
+    """``int8_dot`` on the card against its plain version (the CPU's
+    float64 product) on the same inputs, at each (M, K, N): bit-equal.
+    Times of what a quantized linear runs per call (``int8_linear`` on the
+    cached int8 weight: quantize the rows, ``torch._int_mm``, rescale) and
+    of the f32 product it replaces (TF32 off): back to back from the host
+    (``*_ms``) and replayed from a CUDA graph (``*_graph_ms``, device
+    time alone)."""
+    import torch
+
+    from ezaudio_tpu_torch.ops.quant import int8_dot, int8_linear, quantize_symmetric
+
+    rows = []
+    for M, K, N in sorted(shapes):
+        x = torch.randn(M, K, device=dev, generator=gen)
+        w = torch.randn(K, N, device=dev, generator=gen) * K ** -0.5
+        got = int8_dot(x, w)
+        want = int8_dot(x.cpu(), w.cpu())
+        equal = bool(torch.equal(got.cpu(), want))
+        wq, ws = quantize_symmetric(w.t().contiguous(), -1)
+        row = dict(shape=[M, K, N], bit_equal=equal,
+                   max_abs_err=(got.cpu() - want).abs().max().item(),
+                   int8_ms=time_ms(lambda: int8_linear(x, wq, ws)),
+                   f32_matmul_ms=time_ms(lambda: x @ w),
+                   int8_graph_ms=graph_ms(lambda: int8_linear(x, wq, ws)),
+                   f32_matmul_graph_ms=graph_ms(lambda: x @ w))
+        log("int8 " + json.dumps(row))
+        if not equal:
+            raise AssertionError(f"int8_dot {row['shape']}: card and plain differ")
+        rows.append(row)
+    return rows
+
+
+def int8_paths(ez, gen, f32_row, length=10.0):
+    """Phase 11: ``quant='int8'`` at the main path's recipe, 1 prompt,
+    staged (launches as the f32 path's) and fused (equal to staged), and
+    ``int8_dot`` against its plain version at every shape of the run."""
+    import numpy as np
+
+    from ezaudio_tpu_torch.codecs.oobleck import ResidualUnit
+
+    depth = ez.params_cfg.model.depth
+    want_res = sum(isinstance(m, ResidualUnit) for m in ez.autoencoder.model.decoder.modules())
+    n_samples = int(length * ez.latent_sr) * ez.autoencoder.downsampling_ratio
+    shapes = set()
+
+    def call(**kw):
+        return ez.generate_audio(PROMPTS[:1], length=length, random_seed=1234,
+                                 quant="int8", **kw)[1]
+
+    with int8_shapes(shapes):
+        row = run_path("int8[1]", ez.device, call, 2 * (depth + 1) * 100, want_res,
+                       length, n_samples)
+    f32 = f32_row["wav"]
+    row.update(int8_shapes=sorted(shapes),
+               vs_f32_max_abs=float(np.abs(row["wav"] - f32).max()),
+               vs_f32_corr=float(np.corrcoef(row["wav"].ravel(), f32.ravel())[0, 1]))
+    log("int8[1] shapes " + json.dumps({k: row[k] for k in
+                                        ("int8_shapes", "vs_f32_max_abs", "vs_f32_corr")}))
+    if not any(m <= 16 for m, _, _ in shapes):
+        raise AssertionError("int8: no product with 16 rows or fewer (the time MLPs)")
+    int8_rows = check_int8(ez.device, gen, shapes)
+    fused = fused_run("fused_int8[1]", ez, lambda: call(fused=True), 2 * (depth + 1) * 100,
+                      want_res, length, 1, row["wav"])
+    return [row, fused], int8_rows
+
+
+def latency_stats(lat):
+    import numpy as np
+
+    return dict(p50_s=float(np.percentile(lat, 50)), max_s=float(np.max(lat)))
+
+
+def served_paths(ez, fused=False, clip_s=10.0, steps=25, lengths=(10.0,) * 4 + (4.0,) * 2,
+                 name=None):
+    """Phase 12: a GenerationServer (DPM, ``steps`` steps, batches of up to
+    4, length buckets 5 s and 10 s) given the ``lengths`` requests and phase
+    6's edit at once; every future resolves; fewer generate batches than
+    generate requests; returns the row and the results.  With ``fused``,
+    a signature met for the first time is warmed up and captured, one met
+    before is replayed."""
+    import numpy as np
+
+    from ezaudio_tpu_torch.serving import GenerationServer
+
+    depth = ez.params_cfg.model.depth
+    clip = seeded_clip(ez.sr, clip_s)
+    edit = dict(boundary=0.2 * clip_s, mask_start=0.4 * clip_s, mask_length=0.3 * clip_s)
+    name = name or ("served_fused" if fused else "served")
+    buckets = [0.5 * max(lengths), max(lengths)]
+    srv = GenerationServer(ez, max_batch_size=4, max_wait_ms=100, length=max(lengths),
+                           length_buckets=buckets, ddim_steps=steps, sampler="dpm",
+                           fused=fused)
+    seen = set()
+    reset_counters()
+    replays_before = {k: p.replays for k, p in ez._fused.items()}
+    sync(ez.device)
+    with resunit_shapes(seen), srv:
+        t0 = time.perf_counter()
+        futs, submitted = [], []
+        for i, length in enumerate(lengths):
+            submitted.append(time.perf_counter())
+            futs.append(srv.submit(PROMPTS[i % 4], seed=100 + i, length=length))
+        submitted.append(time.perf_counter())
+        futs.append(srv.submit_edit("a dog barking", gt_file=clip, seed=7, **edit))
+        done, outs = [], []
+        for f in futs:
+            outs.append(f.result(timeout=600))
+            done.append(time.perf_counter())
+        wall = time.perf_counter() - t0
+    attn, res = read_counters()
+    stats = dict(srv.stats)
+    gen_batches = stats["batches"] - stats["edit_requests"]
+    lat = [d - s for d, s in zip(done, submitted)]
+    # every generate batch holds <= 4 clips: one decode call of 12 units;
+    # an edit encodes and decodes its window
+    per_call, edits = 2 * (depth + 1) * steps, stats["edit_requests"]
+    if not fused or ez.device.type != "cuda":  # no graphs: every call runs eagerly
+        want = (per_call * stats["batches"], 12 * gen_batches + 24 * edits)
+        launches = (attn, res)
+    else:
+        # the generate batches replay graphs: the counters see the edits
+        # and each new program's warm-up and capture, the replays come from
+        # the captures' records
+        new = [k for k in ez._fused if k not in replays_before]
+        ran = {k: p for k, p in ez._fused.items() if p.replays != replays_before.get(k, 0)}
+        if any(p.launches != {"attention": per_call, "resunit": 12} for p in ran.values()):
+            raise AssertionError(f"{name}: launches per replay "
+                                 f"{[p.launches for p in ran.values()]}")
+        replayed = sum(p.replays - replays_before.get(k, 0) for k, p in ran.items())
+        want = (per_call * (edits + 2 * len(new)), 24 * edits + 24 * len(new))
+        launches = (per_call * (edits + replayed), 24 * edits + 12 * replayed)
+    row = dict(path=name, requests=len(futs), wall_s=wall, **latency_stats(lat),
+               audio_s=float(sum(lengths)) + 0.6 * clip_s, stats=stats,
+               attention_launches=launches[0], resunit_launches=launches[1],
+               resunit_shapes=sorted(seen, reverse=True),
+               wav_shapes=[list(np.shape(w)) for _, w in outs])
+    log(f"{name} " + json.dumps(row))
+    if (attn, res) != want:
+        raise AssertionError(f"{name}: counters {attn}, {res}: want {want}")
+    if gen_batches >= len(lengths):
+        raise AssertionError(f"{name}: {gen_batches} generate batches for "
+                             f"{len(lengths)} requests")
+    for (sr, w), length in zip(outs, list(lengths) + [clip_s]):
+        if w.shape != (int(length * sr),) or not np.isfinite(w).all():
+            raise AssertionError(f"{name}: output {w.shape} for {length} s")
+    row["outs"] = [w for _, w in outs]
+    row["requests_made"] = dict(lengths=list(lengths), edit=edit, clip=clip, steps=steps)
+    return row
+
+
+def served_checks(ez, staged, *fused):
+    """Phase 12's comparisons: two served waveforms (a 10 s and a 4 s
+    request) against their solo calls, the served edit against the direct
+    call, and each fused server's waveforms against the staged server's."""
+    import numpy as np
+
+    req = staged["requests_made"]
+    lengths, steps = req["lengths"], req["steps"]
+    rows = []
+    for i in (0, len(lengths) - 1):
+        bucket = max(lengths) if lengths[i] > 0.5 * max(lengths) else 0.5 * max(lengths)
+        _, solo = ez.generate_audio(PROMPTS[i % 4], length=bucket, ddim_steps=steps,
+                                    sampler="dpm", random_seed=100 + i)
+        got = staged["outs"][i]
+        rows.append(agreement(f"served_vs_solo[{i}]", got, solo[: got.shape[0]],
+                              dict(length=lengths[i], bucket=bucket)))
+    _, direct = ez.editing_audio("a dog barking", gt_file=req["clip"], random_seed=7,
+                                 ddim_steps=steps, **req["edit"])
+    rows.append(agreement("served_edit_vs_direct", staged["outs"][-1], direct, {}))
+    for run in fused:
+        err = max(float(np.abs(a - b).max()) for a, b in zip(run["outs"], staged["outs"]))
+        row = dict(max_abs_err=err, tol=FUSED_TOL)
+        log(f"{run['path']}_vs_served " + json.dumps(row))
+        if not err <= FUSED_TOL:
+            raise AssertionError(f"{run['path']} and served differ by {err}")
     return rows
 
 
@@ -572,8 +904,9 @@ def _kernel_class(name: str) -> str:
 
 def profile(steps: int = 5, out_dir: str = "chiprun_out") -> None:
     """Device-time breakdown of the main path (s3_l, 10 s, ``steps`` DDIM
-    steps) with torch.profiler: time per kernel class, busy share of the
-    wall time, and the top kernels (written to ``out_dir``)."""
+    steps), staged and ``fused=True`` (a replay of its graph), with
+    torch.profiler: time per kernel class, busy share of the wall time, and
+    the top kernels (written to ``out_dir``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile as tprofile
 
@@ -581,13 +914,15 @@ def profile(steps: int = 5, out_dir: str = "chiprun_out") -> None:
 
     ez = EzAudio("s3_l", device="cuda", seed=0)
     os.makedirs(out_dir, exist_ok=True)
-    for n in (1, 4):
+    for n, fused in ((1, False), (1, True), (4, False), (4, True)):
         prompts = ["a dog barking in the rain"] * n
-        ez.generate_audio(prompts, ddim_steps=2, random_seed=0)  # warm up
+        # warm up; the fused warm-up captures the profiled call's graph
+        ez.generate_audio(prompts, ddim_steps=steps if fused else 2, random_seed=0,
+                          fused=fused)
         torch.cuda.synchronize()
         with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            ez.generate_audio(prompts, ddim_steps=steps, random_seed=0)
+            ez.generate_audio(prompts, ddim_steps=steps, random_seed=0, fused=fused)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
         by_class, kernels = {}, []
@@ -599,11 +934,12 @@ def profile(steps: int = 5, out_dir: str = "chiprun_out") -> None:
             by_class[_kernel_class(e.key)] = by_class.get(_kernel_class(e.key), 0.0) + t
             kernels.append((t, e.count, e.key))
         busy = sum(by_class.values())
-        row = dict(prompts=n, ddim_steps=steps, wall_ms=wall_ms, device_busy_ms=busy,
-                   busy_share=busy / wall_ms, ms_by_class=by_class)
+        row = dict(prompts=n, fused=fused, ddim_steps=steps, wall_ms=wall_ms,
+                   device_busy_ms=busy, busy_share=busy / wall_ms, ms_by_class=by_class)
         log("profile " + json.dumps(row))
         kernels.sort(reverse=True)
-        with open(os.path.join(out_dir, f"profile_{n}prompt.txt"), "w") as f:
+        tag = "_fused" if fused else ""
+        with open(os.path.join(out_dir, f"profile_{n}prompt{tag}.txt"), "w") as f:
             f.write(json.dumps(row) + "\n")
             for t, cnt, key in kernels[:40]:
                 f.write(f"{t:10.3f} ms {cnt:7d}x  {key[:150]}\n")
@@ -625,6 +961,7 @@ def main(argv) -> int:
         print(f"chip_smoke: the port is not importable here ({e})", file=sys.stderr)
         return 3
 
+    t_start = time.perf_counter()
     card = card_line()
     log(f"card: {card}")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -653,9 +990,16 @@ def main(argv) -> int:
     card_vs_cpu(gen)
     paths += edit_paths(ez)
     paths += sampler_paths(ez)
+    card_vs_cpu_fast()
+    paths += fused_paths(ez, paths[:2])
+    int8_rows, _ = int8_paths(ez, gen, paths[0])
+    served = served_paths(ez)
+    served_fused = served_paths(ez, fused=True)  # captures
+    served_replay = served_paths(ez, fused=True, name="served_fused_replay")
+    served_checks(ez, served, served_fused, served_replay)
+    paths += int8_rows + [served, served_fused, served_replay]
     del ez
     torch.cuda.empty_cache()
-    card_vs_cpu_fast()
     missing = uncovered_shapes(paths)
     if missing:
         raise AssertionError(f"ResidualUnit shapes of the paths not checked in phase 3: {missing}")
@@ -680,6 +1024,7 @@ def main(argv) -> int:
              max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
              bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=None),
     ]
+    log(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

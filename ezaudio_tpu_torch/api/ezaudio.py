@@ -15,16 +15,25 @@
   * ``generate_long(text, length, window=10, overlap=2, ...)``: chained
     outpainting past the training window.
 
+``quant='int8'`` runs the DiT's linear layers as dynamic W8A8 int8
+products (``ops/quant.py``).  ``generate_audio(fused=True)`` runs the whole
+pipeline (T5, CFG concat, sampler loop, re-scale, chunked decode) as one
+program: a CUDA graph captured at the first call of a signature and
+replayed after (``api/graphs.py``), the same function eagerly on the CPU.
+``attn_impl`` names that compute kernel 1's function (f32 softmax) run on
+it; the bf16-logit variants raise ``NotImplementedError``.
+
 Runs on CUDA unless ``device="cpu"`` is passed; with no GPU and no device
 it raises.  Weights are random, drawn from ``seed``: loading the published
-checkpoints waits for those files.  ``fused``, ``quant``, ``attn_impl`` and
-``mesh`` raise ``NotImplementedError``.  Every random draw goes through
-``utils.randn`` (ROADMAP F1).
+checkpoints waits for those files.  ``mesh`` and ``dtype=bfloat16`` raise
+``NotImplementedError``.  Every random draw goes through ``utils.randn``
+(ROADMAP F1).
 """
 
 from __future__ import annotations
 
 import math
+from collections import OrderedDict
 from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -32,6 +41,7 @@ import torch
 from torch import nn
 
 from ezaudio_tpu_torch import utils
+from ezaudio_tpu_torch.api.graphs import GraphProgram
 from ezaudio_tpu_torch.codecs.facade import AutoencoderFacade
 from ezaudio_tpu_torch.codecs.oobleck import vae_from_config
 from ezaudio_tpu_torch.config import ConfigDict, MODEL_REGISTRY, load_config
@@ -42,6 +52,7 @@ from ezaudio_tpu_torch.diffusion.dpm import dpm_solver_sample
 from ezaudio_tpu_torch.diffusion.sampling import sample_latents, sample_latents_layer_cached
 from ezaudio_tpu_torch.models.maskdit import maskdit_from_config
 from ezaudio_tpu_torch.ops.norms import LayerNorm, RMSNorm
+from ezaudio_tpu_torch.ops.quant import current_quant_mode, quant_context
 from ezaudio_tpu_torch.text.t5 import T5Encoder, T5EncoderConfig, T5LayerNorm
 from ezaudio_tpu_torch.text.tokenizer import get_tokenizer
 from ezaudio_tpu_torch.utils import resolve_device, scale_shift_re
@@ -54,13 +65,21 @@ _T5_CONFIGS = {
 }
 _NORMS = (LayerNorm, RMSNorm, T5LayerNorm)
 SAMPLERS = ("ddim", "dpm", "distilled")
+# attention implementations of the JAX package that compute kernel 1's
+# function (f32 scores and softmax): each runs on the kernel here.  The
+# bf16 variants keep their logits in bf16, another function, not ported.
+ATTN_ON_KERNEL = ("auto", "einsum", "pallas", "flash", "chunked")
+ATTN_UNPORTED = ("bf16", "chunked_bf16", "ring")
+FUSED_CACHE = 32  # fused programs kept per EzAudio (their graphs share one pool)
 
 
-def _refuse(**args):
-    """Raise for the arguments whose items are not ported yet."""
-    named = [k for k, on in args.items() if on]
-    if named:
-        raise NotImplementedError(f"not ported yet: {', '.join(named)}")
+def check_attn_impl(attn_impl: Optional[str]) -> None:
+    """Accept the attention implementations that run on kernel 1."""
+    if attn_impl is None or attn_impl in ATTN_ON_KERNEL:
+        return
+    if attn_impl in ATTN_UNPORTED:
+        raise NotImplementedError(f"attn_impl={attn_impl!r} is not ported yet")
+    raise ValueError(f"unknown attn_impl {attn_impl!r}")
 
 
 @torch.no_grad()
@@ -150,13 +169,20 @@ class EzAudio:
         self.tokenizer = get_tokenizer(tokenizer_path, self.t5_cfg.vocab_size)
         self.noise_scheduler = DDIMSchedule.from_config(cfg.diff)
         self._uncond = {}
+        self._timesteps = {}
+        # fused programs by signature, least recently used first; their CUDA
+        # graphs share one memory pool (they replay one at a time)
+        self._fused = OrderedDict()
+        self._graph_pool = None
 
     # ------------------------------------------------------------------
+    def _tokens(self, texts: Sequence[str]):
+        ids, mask = self.tokenizer(list(texts), max_length=self.max_length)
+        return torch.from_numpy(ids).to(self.device), torch.from_numpy(mask).to(self.device)
+
     @torch.inference_mode()
     def embed_text(self, texts: Sequence[str]):
-        ids, mask = self.tokenizer(list(texts), max_length=self.max_length)
-        ids = torch.from_numpy(ids).to(self.device)
-        mask = torch.from_numpy(mask).to(self.device)
+        ids, mask = self._tokens(texts)
         return self.t5(ids, mask), mask
 
     def _uncond_embedding(self, batch: int):
@@ -167,11 +193,28 @@ class EzAudio:
             self._uncond[batch] = self.embed_text([""] * batch)
         return self._uncond[batch]
 
+    def _timestep(self, t: int) -> torch.Tensor:
+        """Timestep ``t`` as an int64 scalar on the device, made once: the
+        DiT reads it in place, and a CUDA graph capture cannot copy a Python
+        number to the device."""
+        ts = self._timesteps.get(t)
+        if ts is None:
+            ts = self._timesteps[t] = torch.tensor(int(t), device=self.device)
+        return ts
+
+    def _initial_noise(self, shape, initial_latents, generator):
+        if initial_latents is None:
+            return utils.randn(shape, generator, self.device, self.dtype)
+        noise = torch.as_tensor(initial_latents, dtype=self.dtype, device=self.device)
+        if noise.shape != shape:
+            raise ValueError(f"initial_latents {tuple(noise.shape)}, expected {shape}")
+        return noise
+
     @torch.inference_mode()
     def _generate_latents(self, texts, frames, guidance_scale, guidance_rescale,
                           ddim_steps, eta, random_seed, initial_latents=None, gt=None,
                           gt_mask=None, guidance_interval=None, sampler="ddim",
-                          layer_cache=None, cfg_refresh=1):
+                          layer_cache=None, cfg_refresh=1, quant=None):
         """Sampled latents (B, frames, C).  ``gt`` (B, frames, C) and
         ``gt_mask`` (B, frames, 1) condition MaskDiT for editing; their rows
         repeat across the CFG pair."""
@@ -189,16 +232,23 @@ class EzAudio:
         else:
             guidance_scale = None
             ctx, cmask = cond, cond_mask
-        shape = (B, frames, self.latent_dim)
-        if initial_latents is not None:
-            noise = torch.as_tensor(initial_latents, dtype=self.dtype, device=self.device)
-            if noise.shape != shape:
-                raise ValueError(f"initial_latents {tuple(noise.shape)}, expected {shape}")
-        else:
-            noise = utils.randn(shape, gen, self.device, self.dtype)
+        noise = self._initial_noise((B, frames, self.latent_dim), initial_latents, gen)
         if gt is not None:
             gt = torch.as_tensor(gt, dtype=self.dtype, device=self.device)
             gt_mask = torch.as_tensor(gt_mask, device=self.device).bool()
+        with quant_context(quant):
+            return self._denoise(ctx, cmask, noise, ddim_steps, guidance_scale,
+                                 guidance_rescale, eta, guidance_interval, sampler,
+                                 layer_cache, cfg_refresh, gt=gt, gt_mask=gt_mask,
+                                 generator=gen)
+
+    def _denoise(self, ctx, cmask, noise, steps, guidance_scale, guidance_rescale, eta,
+                 guidance_interval=None, sampler="ddim", layer_cache=None, cfg_refresh=1,
+                 gt=None, gt_mask=None, generator=None, step_noise=None):
+        """The sampler loop over MaskDiT from ``noise``, on the CFG-ordered
+        context ``[cond; uncond]`` (or cond alone when ``guidance_scale`` is
+        None); shared by the staged path and the fused program.  The DDIM
+        eta noise comes from ``generator``, or ``step_noise(i)``."""
 
         def apply(lat, t, **kw):
             # cond-first CFG order: a single batch (out of band) is ctx[:n]
@@ -206,10 +256,10 @@ class EzAudio:
             if gt is not None:
                 r = n // gt.shape[0]
                 kw.update(gt=gt.repeat(r, 1, 1), mae_mask_infer=gt_mask.repeat(r, 1, 1))
-            out, _ = self.dit(lat, t, ctx[:n], context_mask=cmask[:n], **kw)
+            out, _ = self.dit(lat, self._timestep(t), ctx[:n], context_mask=cmask[:n], **kw)
             return out
 
-        steps, schedule = int(ddim_steps), self.noise_scheduler
+        steps, schedule = int(steps), self.noise_scheduler
         cache_fns, interval = None, 1
         if layer_cache is not None:
             k, interval = (int(v) for v in layer_cache)
@@ -228,18 +278,98 @@ class EzAudio:
             return sample_latents_layer_cached(
                 *cache_fns, schedule, noise, steps, cache_interval=interval,
                 guidance_scale=guidance_scale, guidance_rescale=guidance_rescale,
-                eta=float(eta), guidance_interval=guidance_interval, generator=gen)
+                eta=float(eta), guidance_interval=guidance_interval, generator=generator,
+                step_noise=step_noise)
         return sample_latents(apply, schedule, noise, steps, guidance_scale=guidance_scale,
                               guidance_rescale=guidance_rescale, eta=float(eta),
-                              generator=gen, guidance_interval=guidance_interval)
+                              generator=generator, step_noise=step_noise,
+                              guidance_interval=guidance_interval)
 
-    def _decode(self, pred):
-        """Latents (B, L, C) -> waveform (B, T) on the host; the x480
-        decoder inflates activations ~1000x, so <= 4 clips at once."""
-        B, chunk = pred.shape[0], min(pred.shape[0], 4)
+    def _decode_device(self, pred, chunk: int = 4):
+        """Latents (B, L, C) -> waveform (B, T) on the device; the x480
+        decoder inflates activations ~1000x, so <= ``chunk`` clips at once."""
+        B = pred.shape[0]
         wav = torch.cat([self.autoencoder.decode(pred[i: i + chunk])
                          for i in range(0, B, chunk)], dim=0)[..., 0]
-        return wav.float().cpu().numpy()
+        return wav.float()
+
+    def _decode(self, pred):
+        """Latents (B, L, C) -> waveform (B, T) on the host."""
+        return self._decode_device(pred).cpu().numpy()
+
+    # ------------------------------------------------------------------
+    def _fused_impl(self, steps, guidance_scale, guidance_rescale, eta, guidance_interval,
+                    sampler, quant, layer_cache, B, frames, draw_noise, cfg, chunk,
+                    cfg_refresh):
+        """The single-dispatch text->waveform program of one signature
+        (counterpart of the JAX package's ``_fused_impl``): ``(ids, mask,
+        noise, eta_noise) -> waveform (B, T)`` on the device, T5 encode ->
+        CFG concat -> sampler loop -> ``scale_shift_re`` -> decode in chunks
+        of ``chunk`` clips.  ``noise`` holds the initial latents (drawn when
+        ``draw_noise``, else passed in) and ``eta_noise`` the DDIM steps'
+        draws: the host wrapper draws both from the call's generator in the
+        staged path's order, so both paths sample the same numbers.  The
+        empty-prompt embedding is computed here, before any capture, and
+        held by the program."""
+        un_emb, un_mask = self._uncond_embedding(B) if cfg else (None, None)
+
+        def core(ids, mask, noise, eta_noise):
+            with quant_context(quant or "off"):
+                cond = self.t5(ids, mask)
+                if cfg:
+                    ctx = torch.cat([cond, un_emb], dim=0)
+                    cmask = torch.cat([mask, un_mask], dim=0)
+                else:
+                    ctx, cmask = cond, mask
+                latents = self._denoise(
+                    ctx, cmask, noise, steps, guidance_scale, guidance_rescale, eta,
+                    guidance_interval, sampler, layer_cache, cfg_refresh,
+                    step_noise=None if eta_noise is None else eta_noise.__getitem__)
+                return self._decode_device(scale_shift_re(latents, self.scale, self.shift),
+                                           chunk)
+
+        if self.device.type == "cuda" and self._graph_pool is None:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        return GraphProgram(core, self.device, self._graph_pool)
+
+    def _fused_program(self, *key) -> GraphProgram:
+        """The cached fused program of signature ``key`` (the arguments of
+        :meth:`_fused_impl`), built at first use; at most FUSED_CACHE are
+        kept, the least recently used dropped first."""
+        prog = self._fused.get(key)
+        if prog is None:
+            prog = self._fused[key] = self._fused_impl(*key)
+            if len(self._fused) > FUSED_CACHE:
+                self._fused.popitem(last=False)
+        self._fused.move_to_end(key)
+        return prog
+
+    def _generate_fused(self, texts, frames, guidance_scale, guidance_rescale, ddim_steps,
+                        eta, random_seed, guidance_interval, sampler, initial_latents,
+                        quant, layer_cache, cfg_refresh):
+        """Host side of the fused path: tokenize, draw, look up (or build)
+        the program, one call, one copy of the waveform to the host."""
+        if sampler not in SAMPLERS:
+            raise ValueError(f"sampler must be one of {SAMPLERS}, got {sampler!r}")
+        B, steps, eta = len(texts), int(ddim_steps), float(eta)
+        gen = torch.Generator(device=self.device).manual_seed(int(random_seed))
+        ids, mask = self._tokens(texts)
+        cfg = bool(guidance_scale)
+        shape = (B, frames, self.latent_dim)
+        noise = self._initial_noise(shape, initial_latents, gen)
+        eta_noise = None
+        if sampler == "ddim" and eta > 0:
+            # the staged DDIM loop's per-step draws, one per step in its order
+            eta_noise = torch.stack([utils.randn(shape, gen, self.device, self.dtype)
+                                     for _ in range(steps)])
+        with quant_context(quant):
+            mode = current_quant_mode()
+        prog = self._fused_program(
+            steps, guidance_scale if cfg else None, guidance_rescale, eta,
+            tuple(guidance_interval) if guidance_interval is not None else None, sampler,
+            mode, tuple(layer_cache) if layer_cache is not None else None, B, frames,
+            initial_latents is None, cfg, min(B, 4), int(cfg_refresh))
+        return prog(ids, mask, noise, eta_noise).cpu().numpy()
 
     # ------------------------------------------------------------------
     @torch.inference_mode()
@@ -282,8 +412,22 @@ class EzAudio:
         ``initial_latents``: optional (B, frames, C) starting noise in
         place of the seeded draw; the eta noise of each step comes from a
         generator seeded with ``random_seed``.
+
+        ``quant='int8'``: dynamic W8A8 int8 products in the DiT's linear
+        layers (``ops/quant.py``); T5 and the VAE stay in float.
+
+        ``fused=True``: the whole pipeline as one program (T5, CFG concat,
+        sampler loop, re-scale, chunked decode), one CUDA graph per
+        signature, captured at its first call and replayed after; on the
+        CPU the same program runs eagerly.  It draws the same numbers as
+        the staged path and runs the same kernels in the same order, so the
+        waveform is the staged one.
+
+        ``attn_impl``: the JAX package's names that compute kernel 1's
+        function (``'auto'``, ``'einsum'``, ``'pallas'``, ``'flash'``,
+        ``'chunked'``) all run on it; the bf16-logit variants raise.
         """
-        _refuse(fused=bool(fused), quant=quant is not None, attn_impl=attn_impl is not None)
+        check_attn_impl(attn_impl)
         batched = not isinstance(text, str)
         texts = list(text) if batched else [text]
         if all(t == "" for t in texts):
@@ -303,11 +447,20 @@ class EzAudio:
                              f"(got sampler={sampler!r})")
 
         frames = int(length * self.latent_sr)
+        # the fused program decodes the latents as they are; a
+        # quantization_first=False codec samples its posterior in decode,
+        # which the program does not carry: that takes the staged path
+        if fused and self.autoencoder.quantization_first:
+            wav = self._generate_fused(
+                texts, frames, guidance_scale, guidance_rescale, ddim_steps, eta,
+                random_seed, guidance_interval, sampler, initial_latents, quant,
+                layer_cache, cfg_refresh)
+            return self.sr, (wav if batched else wav[0])
         latents = self._generate_latents(
             texts, frames, guidance_scale, guidance_rescale, ddim_steps, eta,
             random_seed, initial_latents=initial_latents,
             guidance_interval=guidance_interval, sampler=sampler,
-            layer_cache=layer_cache, cfg_refresh=cfg_refresh)
+            layer_cache=layer_cache, cfg_refresh=cfg_refresh, quant=quant)
         wav = self._decode(scale_shift_re(latents, self.scale, self.shift))
         return self.sr, (wav if batched else wav[0])
 
@@ -330,7 +483,7 @@ class EzAudio:
         """Audio longer than the training window by chained outpainting:
         the first ``window`` seconds, then ``editing_audio`` extensions with
         ``overlap`` seconds of boundary context, seeds ``random_seed + step``."""
-        _refuse(quant=quant is not None, attn_impl=attn_impl is not None)
+        check_attn_impl(attn_impl)
         if not window > overlap >= 0:
             raise ValueError(f"need window > overlap >= 0, got {window}, {overlap}")
         sr = self.sr
@@ -339,7 +492,8 @@ class EzAudio:
         _, audio = self.generate_audio(
             text, length=min(window, length), guidance_scale=guidance_scale,
             guidance_rescale=guidance_rescale, ddim_steps=ddim_steps, eta=eta,
-            random_seed=random_seed, layer_cache=layer_cache)
+            random_seed=random_seed, quant=quant, layer_cache=layer_cache,
+            attn_impl=attn_impl)
         step = 0
         while len(audio) < int(length * sr):
             step += 1
@@ -349,7 +503,7 @@ class EzAudio:
                 text, boundary=overlap, gt_file=audio, mask_start=cur_s, mask_length=ext,
                 guidance_scale=guidance_scale, guidance_rescale=guidance_rescale,
                 ddim_steps=ddim_steps, eta=eta, random_seed=random_seed + step,
-                layer_cache=layer_cache)
+                quant=quant, layer_cache=layer_cache, attn_impl=attn_impl)
         return sr, audio[: int(length * sr)]
 
     # ------------------------------------------------------------------
@@ -383,7 +537,7 @@ class EzAudio:
         paste (the JAX package writes its ramp outside such a mask,
         ROADMAP F4).
         """
-        _refuse(quant=quant is not None, attn_impl=attn_impl is not None)
+        check_attn_impl(attn_impl)
         if text == "":
             guidance_scale = None
         if randomize_seed:
@@ -421,7 +575,7 @@ class EzAudio:
         gt_mask[:, s0:s1] = True
         latents = self._generate_latents(
             [text], L, guidance_scale, guidance_rescale, ddim_steps, eta, random_seed,
-            gt=gt_latent, gt_mask=gt_mask, layer_cache=layer_cache)
+            gt=gt_latent, gt_mask=gt_mask, layer_cache=layer_cache, quant=quant)
         pred = scale_shift_re(latents, self.scale, self.shift)
         # paste the unmasked gt back (inference.py:104-105), then decode
         if crossfade > 0.0 and s1 - s0 >= 2:

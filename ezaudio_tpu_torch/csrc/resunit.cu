@@ -57,6 +57,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <atomic>
 #include <type_traits>
 
 #include "mma_tf32.cuh"
@@ -390,9 +391,20 @@ cudaError_t launch(const void* x, const void* w7, const void* b7, const void* w1
                    const void* b1, const float* ab, void* y, int B, int L, int C,
                    int d, cudaStream_t stream) {
   const size_t smem = smem_bytes<T>(d);
-  cudaError_t err = cudaFuncSetAttribute(
-      resunit_fwd<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
+  // Raise the kernel's dynamic shared-memory limit only when a dilation
+  // needs more than has been granted, so that a launch recorded into a CUDA
+  // graph (after an eager warm-up at the same shapes) makes no attribute
+  // call.  One card per process: the attribute is per device.
+  static std::atomic<size_t> granted{0};
+  cudaError_t err = cudaSuccess;
+  if (smem > granted.load()) {
+    err = cudaFuncSetAttribute(resunit_fwd<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return err;
+    size_t prev = granted.load();
+    while (smem > prev && !granted.compare_exchange_weak(prev, smem)) {
+    }
+  }
   const int cs = C / NB;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(((L + TL - 1) / TL) * cs, B, 1);

@@ -8,6 +8,8 @@ reference's ``x + (1 - gate) * f(x)``.
 
 Attention (self and cross) goes through ``ops/kernels/attention.py``:
 the hand-written CUDA kernel for CUDA tensors, its plain twin on the CPU.
+The linear layers are ``ops/quant.py::QuantLinear``: int8 inside
+``quant_context('int8')``, float otherwise.
 """
 
 from __future__ import annotations
@@ -21,12 +23,13 @@ from ezaudio_tpu_torch.ops.embeddings import unpatchify_1d
 from ezaudio_tpu_torch.ops.kernels.attention import fused_attention
 from ezaudio_tpu_torch.ops.mlp import FeedForward, film_modulate
 from ezaudio_tpu_torch.ops.norms import make_norm
+from ezaudio_tpu_torch.ops.quant import QuantLinear
 from ezaudio_tpu_torch.ops.rope import apply_rope, inv_freq, rope_tables
 
 
 class RotaryEmbedding(nn.Module):
     """Holds the reference's persistent ``inv_freq`` buffer (rotary.py:41-43)
-    and caches the (cos, sin) tables per sequence length."""
+    and caches the (cos, sin) tables of every sequence length it meets."""
 
     def __init__(self, head_dim: int):
         super().__init__()
@@ -34,10 +37,12 @@ class RotaryEmbedding(nn.Module):
         self._cache = {}
 
     def tables(self, L: int):
+        # every length stays cached: a captured CUDA graph reads its tables
+        # in place, so a table must outlive the call that made it
         key = (L, self.inv_freq.device)
         if key not in self._cache:
-            self._cache = {key: rope_tables(L, self.inv_freq.numel() * 2,
-                                            freqs=self.inv_freq)}
+            self._cache[key] = rope_tables(L, self.inv_freq.numel() * 2,
+                                           freqs=self.inv_freq)
         return self._cache[key]
 
 
@@ -53,9 +58,9 @@ class Attention(nn.Module):
         self.head_dim = dim // num_heads
         self.scale = qk_scale or self.head_dim ** -0.5
         ctx_dim = context_dim or dim
-        self.to_q = nn.Linear(dim, dim, bias=qkv_bias)
-        self.to_k = nn.Linear(ctx_dim, dim, bias=qkv_bias)
-        self.to_v = nn.Linear(ctx_dim, dim, bias=qkv_bias)
+        self.to_q = QuantLinear(dim, dim, bias=qkv_bias)
+        self.to_k = QuantLinear(ctx_dim, dim, bias=qkv_bias)
+        self.to_v = QuantLinear(ctx_dim, dim, bias=qkv_bias)
         if qk_norm is not None:
             if qk_norm not in ("layernorm", "rmsnorm"):
                 raise NotImplementedError(qk_norm)
@@ -66,7 +71,7 @@ class Attention(nn.Module):
         if rope_mode not in ("none", "shared"):
             raise NotImplementedError(f"rope_mode={rope_mode!r}")
         self.rotary = RotaryEmbedding(self.head_dim) if rope_mode == "shared" else None
-        self.proj = nn.Linear(dim, dim)
+        self.proj = QuantLinear(dim, dim)
 
     def forward(self, x, context=None, context_mask=None):
         B, L, _ = x.shape
@@ -98,8 +103,8 @@ class AdaLN(nn.Module):
             raise NotImplementedError(f"time_fusion={ada_mode!r}")
         self.dim = dim
         self.scaling = alpha / r
-        self.lora_a = nn.Linear(dim, r * 6, bias=False)
-        self.lora_b = nn.Linear(r * 6, dim * 6, bias=False)
+        self.lora_a = QuantLinear(dim, r * 6, bias=False)
+        self.lora_b = QuantLinear(r * 6, dim * 6, bias=False)
         self.scale_shift_table = (nn.Parameter(torch.zeros(6, dim))
                                   if ada_mode == "ada_sola_bias" else None)
 
@@ -125,7 +130,7 @@ class DiTBlock(nn.Module):
                  skip_norm: bool = False, rope_mode: str = "none",
                  context_norm: bool = False):
         super().__init__()
-        self.skip_linear = nn.Linear(2 * dim, dim) if skip else None
+        self.skip_linear = QuantLinear(2 * dim, dim) if skip else None
         self.skip_norm = make_norm(norm_layer, 2 * dim) if (skip and skip_norm) else None
         self.adaln = AdaLN(dim, time_fusion, ada_sola_rank, ada_sola_alpha)
         self.norm1 = make_norm(norm_layer, dim)
@@ -172,7 +177,7 @@ class FinalBlock(nn.Module):
         self.embed_dim = embed_dim
         self.out_chans = out_chans
         self.norm = make_norm(norm_layer, embed_dim)
-        self.linear = nn.Linear(embed_dim, patch_size * out_chans)
+        self.linear = QuantLinear(embed_dim, patch_size * out_chans)
         self.final_layer = (nn.Conv1d(out_chans, out_chans, 3, padding=1)
                             if use_conv else None)
 

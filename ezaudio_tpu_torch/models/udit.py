@@ -21,6 +21,7 @@ from torch import nn
 from ezaudio_tpu_torch.models.blocks import DiTBlock, FinalBlock
 from ezaudio_tpu_torch.ops.embeddings import (MLPEmbedder, PatchEmbed1D, PEWrapper,
                                               TimestepEmbedder)
+from ezaudio_tpu_torch.ops.quant import QuantLinear
 
 
 class UDiT(nn.Module):
@@ -52,8 +53,8 @@ class UDiT(nn.Module):
         self.context_embed = MLPEmbedder(context_dim, embed_dim)
         self.context_pe = PEWrapper(context_pe_method)
         self.time_embed = TimestepEmbedder(embed_dim)
-        self.time_ada_final = nn.Linear(embed_dim, 2 * embed_dim)
-        self.time_ada = nn.Linear(embed_dim, 6 * embed_dim)
+        self.time_ada_final = QuantLinear(embed_dim, 2 * embed_dim)
+        self.time_ada = QuantLinear(embed_dim, 6 * embed_dim)
 
         def block(with_skip: bool):
             return DiTBlock(
@@ -73,7 +74,9 @@ class UDiT(nn.Module):
 
     def forward(self, x, timesteps, context, x_mask=None, context_mask=None,
                 controlnet_skips=None, deep_cache=None, collect_deep_k=None):
-        """x: (B, T, in_chans); timesteps: (B,) or scalar; context:
+        """x: (B, T, in_chans); timesteps: (B,) or scalar, a tensor on
+        x's device under CUDA graph capture (a Python number is copied
+        from the host, which capture forbids); context:
         (B, Lc, context_dim); context_mask: (B, Lc) bool.
 
         Layer caching (1 <= k < depth//2):

@@ -13,6 +13,8 @@ import math
 import torch
 from torch import nn
 
+from ezaudio_tpu_torch.ops.quant import QuantLinear
+
 
 def timestep_embedding(t: torch.Tensor, dim: int, max_period: float = 10000.0):
     """``[cos(t f) | sin(t f)]`` — cos first, as reference modules.py:19-37."""
@@ -32,8 +34,8 @@ class TimestepEmbedder(nn.Module):
         super().__init__()
         self.frequency_embedding_size = frequency_embedding_size
         self.mlp = nn.Sequential(
-            nn.Linear(frequency_embedding_size, hidden_size), nn.SiLU(),
-            nn.Linear(hidden_size, hidden_size))
+            QuantLinear(frequency_embedding_size, hidden_size), nn.SiLU(),
+            QuantLinear(hidden_size, hidden_size))
 
     def forward(self, t):
         h = timestep_embedding(t, self.frequency_embedding_size)
@@ -44,7 +46,7 @@ class MLPEmbedder(nn.Sequential):
     """Linear/SiLU/Linear projector (``context_embed`` in udit.py)."""
 
     def __init__(self, in_dim: int, dim: int):
-        super().__init__(nn.Linear(in_dim, dim), nn.SiLU(), nn.Linear(dim, dim))
+        super().__init__(QuantLinear(in_dim, dim), nn.SiLU(), QuantLinear(dim, dim))
 
 
 class PatchEmbed1D(nn.Module):

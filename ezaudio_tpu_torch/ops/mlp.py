@@ -6,6 +6,7 @@ from __future__ import annotations
 from torch import nn
 
 from ezaudio_tpu_torch.ops import activations as act
+from ezaudio_tpu_torch.ops.quant import QuantLinear
 
 
 def film_modulate(x, shift, scale):
@@ -16,7 +17,7 @@ def film_modulate(x, shift, scale):
 class _GEGLUProj(nn.Module):
     def __init__(self, dim: int, inner: int):
         super().__init__()
-        self.proj = nn.Linear(dim, inner * 2)
+        self.proj = QuantLinear(dim, inner * 2)
 
     def forward(self, x):
         return act.geglu(self.proj(x))
@@ -32,7 +33,7 @@ class FeedForward(nn.Module):
             raise NotImplementedError(f"act_layer={activation_fn!r}")
         inner = int(dim * mult)
         self.net = nn.Sequential(_GEGLUProj(dim, inner), nn.Identity(),
-                                 nn.Linear(inner, dim))
+                                 QuantLinear(inner, dim))
 
     def forward(self, x):
         return self.net(x)

@@ -105,6 +105,59 @@ def test_phases_rehearse_on_cpu(monkeypatch):
     assert rows[1]["attention_launches"] == 42
 
 
+def test_new_phases_rehearse_on_cpu(monkeypatch):
+    """Phases 10-12 end to end at a tiny size: fused (eager on the CPU)
+    equal to staged, int8 shapes and checks, the served requests and their
+    comparisons; launches counted by the plain versions as in the test
+    above."""
+    import chip_smoke as cs
+    import ezaudio_tpu_torch.ops.kernels.attention as ka
+    import ezaudio_tpu_torch.ops.kernels.resunit as kr
+    import ezaudio_tpu_torch.ops.quant as qm
+    from ezaudio_tpu_torch.config import get_model_config
+
+    def counted(plain, wrapper):
+        def run(*a, **k):
+            wrapper.launches += 1
+            return plain(*a, **k)
+        return run
+
+    monkeypatch.setattr(cs, "time_ms", lambda fn, reps=1, iters=1: 0.0)
+    monkeypatch.setattr(cs, "graph_ms", lambda fn, iters=1, reps=1: 0.0)
+    monkeypatch.setattr(ka, "attention_plain", counted(ka.attention_plain, ka.fused_attention))
+    monkeypatch.setattr(kr, "residual_unit_plain",
+                        counted(kr.residual_unit_plain, kr.fused_residual_unit))
+    monkeypatch.setattr(qm, "MIN_QUANT_ELEMENTS", 0)  # the tiny widths quantize too
+    cfg = get_model_config("s3_l").to_dict()
+    cfg["model"].update(embed_dim=32, depth=2, num_heads=4, context_dim=16,
+                        ada_sola_rank=2, ada_sola_alpha=2)
+    cfg["text_encoder"]["model"] = "tiny"
+    ez = cs.build_ezaudio("cpu", config=cfg)
+    staged = cs.main_path(ez, length=0.1)
+    rows = cs.fused_paths(ez, staged, length=0.1, replays=1)
+    assert [r["max_abs_err_vs_staged"] for r in rows] == [0.0, 0.0]
+    assert [(r["attention_launches"], r["resunit_launches"]) for r in rows] == [(1200, 24)] * 2
+    assert rows[0]["resunit_shapes"] == staged[0]["resunit_shapes"]
+
+    gen = torch.Generator().manual_seed(0)
+    (int8, fused8), checks = cs.int8_paths(ez, gen, staged[0], length=0.1)
+    assert (int8["attention_launches"], int8["resunit_launches"]) == (600, 12)
+    assert int8["vs_f32_max_abs"] > 0 and fused8["max_abs_err_vs_staged"] == 0.0
+    shapes = {tuple(c["shape"]) for c in checks}
+    assert {(2, 256, 32), (10, 32, 32), (200, 16, 32)} <= shapes  # time MLP, tokens, text
+    assert all(c["bit_equal"] for c in checks)
+
+    kw = dict(clip_s=0.1, steps=3, lengths=(0.1,) * 4 + (0.04,) * 2)
+    served = cs.served_paths(ez, **kw)
+    served_fused = cs.served_paths(ez, fused=True, **kw)
+    assert served["stats"]["batches"] == served_fused["stats"]["batches"] == 3
+    assert (served["attention_launches"], served["resunit_launches"]) == (54, 48)
+    assert served["wav_shapes"] == [[2400]] * 4 + [[960]] * 2 + [[2400]]
+    rows = cs.served_checks(ez, served, served_fused)
+    assert [r["max_abs_err"] for r in rows][-1] == 0.0  # the edit is the direct call
+    assert cs.uncovered_shapes([served], [(2, 2500, 512, 9)]) != []
+
+
 def _attention_variant(q, k, v, fault=None):
     """Attention as a bf16 kernel might compute it: scores summed in another
     order (f64, then f32), p rounded to bf16.  ``fault`` keeps p in f32,

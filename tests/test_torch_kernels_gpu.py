@@ -133,3 +133,51 @@ class TestKernelsOnGPU:
         args = [torch.from_numpy(a).to(dev) for a in _resunit_inputs(rng, 1, 100, 96)]
         with pytest.raises(RuntimeError, match=r"\(1, 100, 96\)"):
             fused_residual_unit(*args, 1)
+
+
+@pytest.mark.cuda
+class TestInt8AndGraphsOnGPU:
+    """The int8 product and the CUDA-graph program of the fused path on
+    the card."""
+
+    @pytest.mark.parametrize("M,K,N", [(2, 1024, 6144), (16, 256, 1024), (17, 1024, 2048),
+                                       (1000, 4096, 1024)])
+    def test_int8_matmul_equals_plain(self, rng, M, K, N):
+        """``torch._int_mm`` (rows padded to 17 below that) against the
+        exact float64 product: bit-equal."""
+        from ezaudio_tpu_torch.ops.quant import int8_matmul, int8_matmul_plain
+
+        dev = _cuda()
+        a = torch.from_numpy(rng.integers(-127, 128, (M, K)).astype(np.int8)).to(dev)
+        b = torch.from_numpy(rng.integers(-127, 128, (N, K)).astype(np.int8)).to(dev)
+        got = int8_matmul(a, b)
+        assert got.shape == (M, N) and got.dtype == torch.int32
+        assert torch.equal(got, int8_matmul_plain(a, b))
+
+    def test_int8_matmul_raises_where_int_mm_refuses(self, rng):
+        from ezaudio_tpu_torch.ops.quant import int8_matmul
+
+        dev = _cuda()
+        a = torch.ones(32, 12, dtype=torch.int8, device=dev)
+        with pytest.raises(RuntimeError):
+            int8_matmul(a, torch.ones(8, 12, dtype=torch.int8, device=dev))
+
+    def test_graph_program_replays_both_kernels(self, rng):
+        """Both kernels launched inside a captured graph: a replay on new
+        inputs equals the eager run, one launch of each per replay."""
+        from ezaudio_tpu_torch.api.graphs import GraphProgram
+
+        dev = _cuda()
+        args = [torch.from_numpy(a).to(dev) for a in _resunit_inputs(rng, 1, 300, 128)]
+        q, k, v = (torch.from_numpy(a).to(dev) for a in _qkv(rng, 2, 4, 70, 70, 64))
+
+        def fn(x, q):
+            return fused_residual_unit(x, *args[1:], 3).sum() + fused_attention(q, k, v).sum()
+
+        prog = GraphProgram(fn, dev, torch.cuda.graph_pool_handle())
+        prog(args[0], q)
+        assert prog.launches == {"attention": 1, "resunit": 1}
+        x2, q2 = args[0] * 0.5, q.flip(2).contiguous()
+        got = prog(x2, q2).clone()
+        assert prog.replays == 2
+        torch.testing.assert_close(got, fn(x2, q2), rtol=0, atol=0)

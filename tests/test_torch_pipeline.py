@@ -195,12 +195,39 @@ class TestPackageRules:
         with pytest.raises(RuntimeError, match="CUDA"):
             EzAudio(model_name="s3_l")
 
-    @pytest.mark.parametrize("kw", [dict(fused=True), dict(quant="int8"),
-                                    dict(attn_impl="flash")])
+    @pytest.mark.parametrize("kw", [dict(attn_impl="bf16"), dict(attn_impl="chunked_bf16"),
+                                    dict(attn_impl="ring")])
     def test_uncovered_arguments_raise(self, tiny_pair, kw):
+        """The attention variants that keep their logits in bf16 (another
+        function than kernel 1's) are not ported."""
         _, ez = tiny_pair
         with pytest.raises(NotImplementedError):
             ez.generate_audio("x", length=0.5, ddim_steps=1, **kw)
+        with pytest.raises(NotImplementedError):
+            ez.editing_audio("x", boundary=0.1, gt_file=np.zeros(400, np.float32),
+                             mask_start=0.1, mask_length=0.2, ddim_steps=1, **kw)
+
+    @pytest.mark.parametrize("impl", ["auto", "einsum", "pallas", "flash", "chunked"])
+    def test_attention_impls_run_on_kernel_1(self, tiny_pair, impl):
+        """The JAX package's f32-softmax attention implementations all
+        compute kernel 1's function: the port runs each on it, with the
+        default's waveform."""
+        _, ez = tiny_pair
+        kw = dict(length=0.5, ddim_steps=2, random_seed=1)
+        _, want = ez.generate_audio("x", **kw)
+        _, got = ez.generate_audio("x", attn_impl=impl, **kw)
+        np.testing.assert_array_equal(got, want)
+
+    def test_unknown_attention_impl_raises(self, tiny_pair):
+        _, ez = tiny_pair
+        with pytest.raises(ValueError, match="attn_impl"):
+            ez.generate_audio("x", length=0.5, ddim_steps=1, attn_impl="sparse")
+
+    def test_bfloat16_model_raises(self):
+        from tests.tiny_config import TINY_CONFIG
+
+        with pytest.raises(NotImplementedError, match="float32"):
+            EzAudio(config=TINY_CONFIG, device="cpu", dtype=torch.bfloat16)
 
     def test_mesh_raises(self):
         from tests.tiny_config import TINY_CONFIG
