@@ -46,11 +46,23 @@ Phases, each fatal on failure:
      call; then the same requests twice with ``fused=True`` (the first pass
      captures a graph per signature, the second replays them), each equal
      to the staged server's waveforms;
- 13. the launches of each path, a ``{"kernels": [...]}`` line (launches
-     summed over the paths of phases 4-8 and 10-12), the card's name and
-     power limit, and last ``{"ok": true, "device": {...}}``.
+ 13. the energy ControlNet: ``EzAudioControlNet("energy", device="cuda")``
+     on seeded random weights (a fresh base EzAudio; the ControlNet's 12
+     in-blocks copied from it), ``generate_audio`` on a 10 s clip in 0.5 s
+     bursts at its defaults (DDIM 50 steps, CFG 3.5, eta 1), with DPM 25,
+     with ``quant="int8"``, and with DPM at conditioning scale 0, which
+     must differ from scale 1;
+ 14. the ControlNet path on the card against the CPU on the same weights
+     and draws: energy config at full width, depth 4, a 1 s clip, 3 steps,
+     eta 0;
+ 15. a ``GenerationServer(cn.base, controlnet=cn)`` (DPM 25): two 10 s
+     generate requests and one ControlNet request; one ControlNet request
+     counted and its waveform equal to the direct call within FUSED_TOL;
+ 16. the launches of each path, a ``{"kernels": [...]}`` line (launches
+     summed over the paths of phases 4-8, 10-13 and 15), the card's name
+     and power limit, and last ``{"ok": true, "device": {...}}``.
 
-Every path of phases 4, 6-8, 11 and 12 is driven with the launch counters
+Every path of phases 4, 6-8, 11-13 and 15 is driven with the launch counters
 set to 0 just before it and read just after, and must launch each kernel
 exactly as often as its model calls and decodes imply.  A fused call runs
 as a CUDA graph whose replays do not pass through the kernels' Python
@@ -68,6 +80,7 @@ product costs three TF32 products (3xTF32), so f32 work is bounded at
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import os
 import statistics
@@ -315,16 +328,18 @@ def build_ezaudio(dev="cuda", config=None):
     return ez
 
 
-def want_attention(depth: int, steps: int, layer_cache=None) -> int:
+def want_attention(depth: int, steps: int, layer_cache=None, controlnet=False) -> int:
     """Attention launches of one sampler run: each full call runs depth + 1
-    blocks, each cached call the 2k blocks around the deep cache, and every
-    block launches self- and cross-attention once (a CFG pair is one call)."""
+    blocks (and, with ``controlnet``, the ControlNet's depth // 2), each
+    cached call the 2k blocks around the deep cache, and every block
+    launches self- and cross-attention once (a CFG pair is one call)."""
     full, cached, k = steps, 0, 0
     if layer_cache is not None:
         k, interval = layer_cache
         cached = (steps // interval) * (interval - 1)
         full = steps - cached
-    return 2 * (full * (depth + 1) + cached * 2 * k)
+    blocks = depth + 1 + (depth // 2 if controlnet else 0)
+    return 2 * (full * blocks + cached * 2 * k)
 
 
 @contextlib.contextmanager
@@ -421,6 +436,16 @@ def seeded_clip(sr: int, seconds: float):
     noise = np.random.default_rng(0).standard_normal(t.shape)
     return (0.4 * np.sin(2 * np.pi * 220 * t) + 0.2 * np.sin(2 * np.pi * 1375 * t)
             + 0.05 * noise).astype(np.float32)
+
+
+def burst_clip(sr: int, seconds: float):
+    """``seeded_clip`` in 0.5 s on/off bursts: an energy condition that is
+    not flat."""
+    import numpy as np
+
+    clip = seeded_clip(sr, seconds)
+    on = (np.arange(len(clip)) // int(0.5 * sr)) % 2 == 0
+    return (clip * on).astype(np.float32)
 
 
 def edit_paths(ez, length=10.0, long_steps=100):
@@ -889,6 +914,172 @@ def card_vs_cpu_fast(dev="cuda", cfg=None, length=1.0):
     return rows
 
 
+def build_controlnet(dev="cuda", config=None, seed=0):
+    """``EzAudioControlNet("energy")`` (or ``config``) on seeded random
+    weights: the base EzAudio, then the ControlNet from ``seed + 1`` with
+    the base's embedders and in-blocks copied in."""
+    import torch
+
+    from ezaudio_tpu_torch.api.controlnet import EzAudioControlNet
+
+    t0 = time.perf_counter()
+    cn = EzAudioControlNet("energy", config=config, device=dev, seed=seed)
+    sync(dev)
+    log(f"controlnet: EzAudioControlNet('energy') built in {time.perf_counter() - t0:.2f} s, "
+        f"{sum(p.numel() for p in cn.controlnet.parameters()) / 1e9:.3f} B ControlNet params, "
+        f"{mem_gib(torch.cuda.memory_allocated)} GiB allocated")
+    return cn
+
+
+@contextlib.contextmanager
+def controlnet_window(seconds: float):
+    """``EzAudioControlNet.generate_audio`` pads or crops every clip to
+    ``WINDOW_SECONDS`` (10): set it to ``seconds`` inside."""
+    from ezaudio_tpu_torch.api import controlnet
+
+    orig = controlnet.WINDOW_SECONDS
+    controlnet.WINDOW_SECONDS = seconds
+    try:
+        yield
+    finally:
+        controlnet.WINDOW_SECONDS = orig
+
+
+CONTROLNET_PROMPT = "a dog barking in the rain"
+# (name, generate_audio arguments); the first is the call at its defaults:
+# DDIM 50 steps, CFG 3.5, rescale 0, eta 1, conditioning scale 1
+CONTROLNET_RUNS = [
+    ("controlnet", {}),
+    ("controlnet_dpm", dict(sampler="dpm", ddim_steps=25)),
+    ("controlnet_int8", dict(quant="int8")),
+    ("controlnet_dpm_scale0", dict(sampler="dpm", ddim_steps=25, conditioning_scale=0.0)),
+]
+
+
+def controlnet_paths(cn, clip_s=10.0, runs=CONTROLNET_RUNS):
+    """Phase 13: ``generate_audio`` on a ``clip_s`` s burst clip at its
+    defaults, with DPM-Solver++ at 25 steps, with ``quant='int8'``, and
+    with DPM at conditioning scale 0; each run's launches, length and
+    finiteness checked; scale 1 and scale 0 must differ by more than 100
+    times the card-against-CPU limit of the output's range."""
+    import numpy as np
+
+    from ezaudio_tpu_torch.codecs.oobleck import ResidualUnit
+
+    base = cn.base
+    depth = base.params_cfg.model.depth
+    per_decode = sum(isinstance(m, ResidualUnit) for m in base.autoencoder.model.decoder.modules())
+    clip = burst_clip(base.sr, clip_s)
+    rows = []
+    for name, kw in runs:
+        steps = kw.get("ddim_steps", 50)
+        rows.append(run_path(
+            name, cn.device,
+            lambda: cn.generate_audio(CONTROLNET_PROMPT, clip, random_seed=21, **kw)[1],
+            want_attention(depth, steps, controlnet=True), per_decode, clip_s, len(clip)))
+    on, off = (next(r["wav"] for r in rows if r["path"] == p)
+               for p in ("controlnet_dpm", "controlnet_dpm_scale0"))
+    gap = dict(max_abs_diff=float(np.abs(on - off).max()), ref_abs_max=float(np.abs(on).max()),
+               min_rel_diff=100 * PIPE_REL_TOL)
+    gap["rel_diff"] = gap["max_abs_diff"] / gap["ref_abs_max"]
+    log("controlnet_scale1_vs_scale0 " + json.dumps(gap))
+    if not gap["rel_diff"] > gap["min_rel_diff"]:
+        raise AssertionError(f"conditioning scale 1 and 0 barely differ: {gap}")
+    return rows
+
+
+def controlnet_card_vs_cpu(dev="cuda", cfg=None, clip_s=1.0):
+    """Phase 14: the ControlNet path on the card (kernels) against the CPU
+    (plain versions), energy config at full width and depth 4, a ``clip_s``
+    s burst clip (the window set to it), 3 DDIM steps at eta 0, the same
+    weights and draws."""
+    import copy
+
+    from ezaudio_tpu_torch.api.controlnet import EzAudioControlNet
+    from ezaudio_tpu_torch.config import get_model_config
+
+    cfg = copy.deepcopy(cfg if cfg is not None else get_model_config("energy").to_dict())
+    cfg["model"]["depth"] = 4
+    gpu = EzAudioControlNet(config=cfg, device=dev, seed=5)
+    cpu = EzAudioControlNet(config=cfg, device="cpu", seed=5)
+    for a, b in ((gpu.base.dit, cpu.base.dit), (gpu.base.t5, cpu.base.t5),
+                 (gpu.base.autoencoder.model, cpu.base.autoencoder.model),
+                 (gpu.controlnet, cpu.controlnet)):
+        b.load_state_dict({k: v.cpu() for k, v in a.state_dict().items()})
+    clip = burst_clip(gpu.base.sr, clip_s)
+    outs = []
+    with controlnet_window(clip_s):
+        for cn in (gpu, cpu):
+            reset_counters()
+            with same_draws():
+                outs.append(cn.generate_audio(CONTROLNET_PROMPT, clip, ddim_steps=3, eta=0.0,
+                                              random_seed=3)[1])
+            if cn is gpu:
+                attn, res = read_counters()
+    row = agreement("controlnet_card_vs_cpu", outs[0], outs[1],
+                    dict(attention_launches=attn, resunit_launches=res))
+    if (attn, res) != (want_attention(4, 3, controlnet=True), 12):
+        raise AssertionError(f"controlnet_card_vs_cpu launches {attn}, {res}")
+    return row
+
+
+def controlnet_served(cn, clip_s=10.0, steps=25, lengths=(10.0, 10.0)):
+    """Phase 15: a ``GenerationServer(cn.base, controlnet=cn)`` (DPM,
+    ``steps`` steps, batches of up to 4) given the ``lengths`` generate
+    requests and one ControlNet request at once; launches and lengths
+    checked, one ControlNet request counted, and the served ControlNet
+    waveform equal to the direct call within FUSED_TOL."""
+    import numpy as np
+
+    from ezaudio_tpu_torch.serving import GenerationServer
+
+    base = cn.base
+    depth = base.params_cfg.model.depth
+    clip = burst_clip(base.sr, clip_s)
+    srv = GenerationServer(base, controlnet=cn, max_batch_size=4, max_wait_ms=100,
+                           length=max(lengths), ddim_steps=steps, sampler="dpm")
+    seen = set()
+    reset_counters()
+    sync(base.device)
+    with resunit_shapes(seen), srv:
+        t0 = time.perf_counter()
+        futs = [srv.submit(PROMPTS[i % 4], seed=200 + i, length=length)
+                for i, length in enumerate(lengths)]
+        futs.append(srv.submit_controlnet(CONTROLNET_PROMPT, clip, seed=21))
+        outs, lat = [], []
+        for f in futs:
+            outs.append(f.result(timeout=600)[1])
+            lat.append(time.perf_counter() - t0)
+        wall = time.perf_counter() - t0
+    attn, res = read_counters()
+    stats = dict(srv.stats)
+    n_cn = stats["controlnet_requests"]
+    gen_batches = stats["batches"] - n_cn
+    want = (want_attention(depth, steps) * gen_batches
+            + want_attention(depth, steps, controlnet=True) * n_cn,
+            12 * (gen_batches + n_cn))
+    _, direct = cn.generate_audio(CONTROLNET_PROMPT, clip, sampler="dpm", ddim_steps=steps,
+                                  random_seed=21)
+    err = float(np.abs(outs[-1] - direct).max())
+    row = dict(path="controlnet_served", requests=len(futs), wall_s=wall,
+               **latency_stats(lat), audio_s=float(sum(lengths)) + clip_s, stats=stats,
+               attention_launches=attn, resunit_launches=res,
+               resunit_shapes=sorted(seen, reverse=True),
+               wav_shapes=[list(np.shape(w)) for w in outs],
+               controlnet_vs_direct_max_abs_err=err, tol=FUSED_TOL)
+    log("controlnet_served " + json.dumps(row))
+    if n_cn != 1:
+        raise AssertionError(f"controlnet_served: {n_cn} ControlNet requests counted")
+    if (attn, res) != want:
+        raise AssertionError(f"controlnet_served: counters {attn}, {res}: want {want}")
+    for w, length in zip(outs, list(lengths) + [clip_s]):
+        if w.shape != (int(length * base.sr),) or not np.isfinite(w).all():
+            raise AssertionError(f"controlnet_served: output {w.shape} for {length} s")
+    if not err <= FUSED_TOL:
+        raise AssertionError(f"controlnet_served: served and direct differ by {err}")
+    return row
+
+
 def _kernel_class(name: str) -> str:
     n = name.lower()
     if "attn_fwd" in n:
@@ -998,7 +1189,17 @@ def main(argv) -> int:
     served_replay = served_paths(ez, fused=True, name="served_fused_replay")
     served_checks(ez, served, served_fused, served_replay)
     paths += int8_rows + [served, served_fused, served_replay]
+    # the fused programs hold their EzAudio in reference cycles: collect
+    # them, or the next phases' peaks count its weights and graph pools
     del ez
+    gc.collect()
+    torch.cuda.empty_cache()
+    cn = build_controlnet()
+    paths += controlnet_paths(cn)
+    controlnet_card_vs_cpu()
+    paths.append(controlnet_served(cn))
+    del cn
+    gc.collect()
     torch.cuda.empty_cache()
     missing = uncovered_shapes(paths)
     if missing:

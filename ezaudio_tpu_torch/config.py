@@ -73,6 +73,7 @@ CONFIG_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs")
 MODEL_REGISTRY: Dict[str, Dict[str, str]] = {
     "s3_xl": {"config": os.path.join(CONFIG_DIR, "ezaudio-xl.json")},
     "s3_l": {"config": os.path.join(CONFIG_DIR, "ezaudio-l.json")},
+    "energy": {"config": os.path.join(CONFIG_DIR, "energy-l.json")},
     "vae": {"config": os.path.join(CONFIG_DIR, "vae.json")},
 }
 

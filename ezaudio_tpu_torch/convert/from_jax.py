@@ -8,6 +8,8 @@ package's torch -> jax converters:
 
   * :func:`maskdit_state_dict_from_jax` — ``dit_params["params"]`` ->
     :class:`~ezaudio_tpu_torch.models.maskdit.MaskDiT` state dict;
+  * :func:`controlnet_state_dict_from_jax` — ``cn_params["params"]`` ->
+    :class:`~ezaudio_tpu_torch.models.controlnet.DiTControlNet` state dict;
   * :func:`vae_state_dict_from_jax` — AudioVAE params (``encoder`` and
     ``decoder`` subtrees) -> :class:`~ezaudio_tpu_torch.codecs.oobleck.AudioVAE`;
   * :func:`t5_state_dict_from_jax` — T5 params ->
@@ -90,6 +92,20 @@ def _block(dst, prefix, p, cfg):
             _norm(dst, f"{prefix}.skip_norm", sf["skip_norm"])
 
 
+def _embedders(dst, prefix, m, cfg):
+    """Patch embed, time and context embedders and ``time_ada``: the
+    modules a UDiT and its ControlNet share."""
+    p_size, in_ch = cfg.get("patch_size", 1), cfg["in_chans"]
+    k = np.asarray(m["patch_embed"]["kernel"]).reshape(p_size, in_ch, -1)
+    dst[f"{prefix}patch_embed.proj.weight"] = _t(k.transpose(2, 1, 0))
+    dst[f"{prefix}patch_embed.proj.bias"] = _t(m["patch_embed"]["bias"])
+    _lin(dst, f"{prefix}time_embed.mlp.0", m["time_embed"]["fc1"])
+    _lin(dst, f"{prefix}time_embed.mlp.2", m["time_embed"]["fc2"])
+    _lin(dst, f"{prefix}context_embed.0", m["context_embed"]["fc1"])
+    _lin(dst, f"{prefix}context_embed.2", m["context_embed"]["fc2"])
+    _lin(dst, f"{prefix}time_ada", m["time_ada"])
+
+
 def maskdit_state_dict_from_jax(params: Dict[str, Any], cfg: dict) -> Dict[str, torch.Tensor]:
     """JAX MaskDiT params (``{'mask_embed', 'model': {...}}``) -> port
     MaskDiT state dict.  ``cfg`` is the ``model:`` config block."""
@@ -97,16 +113,8 @@ def maskdit_state_dict_from_jax(params: Dict[str, Any], cfg: dict) -> Dict[str, 
     if "mask_embed" in params:
         sd["mask_embed"] = _t(params["mask_embed"])
     m = params["model"]
-    p_size, in_ch = cfg.get("patch_size", 1), cfg["in_chans"]
-    k = np.asarray(m["patch_embed"]["kernel"]).reshape(p_size, in_ch, -1)
-    sd["model.patch_embed.proj.weight"] = _t(k.transpose(2, 1, 0))
-    sd["model.patch_embed.proj.bias"] = _t(m["patch_embed"]["bias"])
-    _lin(sd, "model.time_embed.mlp.0", m["time_embed"]["fc1"])
-    _lin(sd, "model.time_embed.mlp.2", m["time_embed"]["fc2"])
-    _lin(sd, "model.context_embed.0", m["context_embed"]["fc1"])
-    _lin(sd, "model.context_embed.2", m["context_embed"]["fc2"])
+    _embedders(sd, "model.", m, cfg)
     _lin(sd, "model.time_ada_final", m["time_ada_final"])
-    _lin(sd, "model.time_ada", m["time_ada"])
     half = cfg["depth"] // 2
     for i in range(half):
         _block(sd, f"model.in_blocks.{i}", m[f"in_blocks_{i}"], cfg)
@@ -117,6 +125,28 @@ def maskdit_state_dict_from_jax(params: Dict[str, Any], cfg: dict) -> Dict[str, 
     _lin(sd, "model.final_block.linear", fb["linear"])
     if "final_conv" in fb:
         _conv(sd, "model.final_block.final_layer", fb["final_conv"])
+    return sd
+
+
+def controlnet_state_dict_from_jax(params: Dict[str, Any], model_cfg: dict,
+                                   controlnet_cfg: dict) -> Dict[str, torch.Tensor]:
+    """JAX DiTControlNet params -> port
+    :class:`~ezaudio_tpu_torch.models.controlnet.DiTControlNet` state dict.
+    ``model_cfg`` is the ``model:`` block, ``controlnet_cfg`` the
+    ``controlnet:`` block."""
+    sd: Dict[str, torch.Tensor] = {}
+    _embedders(sd, "", params, model_cfg)
+    for i in range(model_cfg["depth"] // 2):
+        _block(sd, f"in_blocks.{i}", params[f"in_blocks_{i}"], model_cfg)
+        _lin(sd, f"controlnet_zero_blocks.{i}", params[f"zero_blocks_{i}"])
+    pre = params["controlnet_pre"]
+    _conv(sd, "controlnet_pre.conv_in", pre["conv_in"])
+    _conv(sd, "controlnet_pre.conv_out", pre["conv_out"])
+    if controlnet_cfg.get("cond_mask"):
+        sd["controlnet_pre.mask_embed"] = _t(pre["mask_embed"])
+    for i in range(len(controlnet_cfg["cond_blocks"]) - 1):
+        _conv(sd, f"controlnet_pre.blocks.{i}.0", pre[f"pyramid{i}_conv1"])
+        _conv(sd, f"controlnet_pre.blocks.{i}.2", pre[f"pyramid{i}_conv2"])
     return sd
 
 

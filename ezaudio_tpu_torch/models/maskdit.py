@@ -8,8 +8,11 @@ channels for EzAudio):
   * editing (``gt`` + ``mae_mask_infer``): masked positions take
     ``mask_embed``, the rest keep ``gt``; the mask row is the mask.
 
-Training-time random span masking (``gt`` without a mask) raises until
-training is ported.  Latents are channel-last (B, L, C).
+``forward_model=False`` returns that concat (and the mask) without running
+UDiT, and ``forward_backbone`` runs UDiT on it: the two phases between
+which a ControlNet step computes its skips.  Training-time random span
+masking (``gt`` without a mask) raises until training is ported.  Latents
+are channel-last (B, L, C).
 """
 
 from __future__ import annotations
@@ -31,8 +34,10 @@ class MaskDiT(nn.Module):
             self.mask_embed = nn.Parameter(torch.zeros(out_chans))
 
     def forward(self, x, timesteps, context=None, x_mask=None, context_mask=None,
-                gt=None, mae_mask_infer=None, collect_deep_k=None, deep_cache=None):
-        """Returns (output, mae_mask) with mae_mask float (B, L, C).
+                gt=None, mae_mask_infer=None, forward_model=True, controlnet_skips=None,
+                collect_deep_k=None, deep_cache=None):
+        """Returns (output, mae_mask) with mae_mask float (B, L, C); with
+        ``forward_model=False`` the output is UDiT's input, the concat.
         ``collect_deep_k`` / ``deep_cache`` go to UDiT's layer caching;
         with ``collect_deep_k`` the output is the pair ``(out, deep)``."""
         B, L, C = x.shape
@@ -49,9 +54,19 @@ class MaskDiT(nn.Module):
             else:
                 gt = embed
             x = torch.cat([x, gt, mae_mask[:, :, 0:1]], dim=-1)
+        if not forward_model:
+            return x, mae_mask
         out = self.model(x, timesteps, context, x_mask=x_mask, context_mask=context_mask,
+                         controlnet_skips=controlnet_skips,
                          collect_deep_k=collect_deep_k, deep_cache=deep_cache)
         return out, mae_mask
+
+    def forward_backbone(self, x_concat, timesteps, context=None, x_mask=None,
+                         context_mask=None, controlnet_skips=None):
+        """UDiT on an already concatenated input (``forward_model=False``'s
+        output), the ControlNet step's second phase; returns its output."""
+        return self.model(x_concat, timesteps, context, x_mask=x_mask,
+                          context_mask=context_mask, controlnet_skips=controlnet_skips)
 
 
 _MAE_ONLY_KEYS = ("mae_prob", "mask_ratio", "mask_span", "input_type")

@@ -6,8 +6,9 @@ This slice covers the EzAudio settings: 1d input, AdaLN-SOLA time fusion
 cross-attention to the context, ``none`` positional embeddings.
 depth//2 in-blocks collect skips, a mid block, depth//2 out-blocks pop
 them in reverse, then the FinalBlock.  Cross-step layer caching
-(``collect_deep_k`` / ``deep_cache``) splits that stack; ControlNet skips
-raise until they are ported.
+(``collect_deep_k`` / ``deep_cache``) splits that stack.  ControlNet skips
+(``controlnet_skips``, one per in-block) are popped in reverse in step with
+the long skips and added to them (to ``x`` when ``skip=False``).
 """
 
 from __future__ import annotations
@@ -87,12 +88,15 @@ class UDiT(nn.Module):
           * ``deep_cache=(k, deep)``: run ``in_blocks[:k]``, substitute
             ``deep`` for the middle of the U, run ``out_blocks[half-k:]``
             and the final block.  Exact at the step that collected ``deep``.
+
+        ``controlnet_skips``: depth//2 tensors (B, L, D) from
+        ``DiTControlNet``; they do not combine with ``deep_cache``.
         """
-        if controlnet_skips is not None:
-            raise NotImplementedError("ControlNet skips are not ported yet")
         half = len(self.in_blocks)
         if deep_cache is not None and collect_deep_k is not None:
             raise ValueError("pass deep_cache or collect_deep_k, not both")
+        if deep_cache is not None and controlnet_skips is not None:
+            raise ValueError("layer caching (deep_cache) and ControlNet skips do not combine")
         cache_k = deep_cache[0] if deep_cache is not None else None
         for k in (cache_k, collect_deep_k):
             if k is not None and not 1 <= k < half:
@@ -122,8 +126,15 @@ class UDiT(nn.Module):
         else:
             x = deep_cache[1].to(x.dtype)
             out_blocks = self.out_blocks[half - cache_k:]
+        cn = list(controlnet_skips) if controlnet_skips is not None else []
         for i, blk in enumerate(out_blocks):
-            x = run(blk, x, skips.pop() if self.skip else None)
+            skip = skips.pop() if self.skip else None
+            if cn:
+                if self.skip:
+                    skip = skip + cn.pop()
+                else:
+                    x = x + cn.pop()
+            x = run(blk, x, skip)
             if collect_deep_k is not None and i == half - collect_deep_k - 1:
                 deep = x
         out = self.final_block(x, time_ada_final)

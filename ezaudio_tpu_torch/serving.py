@@ -16,15 +16,17 @@ server aggregates concurrent requests into batches:
     length bucket (``length_buckets``, rounded up), one ``generate_audio``
     call per group, and the waveform is trimmed back to the requested
     length;
-  * editing requests (``submit_edit``) ride the same queue and are served
-    one by one (the editing API is single-clip);
+  * editing requests (``submit_edit``) and ControlNet requests
+    (``submit_controlnet``, with ``controlnet=`` an ``EzAudioControlNet``
+    sharing the server's EzAudio) ride the same queue and are served one
+    by one (both APIs are single-clip);
   * each request carries its own seed: its slot's starting noise is the
     draw a solo ``generate_audio(random_seed=seed)`` makes, so a (text,
     seed, length bucket) triple reproduces across batch compositions under
     a deterministic sampler.  Results come back through futures.
 
-ControlNet (``controlnet=``) and CLAP reranking (``clap_scorer=``) are not
-ported yet and raise ``NotImplementedError``.
+CLAP reranking (``clap_scorer=``) is not ported yet and raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -46,7 +48,7 @@ from ezaudio_tpu_torch import utils
 class _Request:
     text: str
     seed: int
-    kind: str = "generate"            # "generate" | "edit"
+    kind: str = "generate"            # "generate" | "edit" | "controlnet"
     length: Optional[float] = None    # requested seconds (generate)
     bucket: Optional[float] = None    # length bucket (generate)
     edit_kwargs: Optional[dict] = None
@@ -76,11 +78,9 @@ class GenerationServer:
         attn_impl: Optional[str] = None,
         cfg_refresh: int = 1,  # uncond every P-th in-band group (dpm)
         fused: bool = False,  # the whole pipeline as one CUDA graph
-        controlnet=None,
+        controlnet=None,  # EzAudioControlNet(base=ez): shares ez's weights
         clap_scorer=None,
     ):
-        if controlnet is not None:
-            raise NotImplementedError("controlnet= is not ported yet")
         if clap_scorer is not None:
             raise NotImplementedError("clap_scorer= (reranking) is not ported yet")
         if sampler == "distilled" and (layer_cache is not None
@@ -90,6 +90,7 @@ class GenerationServer:
                 "sampler='distilled' does not compose with layer_cache or "
                 "guidance_interval (guidance is folded into the student)")
         self.ez = ez
+        self.controlnet = controlnet
         self.max_batch_size = max_batch_size
         self.max_wait = max_wait_ms / 1000.0
         buckets = batch_buckets or [b for b in (1, 2, 4, 8, 16) if b <= max_batch_size]
@@ -172,8 +173,18 @@ class GenerationServer:
 
     def submit_controlnet(self, text: str, audio_path, seed: Optional[int] = None,
                           **kw) -> Future:
-        raise ValueError("this GenerationServer was built without a controlnet= "
-                         "(ControlNet is not ported yet)")
+        """Enqueue a ControlNet-conditioned generation, served on its own
+        through the same queue.  ``kw`` goes to
+        ``EzAudioControlNet.generate_audio`` (``conditioning_scale``,
+        ``surpass_noise`` ...); the server's ``quant``, ``sampler`` and
+        ``ddim_steps`` apply unless ``kw`` overrides them."""
+        if self.controlnet is None:
+            raise ValueError("this GenerationServer was built without a controlnet=; "
+                             "pass an EzAudioControlNet sharing the same base EzAudio")
+        fut = self._enqueue(_Request(text=text, seed=_new_seed(seed), kind="controlnet",
+                                     edit_kwargs=dict(audio_path=audio_path, **kw)))
+        self.stats["controlnet_requests"] += 1
+        return fut
 
     def submit_reranked(self, text: str, n_candidates: int = 4, seed: Optional[int] = None,
                         length: Optional[float] = None, **kw) -> Future:
@@ -259,6 +270,20 @@ class GenerationServer:
             if not req.future.done():
                 req.future.set_exception(e)
 
+    def _run_controlnet(self, req: _Request):
+        self.stats["batches"] += 1
+        try:
+            # the server's recipe knobs that the ControlNet API takes (it has
+            # no fused program); the request's own kwargs win
+            kw = {k: self.gen_kwargs[k] for k in ("quant", "sampler", "ddim_steps")
+                  if self.gen_kwargs[k] is not None}
+            kw.update(req.edit_kwargs)
+            sr, wav = self.controlnet.generate_audio(req.text, random_seed=req.seed, **kw)
+            req.future.set_result((sr, np.asarray(wav)))
+        except Exception as e:
+            if not req.future.done():
+                req.future.set_exception(e)
+
     def _loop(self):
         while not self._stop.is_set():
             batch = self._drain()
@@ -266,6 +291,8 @@ class GenerationServer:
             for r in batch:
                 if r.kind == "edit":
                     self._run_edit(r)
+                elif r.kind == "controlnet":
+                    self._run_controlnet(r)
                 else:
                     groups.setdefault(r.bucket, []).append(r)
             for bucket_len, group in sorted(groups.items()):

@@ -234,3 +234,51 @@ def test_f32_limits_need_3xtf32(split, passes):
     got = x + (_tf32_matmul(snake_beta_vae(conv + b7, a2, be2), w1, split) + b1)
     err = (got - residual_unit_plain(x, w7, b7, w1, b1, a1, be1, a2, be2, d)).abs().max()
     assert bool(err <= cs.RESUNIT_TOL) == passes, err.item()
+
+
+def test_controlnet_phases_rehearse_on_cpu(monkeypatch):
+    """Phases 13-15 end to end at a tiny size, the 10 s window cut to 0.1 s:
+    the ControlNet runs and their launch counts (the ControlNet's depth // 2
+    blocks added to ``want_attention``), the burst clip, card against CPU
+    (here CPU against CPU: equal), the served request against the direct
+    call."""
+    import numpy as np
+
+    import chip_smoke as cs
+    import ezaudio_tpu_torch.api.controlnet as api_cn
+    import ezaudio_tpu_torch.ops.kernels.attention as ka
+    import ezaudio_tpu_torch.ops.kernels.resunit as kr
+    from ezaudio_tpu_torch.config import get_model_config
+
+    def counted(plain, wrapper):
+        def run(*a, **k):
+            wrapper.launches += 1
+            return plain(*a, **k)
+        return run
+
+    monkeypatch.setattr(ka, "attention_plain", counted(ka.attention_plain, ka.fused_attention))
+    monkeypatch.setattr(kr, "residual_unit_plain",
+                        counted(kr.residual_unit_plain, kr.fused_residual_unit))
+    monkeypatch.setattr(api_cn, "WINDOW_SECONDS", 0.1)
+    assert cs.want_attention(24, 50, controlnet=True) == 3700
+    assert cs.want_attention(24, 25, controlnet=True) == 1850
+    clip = cs.burst_clip(24000, 2.0)
+    on = np.abs(clip.reshape(4, -1)).max(-1)
+    assert clip.shape == (48000,) and on[0] > 0.3 and on[1] == 0 and on[2] > 0.3
+
+    cfg = get_model_config("energy").to_dict()
+    cfg["model"].update(embed_dim=32, depth=2, num_heads=4, context_dim=16,
+                        ada_sola_rank=2, ada_sola_alpha=2)
+    cfg["text_encoder"]["model"] = "tiny"
+    cn = cs.build_controlnet("cpu", config=cfg)
+    runs = [(name, dict(kw, ddim_steps=3)) for name, kw in cs.CONTROLNET_RUNS]
+    rows = cs.controlnet_paths(cn, clip_s=0.1, runs=runs)
+    assert [r["path"] for r in rows] == [name for name, _ in cs.CONTROLNET_RUNS]
+    assert all((r["attention_launches"], r["resunit_launches"]) == (24, 12) for r in rows)
+    assert all(r["wav_shape"] == [2400] for r in rows)
+    row = cs.controlnet_card_vs_cpu(dev="cpu", cfg=cfg, clip_s=0.1)
+    assert row["max_abs_err"] == 0.0 and row["attention_launches"] == 42
+    row = cs.controlnet_served(cn, clip_s=0.1, steps=3, lengths=(0.1, 0.1))
+    assert row["stats"]["controlnet_requests"] == 1
+    assert row["controlnet_vs_direct_max_abs_err"] == 0.0
+    assert row["wav_shapes"] == [[2400]] * 3

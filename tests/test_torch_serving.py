@@ -1,8 +1,10 @@
 """The port's micro-batching ``GenerationServer`` (``ezaudio_tpu_torch/serving.py``):
 every test of ``tests/test_serving.py`` on the port, with the same fake
-backends and the port's tiny ``EzAudio(device="cpu")``, except ControlNet
-and reranking, which are not ported and raise; plus served == solo for a
-(text, seed, length bucket) and a served ``fused=True`` request."""
+backends and the port's tiny ``EzAudio(device="cpu")``, except reranking,
+which is not ported and raises, and the served ControlNet request, which
+``tests/test_torch_controlnet.py`` holds against the direct call; plus
+served == solo for a (text, seed, length bucket) and a served
+``fused=True`` request."""
 
 import concurrent.futures
 import dataclasses
@@ -210,8 +212,8 @@ class TestHeterogeneousServing:
         assert srv.stats["edit_requests"] == 1
 
     def test_controlnet_is_not_ported(self):
-        with pytest.raises(NotImplementedError, match="controlnet"):
-            GenerationServer(FakeEz(), controlnet=object())
+        """ControlNet requests are served now (tests/test_torch_controlnet.py);
+        a server built without ``controlnet=`` still refuses them."""
         with GenerationServer(FakeEz(), max_batch_size=1) as srv:
             with pytest.raises(ValueError, match="controlnet"):
                 srv.submit_controlnet("x", np.zeros(16, np.float32))
