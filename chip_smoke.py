@@ -4,13 +4,14 @@
     python3 chip_smoke.py            # every phase; needs one CUDA card
     python3 chip_smoke.py --profile  # build + torch.profiler breakdown of
                                      # the main path (5 steps), staged and
-                                     # fused, no checks
+                                     # fused, f32 and bf16, no checks
 
 Phases, each fatal on failure:
   1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
   2. build every CUDA kernel of the port from ``ezaudio_tpu_torch/csrc``;
   3. each kernel against its plain PyTorch version at the main path's
-     shapes, TF32 off: max error against the stated tolerance, the median
+     shapes, f32 and bf16, TF32 and cuBLAS's reduced-precision bf16
+     reductions off: max error against the stated tolerance, the median
      time of kernel, plain version and (attention) SDPA as a yardstick;
   4. the main path: ``EzAudio("s3_l", device="cuda")`` on seeded random
      weights, f32, ``generate_audio`` at its defaults (10 s, 100 DDIM steps,
@@ -58,17 +59,42 @@ Phases, each fatal on failure:
  15. a ``GenerationServer(cn.base, controlnet=cn)`` (DPM 25): two 10 s
      generate requests and one ControlNet request; one ControlNet request
      counted and its waveform equal to the direct call within FUSED_TOL;
- 16. the launches of each path, a ``{"kernels": [...]}`` line (launches
-     summed over the paths of phases 4-8, 10-13 and 15), the card's name
-     and power limit, and last ``{"ok": true, "device": {...}}``.
+ 16. s3_l in bf16: ``EzAudio("s3_l", dtype=torch.bfloat16)`` on phase 4's
+     seeded weights, ``generate_audio`` at its defaults for 1 and 4 prompts
+     and ``fused=True`` for 1 (first call and two replays, equal to staged
+     within FUSED_TOL); every launch a bf16 launch; the distance and
+     correlation of each waveform to phase 4's f32 one are printed, not
+     checked;
+ 17. bf16 on the card against bf16 on the CPU (the plain versions), the same
+     weights and initial latents: s3_l at full width, depth 4, 1 s, 3 DDIM
+     steps, eta 0: no farther from the CPU's bf16 output than
+     BF16_REF_FACTOR times the CPU's bf16-to-f32 distance, and correlated
+     above BF16_PIPE_MIN_CORR;
+ 18. the checkpoint round trip: phase 13's f32 models written in the
+     reference formats to a temporary directory (DiT and ControlNet
+     ``{"model": ...}``, the VAE ``{"state_dict": {"autoencoder." ...}}``
+     with ``weight_g``/``weight_v``, T5 in HF names), loaded by
+     ``EzAudio(ckpt_path=, vae_path=, t5_path=)`` and
+     ``EzAudioControlNet(controlnet_path=)``: a short f32 generate and
+     ControlNet call equal the writer's within CKPT_REL_TOL of the range;
+ 19. s3_xl in bf16 at full width and depth (embed 1152, depth 28,
+     FLAN-T5-XL): ``generate_audio`` at its defaults for 1 prompt, every
+     launch a bf16 launch;
+ 20. the launches of each path, a ``{"kernels": [...]}`` line (launches
+     summed over the paths of phases 4-8, 10-13, 15, 16 and 19), the card's
+     name and power limit, and last ``{"ok": true, "device": {...}}``.
 
-Every path of phases 4, 6-8, 11-13 and 15 is driven with the launch counters
-set to 0 just before it and read just after, and must launch each kernel
-exactly as often as its model calls and decodes imply.  A fused call runs
-as a CUDA graph whose replays do not pass through the kernels' Python
-wrappers: its launches are those its capture recorded, times its replays.
-Every ResidualUnit shape the paths give the kernel must be among the
-shapes of phase 3.
+Every path of phases 4, 6-8, 11-13, 15, 16 and 19 is driven with the launch
+counters set to 0 just before it and read just after, and must launch each
+kernel exactly as often as its model calls and decodes imply; the bf16
+paths count every launch by dtype (``launches_by_dtype``), so a path that
+ran a kernel in f32 fails.  A fused call runs as a CUDA graph whose replays
+do not pass through the kernels' Python wrappers: its launches are those
+its capture recorded, times its replays.  Every ResidualUnit shape and
+dtype the paths give the kernel must be among those of phase 3.  Each
+model is deleted before the next is built, and the allocated memory must
+fall back to within MEM_SLACK_GIB of its value before the build (no
+``gc.collect()``); each phase prints its seconds.
 
 It exits non-zero, with no result line, when CUDA is unavailable or the
 port's sources are missing.  Bounds use the H100 SXM data-sheet peaks:
@@ -80,7 +106,6 @@ product costs three TF32 products (3xTF32), so f32 work is bounded at
 from __future__ import annotations
 
 import contextlib
-import gc
 import json
 import os
 import statistics
@@ -113,6 +138,22 @@ PIPE_MIN_CORR = 0.9999
 # the same order, so equal; the limit leaves room for a library routine
 # that chooses another algorithm inside a graph
 FUSED_TOL = 1e-5
+# bf16 on the card against bf16 on the CPU: the rule of
+# tests/test_torch_bf16.py.  The card may be no farther from the CPU's bf16
+# output than BF16_REF_FACTOR times the CPU's bf16 distance from its own f32
+# output on the same weights and inputs, and correlate above
+# BF16_PIPE_MIN_CORR.  Summing in another order alone moves a bf16 output by
+# about 5 % of its range here (the CPU with 8 and with 3 threads, PERF.md
+# §6), so a fixed share of the range near that spread cannot separate a
+# fault from rounding; the kernels' own bf16 functions are held in phase 3.
+BF16_REF_FACTOR = 2.0
+BF16_PIPE_MIN_CORR = 0.99
+# a model loaded from the files written of it: the DiT, T5 and the
+# ControlNet load bit for bit; the VAE's weight norm, folded again, rounds
+CKPT_REL_TOL = 1e-4
+# a deleted model's memory: allocated bytes back within this of their
+# value before it was built
+MEM_SLACK_GIB = 0.1
 
 
 def log(msg: str) -> None:
@@ -179,7 +220,8 @@ def bound_ms(nbytes: float, flops: float, dtype: str):
 # (B, H, Lq, Lk, head_dim, key mask); B = 2 is one prompt's CFG pair.
 ATTN_CASES = [(2, 16, 500, 500, 64, False),   # s3_l self-attention
               (2, 16, 500, 100, 64, True),    # s3_l cross-attention, T5 padding
-              (2, 16, 500, 100, 72, True)]    # s3_xl cross-attention (head_dim 72)
+              (2, 16, 500, 500, 72, False),   # s3_xl self-attention (head_dim 72)
+              (2, 16, 500, 100, 72, True)]    # s3_xl cross-attention
 # (B, L, C, dilation): the four decoder blocks of one 10 s clip, which are
 # also the encoder's blocks of a 10 s window in reverse order.
 RESUNIT_CASES = ([(1, 5000, 512, d) for d in (1, 3, 9)]
@@ -194,6 +236,39 @@ RESUNIT_CASES = ([(1, 5000, 512, d) for d in (1, 3, 9)]
                     (1, 1500, 512, 9)]
                  # decode of phase 12's 5 s length bucket, two clips
                  + [(2, 2500, 512, 9), (2, 15000, 256, 3), (2, 60000, 128, 1)])
+# bf16: the decoder blocks of one 10 s clip, the shapes of phases 16 and 19
+RESUNIT_BF16_CASES = ([(1, 5000, 512, d) for d in (1, 3, 9)]
+                      + [(1, 30000, 256, 9), (1, 120000, 128, 9)]
+                      + [(1, 240000, 128, d) for d in (1, 3, 9)])
+
+
+def bf16_agreement(got, want, slack=None):
+    """``(ok, max_abs_err, share of elements beyond one output ulp)`` of a
+    bf16 ``got`` against ``want``: every element within one bf16 ulp of
+    ``|want|`` (2^-7 |want| + 1e-5) plus ``slack`` (default: one more
+    ulp), and at most BF16_OFF_SHARE of the elements beyond one ulp."""
+    diff = (got.float() - want.float()).abs()
+    tight = 2.0 ** -7 * want.float().abs() + 1e-5
+    loose = tight + (tight if slack is None else slack)
+    share = (~(diff <= tight)).float().mean().item()  # NaN counts as off
+    ok = bool((diff <= loose).all()) and share <= BF16_OFF_SHARE
+    return ok, diff.max().item(), share
+
+
+def resunit_bf16_slack(x, w7, b7, w1, b1, a1, be1, a2, be2, dilation):
+    """The bf16 ResidualUnit's allowance beyond one output ulp: where a
+    snake2 output ``g``, summed in another order, rounds to the other
+    side, every output of its row moves by one bf16 ulp of ``g`` times a
+    weight of ``W1``: 2^-7 max|g| max|W1|, ``g`` computed in f32."""
+    import torch.nn.functional as F
+
+    from ezaudio_tpu_torch.ops.activations import snake_beta_vae
+
+    h = snake_beta_vae(x.float(), a1.float(), be1.float())
+    acc = F.conv1d(h.transpose(1, 2), w7.float().permute(2, 1, 0), b7.float(),
+                   padding=3 * dilation, dilation=dilation).transpose(1, 2)
+    g = snake_beta_vae(acc, a2.float(), be2.float())
+    return 2.0 ** -7 * g.abs().max().item() * w1.float().abs().max().item()
 
 
 def attention_agreement(got, want, v):
@@ -201,17 +276,11 @@ def attention_agreement(got, want, v):
     the kernel's ``got`` against the plain version's ``want``."""
     import torch
 
-    diff = (got.float() - want.float()).abs()
-    if got.dtype == torch.float32:
-        tight = loose = ATTN_F32_ATOL
-        max_share = 0.0
-    else:
-        tight = 2.0 ** -7 * want.float().abs() + 1e-5
-        loose = tight + 2.0 ** -8 * v.float().abs().max()
-        max_share = BF16_OFF_SHARE
-    share = (~(diff <= tight)).float().mean().item()  # NaN counts as off
-    ok = bool((diff <= loose).all()) and share <= max_share
-    return ok, diff.max().item(), share
+    if got.dtype != torch.float32:
+        return bf16_agreement(got, want, 2.0 ** -8 * v.float().abs().max())
+    diff = (got - want).abs()
+    share = (~(diff <= ATTN_F32_ATOL)).float().mean().item()
+    return share == 0.0, diff.max().item(), share
 
 
 def sync(dev) -> None:
@@ -275,27 +344,39 @@ def resunit_args(dev, gen, B, L, C):
     return [x, w7, b7, w1, b1, *snk]
 
 
-def check_resunit(dev, gen, cases=RESUNIT_CASES):
+def check_resunit(dev, gen, cases=RESUNIT_CASES, dtype="float32"):
+    """Kernel 2 against its plain version at ``cases``: f32 within
+    RESUNIT_TOL; bf16 (x and weights bf16, snake parameters f32) by
+    :func:`bf16_agreement` with :func:`resunit_bf16_slack`."""
+    import torch
+
     from ezaudio_tpu_torch.ops.kernels.resunit import (fused_residual_unit,
                                                        residual_unit_plain)
 
     rows = []
     for B, L, C, d in cases:
         args = resunit_args(dev, gen, B, L, C)
+        args = [a.to(getattr(torch, dtype)) for a in args[:5]] + args[5:]
         got = fused_residual_unit(*args, d)
         want = residual_unit_plain(*args, d)
         sync(dev)
-        err = (got - want).abs().max().item()
+        if dtype == "float32":
+            err = (got - want).abs().max().item()
+            ok, tol = err <= RESUNIT_TOL, RESUNIT_TOL
+        else:
+            tol = resunit_bf16_slack(*args, d)
+            ok, err, share = bf16_agreement(got, want, tol)
         ms = time_ms(lambda: fused_residual_unit(*args, d), reps=3, iters=3)
         plain_ms = time_ms(lambda: residual_unit_plain(*args, d), reps=3, iters=3)
-        nbytes = (2 * B * L * C + 8 * C * C + 6 * C) * 4
-        bms, by = bound_ms(nbytes, 2.0 * B * L * C * C * 8, "float32")
-        row = dict(shape=[B, L, C], dilation=d, dtype="float32", max_abs_err=err,
-                   tol=RESUNIT_TOL, ms=ms, plain_ms=plain_ms, library_ms=None,
+        elt = args[0].element_size()
+        nbytes = (2 * B * L * C + 8 * C * C + 2 * C) * elt + 4 * C * 4
+        bms, by = bound_ms(nbytes, 2.0 * B * L * C * C * 8, dtype)
+        row = dict(shape=[B, L, C], dilation=d, dtype=dtype, max_abs_err=err,
+                   tol=tol, ms=ms, plain_ms=plain_ms, library_ms=None,
                    bound_ms=bms, bound_by=by)
         log("resunit " + json.dumps(row))
-        if not err <= RESUNIT_TOL:
-            raise AssertionError(f"resunit {row['shape']} d={d}: err {err}")
+        if not ok:
+            raise AssertionError(f"resunit {row['shape']} d={d} {dtype}: err {err}")
         rows.append(row)
     return rows
 
@@ -305,8 +386,9 @@ def reset_counters():
     from ezaudio_tpu_torch.ops.kernels.attention import fused_attention
     from ezaudio_tpu_torch.ops.kernels.resunit import fused_residual_unit
 
-    fused_attention.launches = 0
-    fused_residual_unit.launches = 0
+    for fn in (fused_attention, fused_residual_unit):
+        fn.launches = 0
+        fn.launches_by_dtype = {}
 
 
 def read_counters():
@@ -316,16 +398,57 @@ def read_counters():
     return fused_attention.launches, fused_residual_unit.launches
 
 
-def build_ezaudio(dev="cuda", config=None):
-    """``EzAudio("s3_l")`` (or ``config``) on seeded random weights."""
+def read_dtype_counters():
+    """``{"<kernel>.<dtype>": launches}`` since the last reset."""
+    from ezaudio_tpu_torch.api.graphs import kernel_launches_by_dtype
+
+    return kernel_launches_by_dtype()
+
+
+def want_by_dtype(attn, res, dtype):
+    """The launches by dtype of a path whose every launch is in ``dtype``."""
+    want = {"attention": attn, "resunit": res}
+    return {f"{k}.{dtype}": n for k, n in want.items() if n}
+
+
+def build_ezaudio(dev="cuda", config=None, model="s3_l", dtype="float32"):
+    """``EzAudio(model)`` (or ``config``) on seeded random weights."""
+    import torch
+
     from ezaudio_tpu_torch.api.ezaudio import EzAudio
 
     t0 = time.perf_counter()
-    ez = EzAudio("s3_l", config=config, device=dev, seed=0)
+    ez = EzAudio(model, config=config, device=dev, seed=0, dtype=getattr(torch, dtype))
     sync(dev)
-    log(f"main: EzAudio('s3_l') built in {time.perf_counter() - t0:.2f} s, "
-        f"{sum(p.numel() for p in ez.dit.parameters()) / 1e9:.3f} B DiT params")
+    log(f"main: EzAudio({model!r}, {dtype}) built in {time.perf_counter() - t0:.2f} s, "
+        f"{sum(p.numel() for p in ez.dit.parameters()) / 1e9:.3f} B DiT params, "
+        f"{mem_gib(torch.cuda.memory_allocated)} GiB allocated")
     return ez
+
+
+def check_freed(what, before_gib):
+    """A deleted model's memory is back (ROADMAP F8): allocated within
+    MEM_SLACK_GIB of ``before_gib``, with no garbage collection (cuBLAS's
+    cached workspaces released first)."""
+    import torch
+
+    # cuBLAS keeps a workspace per stream it ran on (a graph capture's too):
+    # the library's cache, not the model's memory
+    clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+    if clear is not None:
+        clear()
+    now = mem_gib(torch.cuda.memory_allocated)
+    log(f"freed {what}: {now:.3f} GiB allocated after del, {before_gib:.3f} before the build")
+    if now > before_gib + MEM_SLACK_GIB:
+        raise AssertionError(f"{what}: {now:.3f} GiB still allocated after del, "
+                             f"{before_gib:.3f} before the build")
+
+
+@contextlib.contextmanager
+def phase(name):
+    t0 = time.perf_counter()
+    yield
+    log(f"phase {name}: {time.perf_counter() - t0:.1f} s")
 
 
 def want_attention(depth: int, steps: int, layer_cache=None, controlnet=False) -> int:
@@ -351,7 +474,9 @@ def resunit_shapes(seen: set):
     orig = oobleck_fast.fused_residual_unit
 
     def record(x, *args):
-        seen.add(tuple(x.shape[1:]))
+        # (L, C) for f32 inputs, (L, C, "bfloat16") for bf16 ones
+        dt = str(x.dtype).rsplit(".", 1)[-1]
+        seen.add(tuple(x.shape[1:]) + (() if dt == "float32" else (dt,)))
         return orig(x, *args)
 
     oobleck_fast.fused_residual_unit = record
@@ -361,18 +486,20 @@ def resunit_shapes(seen: set):
         oobleck_fast.fused_residual_unit = orig
 
 
-def uncovered_shapes(paths, cases=RESUNIT_CASES):
-    """The ResidualUnit (L, C) of the paths that phase 3 does not hold
-    against the plain version."""
-    checked = {(L, C) for _, L, C, _ in cases}
+def uncovered_shapes(paths, cases=RESUNIT_CASES, bf16_cases=RESUNIT_BF16_CASES):
+    """The ResidualUnit (L, C) of the paths (``(L, C, "bfloat16")`` for a
+    bf16 one) that phase 3 does not hold against the plain version."""
+    checked = ({(L, C) for _, L, C, _ in cases}
+               | {(L, C, "bfloat16") for _, L, C, _ in bf16_cases})
     return sorted({tuple(s) for p in paths for s in p["resunit_shapes"]} - checked)
 
 
-def run_path(name, dev, fn, want_attn, want_res, audio_s, want_len):
+def run_path(name, dev, fn, want_attn, want_res, audio_s, want_len, dtype=None):
     """Drive one path with the counters set to 0 just before it and read
     just after; check its launches and output.  ``audio_s`` is the seconds
     of audio the call generates, or a function of the ResidualUnit shapes
-    the call gave the kernel (an edit: its window, the longest of them)."""
+    the call gave the kernel (an edit: its window, the longest of them).
+    With ``dtype``, every launch must be a launch on ``dtype`` inputs."""
     import numpy as np
     import torch
 
@@ -388,12 +515,13 @@ def run_path(name, dev, fn, want_attn, want_res, audio_s, want_len):
         sync(dev)
         wall = time.perf_counter() - t0
     attn, res = read_counters()
+    by_dtype = read_dtype_counters()
     if callable(audio_s):
         audio_s = audio_s(seen)
     row = dict(path=name, wav_shape=list(wav.shape), wall_s=wall, audio_s=audio_s,
                audio_s_per_s=audio_s / wall,
                peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30 if cuda else None,
-               attention_launches=attn, resunit_launches=res,
+               attention_launches=attn, resunit_launches=res, launches_by_dtype=by_dtype,
                resunit_shapes=sorted(seen, reverse=True),
                wav_abs_max=float(np.abs(wav).max()), wav_std=float(wav.std()))
     log(f"{name} " + json.dumps(row))
@@ -401,6 +529,8 @@ def run_path(name, dev, fn, want_attn, want_res, audio_s, want_len):
         raise AssertionError(f"{name}: output {wav.shape}, finite={np.isfinite(wav).all()}")
     if attn != want_attn or res != want_res:
         raise AssertionError(f"{name}: launch counts {attn}, {res}: want {want_attn}, {want_res}")
+    if dtype is not None and by_dtype != want_by_dtype(attn, res, dtype):
+        raise AssertionError(f"{name}: launches by dtype {by_dtype}, want all {dtype}")
     row["wav"] = wav  # kept for the comparisons of later phases, not logged
     return row
 
@@ -513,12 +643,14 @@ def mem_gib(fn):
     return fn() / 2**30 if torch.cuda.is_available() else None
 
 
-def fused_run(name, ez, fn, want_attn, want_res, audio_s, replays=2, like=None):
+def fused_run(name, ez, fn, want_attn, want_res, audio_s, replays=2, like=None,
+              dtype=None):
     """A fused call's first run (warm-up, capture, instantiation, one
     replay) and ``replays`` more, each checked: equal output across
-    replays, the capture's launches equal to a staged call's, the output
-    within FUSED_TOL of ``like`` (the staged waveform).  Launches are those
-    of one replay times the replays."""
+    replays, the capture's launches equal to a staged call's (with
+    ``dtype``, every one on ``dtype`` inputs), the output within FUSED_TOL
+    of ``like`` (the staged waveform).  Launches are those of one replay
+    times the replays."""
     import numpy as np
     import torch
 
@@ -546,13 +678,15 @@ def fused_run(name, ez, fn, want_attn, want_res, audio_s, replays=2, like=None):
         if not np.array_equal(again, wav):
             raise AssertionError(f"{name}: a replay gave another waveform")
     per = dict(prog.launches) if cuda else None
+    per_dtype = dict(prog.launches_by_dtype) if cuda else read_dtype_counters()
     calls = prog.replays if cuda else 1 + replays
     err = None if like is None else float(np.abs(wav - like).max())
     row = dict(path=name, wav_shape=list(wav.shape), first_call_s=first_s,
                **{k: v for k, v in prog.timings.items()}, replay_s=walls,
                audio_s=audio_s, audio_s_per_s=audio_s / statistics.median(walls),
                mem_before_gib=mem_before, mem_after_capture_gib=mem_after,
-               peak_first_call_gib=peak_first, launches_per_replay=per, replays=calls,
+               peak_first_call_gib=peak_first, launches_per_replay=per,
+               launches_by_dtype=per_dtype, replays=calls,
                max_abs_err_vs_staged=err, tol=FUSED_TOL,
                resunit_shapes=sorted(seen, reverse=True))
     log(f"{name} " + json.dumps(row))
@@ -564,6 +698,9 @@ def fused_run(name, ez, fn, want_attn, want_res, audio_s, replays=2, like=None):
         raise AssertionError(f"{name}: launches per replay {per}: want {want_attn}, {want_res}")
     if not cuda and read_counters() != (want_attn * calls, want_res * calls):
         raise AssertionError(f"{name}: eager launches {read_counters()}")
+    if dtype is not None and per_dtype != want_by_dtype(
+            *((want_attn, want_res) if cuda else (want_attn * calls, want_res * calls)), dtype):
+        raise AssertionError(f"{name}: launches by dtype {per_dtype}, want all {dtype}")
     row.update(attention_launches=want_attn * calls, resunit_launches=want_res * calls,
                wav=wav)
     return row
@@ -1080,6 +1217,199 @@ def controlnet_served(cn, clip_s=10.0, steps=25, lengths=(10.0, 10.0)):
     return row
 
 
+def vs_f32(name, got, f32):
+    """Phase 16's printed comparison of a bf16 waveform with the f32 one
+    at the same seed (no limit: another precision)."""
+    import numpy as np
+
+    row = dict(max_abs_diff=float(np.abs(got - f32).max()),
+               ref_abs_max=float(np.abs(f32).max()),
+               corr=float(np.corrcoef(got.ravel(), f32.ravel())[0, 1]))
+    log(f"{name}_vs_f32 " + json.dumps(row))
+    return row
+
+
+def bf16_paths(ez, f32_rows, length=10.0, replays=2):
+    """Phase 16: the bf16 ``ez`` at the main path's recipe, 1 and 4 prompts
+    staged and 1 prompt fused (equal to staged); ``f32_rows`` are phase 4's
+    rows, whose waveforms the bf16 ones are printed against."""
+    from ezaudio_tpu_torch.codecs.oobleck import ResidualUnit
+
+    depth = ez.params_cfg.model.depth
+    want_res = sum(isinstance(m, ResidualUnit) for m in ez.autoencoder.model.decoder.modules())
+    n_samples = int(length * ez.latent_sr) * ez.autoencoder.downsampling_ratio
+    rows = []
+    for n, f32 in zip((1, 4), f32_rows):
+        row = run_path(f"bf16_main[{n}]", ez.device,
+                       lambda: ez.generate_audio(PROMPTS[:n], length=length,
+                                                 random_seed=1234)[1],
+                       want_attention(depth, 100), want_res, n * length, n_samples,
+                       dtype="bfloat16")
+        row["vs_f32"] = vs_f32(row["path"], row["wav"], f32["wav"])
+        rows.append(row)
+    rows.append(fused_run(
+        "bf16_fused[1]", ez,
+        lambda: ez.generate_audio(PROMPTS[:1], length=length, random_seed=1234,
+                                  fused=True)[1],
+        want_attention(depth, 100), want_res, length, replays, rows[0]["wav"], "bfloat16"))
+    return rows
+
+
+def bf16_card_vs_cpu(gen, dev="cuda", cfg=None, length=1.0):
+    """Phase 17: bf16 on the card (kernels) against bf16 on the CPU (plain
+    versions), s3_l at full width and depth 4, the same weights and initial
+    latents, ``length`` s, 3 DDIM steps, eta 0; the CPU's f32 output on the
+    f32 weights the bf16 ones were cast from is the yardstick.  Every card
+    launch bf16."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from ezaudio_tpu_torch.api.ezaudio import EzAudio
+    from ezaudio_tpu_torch.config import get_model_config
+
+    cfg = copy.deepcopy(cfg if cfg is not None else get_model_config("s3_l").to_dict())
+    cfg["model"]["depth"] = 4
+    cpu32 = EzAudio(config=cfg, device="cpu", seed=6)
+    cpu = EzAudio(config=cfg, device="cpu", seed=6, dtype=torch.bfloat16)
+    gpu = EzAudio(config=cfg, device=dev, seed=6, dtype=torch.bfloat16)
+    for a, b in ((cpu.dit, gpu.dit), (cpu.t5, gpu.t5),
+                 (cpu.autoencoder.model, gpu.autoencoder.model)):
+        b.load_state_dict(a.state_dict())
+    frames = int(length * gpu.latent_sr)
+    noise = torch.randn(2, frames, gpu.latent_dim, generator=gen, device=dev).cpu()
+    kw = dict(length=length, ddim_steps=3, eta=0.0, random_seed=0, initial_latents=noise)
+    prompts = ["a dog barking in the rain", "wind through trees"]
+    reset_counters()
+    _, wg = gpu.generate_audio(prompts, **kw)
+    attn, res = read_counters()
+    by_dtype = read_dtype_counters()
+    _, wc = cpu.generate_audio(prompts, **kw)
+    _, w32 = cpu32.generate_audio(prompts, **kw)
+    err, ref = float(np.abs(wg - wc).max()), float(np.abs(wc - w32).max())
+    scale = float(np.abs(wc).max())
+    corr = float(np.corrcoef(wg.ravel(), wc.ravel())[0, 1])
+    row = dict(shape=list(wg.shape), max_abs_err=err, bf16_vs_f32_max_abs=ref,
+               ref_abs_max=scale, rel_err=err / scale, bf16_vs_f32_rel=ref / scale, corr=corr,
+               bf16_vs_f32_corr=float(np.corrcoef(wc.ravel(), w32.ravel())[0, 1]),
+               ref_factor=BF16_REF_FACTOR, min_corr=BF16_PIPE_MIN_CORR,
+               attention_launches=attn, resunit_launches=res, launches_by_dtype=by_dtype)
+    log("bf16_card_vs_cpu " + json.dumps(row))
+    if not (np.isfinite(wg).all() and 0 < ref and err <= BF16_REF_FACTOR * ref
+            and corr > BF16_PIPE_MIN_CORR):
+        raise AssertionError("bf16: card and CPU disagree")
+    if (attn, res) != (want_attention(4, 3), 12) or by_dtype != want_by_dtype(attn, res,
+                                                                             "bfloat16"):
+        raise AssertionError(f"bf16_card_vs_cpu launches {by_dtype}")
+    return row
+
+
+def unfold_weight_norm(sd):
+    """A folded VAE state dict in the reference's weight-norm form: each
+    conv weight W as ``weight_v`` = W times a fixed positive scale per
+    first-axis channel and ``weight_g`` = ||W|| over the other axes."""
+    import torch
+
+    out = {}
+    for k, v in sd.items():
+        if k.endswith(".weight") and v.ndim == 3:
+            c = 1.0 + 0.5 * torch.sin(torch.arange(v.shape[0], dtype=v.dtype,
+                                                   device=v.device))[:, None, None]
+            out[k + "_v"] = v * c
+            out[k + "_g"] = v.pow(2).sum(dim=(1, 2), keepdim=True).sqrt()
+        else:
+            out[k] = v
+    return out
+
+
+def write_checkpoints(cn, d):
+    """``cn``'s base and ControlNet in the reference formats under ``d``."""
+    import torch
+
+    base = cn.base
+    host = {k: v.cpu() for k, v in base.t5.state_dict().items()}
+    t5 = {"shared.weight": host.pop("embed_tokens.weight")}
+    t5.update({"encoder." + k: v for k, v in host.items()})
+    vae = unfold_weight_norm(base.autoencoder.model.state_dict())
+    files = dict(
+        ckpt_path=("dit.pt", {"model": base.dit.state_dict()}),
+        vae_path=("vae.pt", {"state_dict": {"autoencoder." + k: v.cpu()
+                                            for k, v in vae.items()}}),
+        t5_path=("t5.pt", t5),
+        controlnet_path=("controlnet.pt", {"model": cn.controlnet.state_dict()}))
+    paths = {}
+    for key, (name, obj) in files.items():
+        paths[key] = os.path.join(d, name)
+        torch.save(obj, paths[key])
+    return paths
+
+
+def checkpoint_round_trip(cn, length=2.0, steps=5):
+    """Phase 18: ``cn`` (f32, seeded) written in the reference formats to a
+    temporary directory, loaded back through ``EzAudio(ckpt_path=,
+    vae_path=, t5_path=)`` and ``EzAudioControlNet(controlnet_path=)`` onto
+    the same device; a ``length`` s DDIM call (eta 0, given initial
+    latents) and a ControlNet DPM call (the window set to ``length``) equal
+    the writer's within CKPT_REL_TOL of the range."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from ezaudio_tpu_torch.api.controlnet import EzAudioControlNet
+    from ezaudio_tpu_torch.api.ezaudio import EzAudio
+
+    base = cn.base
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        paths = write_checkpoints(cn, d)
+        write_s = time.perf_counter() - t0
+        size = sum(os.path.getsize(p) for p in paths.values()) / 2**30
+        t0 = time.perf_counter()
+        ez = EzAudio(config=base.params_cfg.to_dict(), device=base.device,
+                     **{k: paths[k] for k in ("ckpt_path", "vae_path", "t5_path")})
+        cn2 = EzAudioControlNet(base=ez, controlnet_path=paths["controlnet_path"])
+        sync(base.device)
+        load_s = time.perf_counter() - t0
+    on_device = all(t.device.type == base.device.type
+                    for m in (ez.dit, ez.t5, ez.autoencoder.model, cn2.controlnet)
+                    for t in m.state_dict().values())
+    frames = int(length * base.latent_sr)
+    noise = torch.randn(1, frames, base.latent_dim, generator=torch.Generator().manual_seed(8))
+    kw = dict(length=length, ddim_steps=steps, eta=0.0, random_seed=0, initial_latents=noise)
+    want = base.generate_audio(PROMPTS[0], **kw)[1]
+    got = ez.generate_audio(PROMPTS[0], **kw)[1]
+    clip = burst_clip(base.sr, length)
+    with controlnet_window(length):
+        ckw = dict(sampler="dpm", ddim_steps=steps, random_seed=21)
+        cwant = cn.generate_audio(CONTROLNET_PROMPT, clip, **ckw)[1]
+        cgot = cn2.generate_audio(CONTROLNET_PROMPT, clip, **ckw)[1]
+    errs = [float(np.abs(a - b).max()) / float(np.abs(b).max())
+            for a, b in ((got, want), (cgot, cwant))]
+    row = dict(files_gib=size, write_s=write_s, load_s=load_s, weights_on_device=on_device,
+               generate_rel_err=errs[0], controlnet_rel_err=errs[1], rel_tol=CKPT_REL_TOL)
+    log("checkpoint_round_trip " + json.dumps(row))
+    if not (on_device and all(e <= CKPT_REL_TOL for e in errs)
+            and np.isfinite(got).all() and np.isfinite(cgot).all()):
+        raise AssertionError(f"checkpoint round trip: {row}")
+    return row
+
+
+def s3_xl_path(dev="cuda", config=None, length=10.0):
+    """Phase 19: s3_xl in bf16 at full width and depth, ``generate_audio``
+    at its defaults for 1 prompt; every launch bf16."""
+    from ezaudio_tpu_torch.codecs.oobleck import ResidualUnit
+
+    ez = build_ezaudio(dev, config=config, model="s3_xl", dtype="bfloat16")
+    depth = ez.params_cfg.model.depth
+    want_res = sum(isinstance(m, ResidualUnit) for m in ez.autoencoder.model.decoder.modules())
+    n_samples = int(length * ez.latent_sr) * ez.autoencoder.downsampling_ratio
+    return run_path("s3_xl_bf16[1]", ez.device,
+                    lambda: ez.generate_audio(PROMPTS[:1], length=length, random_seed=1234)[1],
+                    want_attention(depth, 100), want_res, length, n_samples, dtype="bfloat16")
+
+
 def _kernel_class(name: str) -> str:
     n = name.lower()
     if "attn_fwd" in n:
@@ -1095,16 +1425,22 @@ def _kernel_class(name: str) -> str:
 
 def profile(steps: int = 5, out_dir: str = "chiprun_out") -> None:
     """Device-time breakdown of the main path (s3_l, 10 s, ``steps`` DDIM
-    steps), staged and ``fused=True`` (a replay of its graph), with
-    torch.profiler: time per kernel class, busy share of the wall time, and
-    the top kernels (written to ``out_dir``)."""
+    steps), f32 then bf16, staged and ``fused=True`` (a replay of its
+    graph), with torch.profiler: time per kernel class, busy share of the
+    wall time, and the top kernels (written to ``out_dir``)."""
+    os.makedirs(out_dir, exist_ok=True)
+    for dtype in ("float32", "bfloat16"):
+        profile_dtype(steps, out_dir, dtype)
+
+
+def profile_dtype(steps: int, out_dir: str, dtype: str) -> None:
+    """:func:`profile` for one dtype, on a model of its own."""
     import torch
     from torch.profiler import ProfilerActivity, profile as tprofile
 
     from ezaudio_tpu_torch.api.ezaudio import EzAudio
 
-    ez = EzAudio("s3_l", device="cuda", seed=0)
-    os.makedirs(out_dir, exist_ok=True)
+    ez = EzAudio("s3_l", device="cuda", seed=0, dtype=getattr(torch, dtype))
     for n, fused in ((1, False), (1, True), (4, False), (4, True)):
         prompts = ["a dog barking in the rain"] * n
         # warm up; the fused warm-up captures the profiled call's graph
@@ -1125,11 +1461,11 @@ def profile(steps: int = 5, out_dir: str = "chiprun_out") -> None:
             by_class[_kernel_class(e.key)] = by_class.get(_kernel_class(e.key), 0.0) + t
             kernels.append((t, e.count, e.key))
         busy = sum(by_class.values())
-        row = dict(prompts=n, fused=fused, ddim_steps=steps, wall_ms=wall_ms,
+        row = dict(prompts=n, fused=fused, dtype=dtype, ddim_steps=steps, wall_ms=wall_ms,
                    device_busy_ms=busy, busy_share=busy / wall_ms, ms_by_class=by_class)
         log("profile " + json.dumps(row))
         kernels.sort(reverse=True)
-        tag = "_fused" if fused else ""
+        tag = ("_fused" if fused else "") + ("" if dtype == "float32" else f"_{dtype}")
         with open(os.path.join(out_dir, f"profile_{n}prompt{tag}.txt"), "w") as f:
             f.write(json.dumps(row) + "\n")
             for t, cnt, key in kernels[:40]:
@@ -1159,6 +1495,8 @@ def main(argv) -> int:
         f"device {torch.cuda.get_device_name(0)}, count {torch.cuda.device_count()}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # bf16 GEMMs sum in f32, as the JAX package's bf16 products do
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
     t0 = time.perf_counter()
     logs = _build.build_all()
@@ -1174,33 +1512,59 @@ def main(argv) -> int:
         log("profile: done; no result line")
         return 0
     gen = torch.Generator(device="cuda").manual_seed(0)
-    attn_rows = check_attention("cuda", gen)
-    res_rows = check_resunit("cuda", gen)
+    with phase("3 kernels"):
+        attn_rows = check_attention("cuda", gen)
+        res_rows = check_resunit("cuda", gen)
+        res_rows += check_resunit("cuda", gen, RESUNIT_BF16_CASES, "bfloat16")
+    before = mem_gib(torch.cuda.memory_allocated)
     ez = build_ezaudio()
-    paths = main_path(ez)
-    card_vs_cpu(gen)
-    paths += edit_paths(ez)
-    paths += sampler_paths(ez)
-    card_vs_cpu_fast()
-    paths += fused_paths(ez, paths[:2])
-    int8_rows, _ = int8_paths(ez, gen, paths[0])
-    served = served_paths(ez)
-    served_fused = served_paths(ez, fused=True)  # captures
-    served_replay = served_paths(ez, fused=True, name="served_fused_replay")
-    served_checks(ez, served, served_fused, served_replay)
+    with phase("4 main"):
+        paths = main_path(ez)
+    f32_main = paths[:2]
+    with phase("5 card_vs_cpu"):
+        card_vs_cpu(gen)
+    with phase("6-7 editing, long"):
+        paths += edit_paths(ez)
+    with phase("8 samplers"):
+        paths += sampler_paths(ez)
+    with phase("9 card_vs_cpu_fast"):
+        card_vs_cpu_fast()
+    with phase("10 fused"):
+        paths += fused_paths(ez, f32_main)
+    with phase("11 int8"):
+        int8_rows, _ = int8_paths(ez, gen, paths[0])
+    with phase("12 served"):
+        served = served_paths(ez)
+        served_fused = served_paths(ez, fused=True)  # captures
+        served_replay = served_paths(ez, fused=True, name="served_fused_replay")
+        served_checks(ez, served, served_fused, served_replay)
     paths += int8_rows + [served, served_fused, served_replay]
-    # the fused programs hold their EzAudio in reference cycles: collect
-    # them, or the next phases' peaks count its weights and graph pools
+    del ez  # no gc: nothing holds it in a cycle (ROADMAP F8)
+    check_freed("s3_l f32", before)
+
+    ez = build_ezaudio(dtype="bfloat16")
+    with phase("16 s3_l bf16"):
+        paths += bf16_paths(ez, f32_main)
     del ez
-    gc.collect()
-    torch.cuda.empty_cache()
+    check_freed("s3_l bf16", before)
+    with phase("17 bf16 card_vs_cpu"):
+        bf16_card_vs_cpu(gen)
+
     cn = build_controlnet()
-    paths += controlnet_paths(cn)
-    controlnet_card_vs_cpu()
-    paths.append(controlnet_served(cn))
+    with phase("13 controlnet"):
+        paths += controlnet_paths(cn)
+    with phase("14 controlnet card_vs_cpu"):
+        controlnet_card_vs_cpu()
+    with phase("15 controlnet served"):
+        paths.append(controlnet_served(cn))
+    with phase("18 checkpoint round trip"):
+        checkpoint_round_trip(cn)
     del cn
-    gc.collect()
-    torch.cuda.empty_cache()
+    check_freed("energy ControlNet", before)
+    with phase("19 s3_xl bf16"):
+        paths.append(s3_xl_path())
+    check_freed("s3_xl bf16", before)
+
     missing = uncovered_shapes(paths)
     if missing:
         raise AssertionError(f"ResidualUnit shapes of the paths not checked in phase 3: {missing}")

@@ -11,11 +11,16 @@ phases per model call: ``MaskDiT(forward_model=False)`` builds the concat,
 25 + 12 blocks runs on kernel 1, the decode's ResidualUnits on kernel 2.
 
 Runs on CUDA unless ``device="cpu"`` is passed; ``base=`` shares an
-existing :class:`~ezaudio_tpu_torch.api.ezaudio.EzAudio` (its weights and
-device), as ``GenerationServer(controlnet=)`` does.  The ControlNet's
+existing :class:`~ezaudio_tpu_torch.api.ezaudio.EzAudio` (its weights,
+device and dtype), as ``GenerationServer(controlnet=)`` does.
+``controlnet_path`` loads the published ControlNet checkpoint (key
+``model``, strictly) from a local file; without it the ControlNet's
 weights are random, drawn from ``seed + 1``, then its embedders and
-in-blocks are copied from the base (``init_from_base_``); loading
-``controlnet_path`` waits for the published checkpoint.
+in-blocks are copied from the base (``init_from_base_``).
+``dtype=torch.bfloat16`` runs the base and the ControlNet in bf16, as
+``EzAudio`` does: a base built here is built in f32, its in-blocks copied,
+and both cast after, so the copies start from the f32 weights as the JAX
+package's do.
 """
 
 from __future__ import annotations
@@ -27,13 +32,14 @@ import torch
 
 from ezaudio_tpu_torch import utils
 from ezaudio_tpu_torch.api.ezaudio import MAX_SEED, EzAudio, init_random_
+from ezaudio_tpu_torch.convert.checkpoints import load_state_dict_strict, load_torch_checkpoint
 from ezaudio_tpu_torch.data.audio_io import load_wav, peak_normalize
 from ezaudio_tpu_torch.diffusion.dpm import dpm_solver_sample
 from ezaudio_tpu_torch.diffusion.sampling import sample_latents
 from ezaudio_tpu_torch.models.conditioners import Conditioner
 from ezaudio_tpu_torch.models.controlnet import controlnet_from_config, init_from_base_
 from ezaudio_tpu_torch.ops.quant import quant_context
-from ezaudio_tpu_torch.utils import scale_shift_re
+from ezaudio_tpu_torch.utils import cast_params_, scale_shift_re
 
 # every reference clip is padded or cropped to the model's 10 s window
 WINDOW_SECONDS = 10
@@ -53,30 +59,37 @@ class EzAudioControlNet:
         tokenizer_path: Optional[str] = None,
         t5_config=None,
         vae_config: Optional[dict] = None,
-        dtype: torch.dtype = torch.float32,
+        dtype: Optional[torch.dtype] = None,
         seed: int = 0,
         device=None,
         mesh=None,
         base: Optional[EzAudio] = None,
     ):
-        if controlnet_path:
-            raise NotImplementedError(
-                "loading the published ControlNet checkpoint is not ported yet")
-        if base is None:
+        """``dtype`` (default: the base's, float32 for a base built here)."""
+        own_base = base is None
+        if own_base:
             base = EzAudio(model_name=model_name, config=config, config_path=config_path,
                            ckpt_path=ckpt_path, vae_path=vae_path, t5_path=t5_path,
                            tokenizer_path=tokenizer_path, t5_config=t5_config,
-                           vae_config=vae_config, dtype=dtype, seed=seed, device=device,
-                           mesh=mesh)
+                           vae_config=vae_config, seed=seed, device=device, mesh=mesh)
+        elif dtype is not None and dtype != base.dtype:
+            raise ValueError(f"dtype {dtype} differs from the base's {base.dtype}")
+        dtype = dtype or base.dtype
         self.base = base
         self.device = base.device
-        self.dtype = base.dtype
         cfg = base.params_cfg
         gen = torch.Generator(device=self.device).manual_seed(int(seed) + 1)
         with torch.device(self.device):
             cn = controlnet_from_config(cfg.model.to_dict(), cfg.controlnet.to_dict())
         init_random_(cn, gen)
-        self.controlnet = init_from_base_(cn, base.dit.model).eval().requires_grad_(False)
+        cn = init_from_base_(cn, base.dit.model)
+        if controlnet_path:
+            load_state_dict_strict(cn, load_torch_checkpoint(controlnet_path, "model"),
+                                   controlnet_path)
+        if own_base:
+            base._cast_(dtype)
+        self.controlnet = cast_params_(cn, dtype).eval().requires_grad_(False)
+        self.dtype = dtype
         self.conditioner = Conditioner(**cfg.conditioner.to_dict())
 
     # ------------------------------------------------------------------

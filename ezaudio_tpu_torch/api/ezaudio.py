@@ -21,18 +21,25 @@ pipeline (T5, CFG concat, sampler loop, re-scale, chunked decode) as one
 program: a CUDA graph captured at the first call of a signature and
 replayed after (``api/graphs.py``), the same function eagerly on the CPU.
 ``attn_impl`` names that compute kernel 1's function (f32 softmax) run on
-it; the bf16-logit variants raise ``NotImplementedError``.
+it; ``'bf16'`` and ``'chunked_bf16'`` run the JAX package's bf16-logit
+einsum formulation in plain torch; ``'ring'`` raises ``NotImplementedError``.
 
 Runs on CUDA unless ``device="cpu"`` is passed; with no GPU and no device
-it raises.  Weights are random, drawn from ``seed``: loading the published
-checkpoints waits for those files.  ``mesh`` and ``dtype=bfloat16`` raise
-``NotImplementedError``.  Every random draw goes through ``utils.randn``
-(ROADMAP F1).
+it raises.  ``ckpt_path``, ``vae_path`` and ``t5_path`` load the published
+checkpoints from local files (``convert/checkpoints.py``); a component
+without a path keeps its random weights, drawn from ``seed``.
+``dtype=torch.bfloat16`` computes the JAX package's bf16 function: bf16
+copies of the parameters, made once on the device, where the JAX package
+casts its f32 parameters at each use, and f32 where it keeps f32 (norms,
+RoPE, T5's scores and softmax, the sampler's update, the VAE snakes); both
+kernels run in their bf16 modes.  ``mesh`` raises ``NotImplementedError``.
+Every random draw goes through ``utils.randn`` (ROADMAP F1).
 """
 
 from __future__ import annotations
 
 import math
+import weakref
 from collections import OrderedDict
 from typing import Optional, Sequence, Tuple, Union
 
@@ -45,17 +52,23 @@ from ezaudio_tpu_torch.api.graphs import GraphProgram
 from ezaudio_tpu_torch.codecs.facade import AutoencoderFacade
 from ezaudio_tpu_torch.codecs.oobleck import vae_from_config
 from ezaudio_tpu_torch.config import ConfigDict, MODEL_REGISTRY, load_config
+from ezaudio_tpu_torch.convert.checkpoints import (load_state_dict_strict,
+                                                   load_t5_state_dict, load_torch_checkpoint,
+                                                   strip_prefix)
+from ezaudio_tpu_torch.convert.from_jax import fold_weight_norm
 from ezaudio_tpu_torch.data.audio_io import load_wav, peak_normalize
 from ezaudio_tpu_torch.diffusion.ddim import DDIMSchedule
 from ezaudio_tpu_torch.diffusion.distill import distill_tables, distilled_sample
 from ezaudio_tpu_torch.diffusion.dpm import dpm_solver_sample
 from ezaudio_tpu_torch.diffusion.sampling import sample_latents, sample_latents_layer_cached
 from ezaudio_tpu_torch.models.maskdit import maskdit_from_config
+from ezaudio_tpu_torch.ops.attention import BF16_IMPLS, attention_impl_context
 from ezaudio_tpu_torch.ops.norms import LayerNorm, RMSNorm
 from ezaudio_tpu_torch.ops.quant import current_quant_mode, quant_context
-from ezaudio_tpu_torch.text.t5 import T5Encoder, T5EncoderConfig, T5LayerNorm
+from ezaudio_tpu_torch.text.t5 import (T5Encoder, T5EncoderConfig, T5LayerNorm,
+                                       t5_state_dict_from_hf)
 from ezaudio_tpu_torch.text.tokenizer import get_tokenizer
-from ezaudio_tpu_torch.utils import resolve_device, scale_shift_re
+from ezaudio_tpu_torch.utils import cast_params_, resolve_device, scale_shift_re
 
 MAX_SEED = np.iinfo(np.int32).max
 
@@ -65,17 +78,19 @@ _T5_CONFIGS = {
 }
 _NORMS = (LayerNorm, RMSNorm, T5LayerNorm)
 SAMPLERS = ("ddim", "dpm", "distilled")
+DTYPES = (torch.float32, torch.bfloat16)  # the dtypes both kernels take
 # attention implementations of the JAX package that compute kernel 1's
 # function (f32 scores and softmax): each runs on the kernel here.  The
-# bf16 variants keep their logits in bf16, another function, not ported.
+# bf16 variants (ops/attention.py BF16_IMPLS) keep their logits in bf16,
+# another function, and run as plain torch ops.
 ATTN_ON_KERNEL = ("auto", "einsum", "pallas", "flash", "chunked")
-ATTN_UNPORTED = ("bf16", "chunked_bf16", "ring")
+ATTN_UNPORTED = ("ring",)
 FUSED_CACHE = 32  # fused programs kept per EzAudio (their graphs share one pool)
 
 
 def check_attn_impl(attn_impl: Optional[str]) -> None:
-    """Accept the attention implementations that run on kernel 1."""
-    if attn_impl is None or attn_impl in ATTN_ON_KERNEL:
+    """Accept the attention implementations that are ported."""
+    if attn_impl is None or attn_impl in ATTN_ON_KERNEL or attn_impl in BF16_IMPLS:
         return
     if attn_impl in ATTN_UNPORTED:
         raise NotImplementedError(f"attn_impl={attn_impl!r} is not ported yet")
@@ -125,15 +140,12 @@ class EzAudio:
         device=None,
         mesh=None,
     ):
-        if ckpt_path or vae_path or t5_path:
-            raise NotImplementedError(
-                "loading the published checkpoints is not ported yet")
         if mesh is not None:
             raise NotImplementedError("mesh (multi-device inference) is not ported yet")
-        if dtype != torch.float32:
-            raise NotImplementedError("only float32 inference is ported")
+        if dtype not in DTYPES:
+            raise NotImplementedError(f"dtype {dtype}: float32 and bfloat16 are ported")
         self.device = resolve_device(device)
-        self.dtype = dtype
+        self.dtype = torch.float32
         if config is not None:
             cfg = ConfigDict.wrap(config)
         else:
@@ -163,6 +175,18 @@ class EzAudio:
             self.t5 = T5Encoder(self.t5_cfg)
         for m in (self.dit, vae, self.t5):
             init_random_(m, gen).eval().requires_grad_(False)
+        # the checkpoints, read on the host and copied into the weights on
+        # the device; every component is drawn first, so one without a path
+        # keeps the weights a model without paths has at this seed
+        if ckpt_path:
+            load_state_dict_strict(self.dit, load_torch_checkpoint(ckpt_path, "model"),
+                                   ckpt_path)
+        if vae_path:
+            sd = strip_prefix(load_torch_checkpoint(vae_path, "state_dict"), "autoencoder.")
+            load_state_dict_strict(vae, fold_weight_norm(sd), vae_path)
+        if t5_path:
+            load_state_dict_strict(self.t5, t5_state_dict_from_hf(load_t5_state_dict(t5_path)),
+                                   t5_path)
         self.autoencoder = AutoencoderFacade(
             vae, quantization_first=cfg.autoencoder.get("q_first", True))
         self.max_length = cfg.text_encoder.max_length
@@ -174,6 +198,18 @@ class EzAudio:
         # graphs share one memory pool (they replay one at a time)
         self._fused = OrderedDict()
         self._graph_pool = None
+        self._cast_(dtype)
+
+    def _cast_(self, dtype: torch.dtype) -> None:
+        """The compute dtype of the DiT, T5 and the VAE (``utils.cast_params_``),
+        set once, before any call: ``EzAudioControlNet`` builds an f32 base,
+        copies its in-blocks, then casts both."""
+        if dtype != self.dtype:
+            if self._fused or self._uncond:
+                raise RuntimeError("the dtype is set before the first call")
+            for m in (self.dit, self.t5, self.autoencoder.model):
+                cast_params_(m, dtype)
+            self.dtype = dtype
 
     # ------------------------------------------------------------------
     def _tokens(self, texts: Sequence[str]):
@@ -214,7 +250,7 @@ class EzAudio:
     def _generate_latents(self, texts, frames, guidance_scale, guidance_rescale,
                           ddim_steps, eta, random_seed, initial_latents=None, gt=None,
                           gt_mask=None, guidance_interval=None, sampler="ddim",
-                          layer_cache=None, cfg_refresh=1, quant=None):
+                          layer_cache=None, cfg_refresh=1, quant=None, attn_impl=None):
         """Sampled latents (B, frames, C).  ``gt`` (B, frames, C) and
         ``gt_mask`` (B, frames, 1) condition MaskDiT for editing; their rows
         repeat across the CFG pair."""
@@ -236,7 +272,7 @@ class EzAudio:
         if gt is not None:
             gt = torch.as_tensor(gt, dtype=self.dtype, device=self.device)
             gt_mask = torch.as_tensor(gt_mask, device=self.device).bool()
-        with quant_context(quant):
+        with quant_context(quant), attention_impl_context(attn_impl):
             return self._denoise(ctx, cmask, noise, ddim_steps, guidance_scale,
                                  guidance_rescale, eta, guidance_interval, sampler,
                                  layer_cache, cfg_refresh, gt=gt, gt_mask=gt_mask,
@@ -299,8 +335,8 @@ class EzAudio:
 
     # ------------------------------------------------------------------
     def _fused_impl(self, steps, guidance_scale, guidance_rescale, eta, guidance_interval,
-                    sampler, quant, layer_cache, B, frames, draw_noise, cfg, chunk,
-                    cfg_refresh):
+                    sampler, quant, layer_cache, attn_impl, dtype, B, frames, draw_noise, cfg,
+                    chunk, cfg_refresh):
         """The single-dispatch text->waveform program of one signature
         (counterpart of the JAX package's ``_fused_impl``): ``(ids, mask,
         noise, eta_noise) -> waveform (B, T)`` on the device, T5 encode ->
@@ -310,23 +346,29 @@ class EzAudio:
         draws: the host wrapper draws both from the call's generator in the
         staged path's order, so both paths sample the same numbers.  The
         empty-prompt embedding is computed here, before any capture, and
-        held by the program."""
+        held by the program.  ``attn_impl`` is set around the program;
+        ``dtype`` (the model's) is part of the signature and computes
+        nothing.  The program reaches this EzAudio through a
+        weak reference: ``self._fused`` holds the programs, so a strong one
+        would keep a deleted EzAudio's weights and graph pools alive until
+        the garbage collector ran (ROADMAP F8)."""
         un_emb, un_mask = self._uncond_embedding(B) if cfg else (None, None)
+        ref = weakref.ref(self)
 
         def core(ids, mask, noise, eta_noise):
-            with quant_context(quant or "off"):
-                cond = self.t5(ids, mask)
+            ez = ref()
+            with quant_context(quant or "off"), attention_impl_context(attn_impl):
+                cond = ez.t5(ids, mask)
                 if cfg:
                     ctx = torch.cat([cond, un_emb], dim=0)
                     cmask = torch.cat([mask, un_mask], dim=0)
                 else:
                     ctx, cmask = cond, mask
-                latents = self._denoise(
+                latents = ez._denoise(
                     ctx, cmask, noise, steps, guidance_scale, guidance_rescale, eta,
                     guidance_interval, sampler, layer_cache, cfg_refresh,
                     step_noise=None if eta_noise is None else eta_noise.__getitem__)
-                return self._decode_device(scale_shift_re(latents, self.scale, self.shift),
-                                           chunk)
+                return ez._decode_device(scale_shift_re(latents, ez.scale, ez.shift), chunk)
 
         if self.device.type == "cuda" and self._graph_pool is None:
             self._graph_pool = torch.cuda.graph_pool_handle()
@@ -346,7 +388,7 @@ class EzAudio:
 
     def _generate_fused(self, texts, frames, guidance_scale, guidance_rescale, ddim_steps,
                         eta, random_seed, guidance_interval, sampler, initial_latents,
-                        quant, layer_cache, cfg_refresh):
+                        quant, layer_cache, attn_impl, cfg_refresh):
         """Host side of the fused path: tokenize, draw, look up (or build)
         the program, one call, one copy of the waveform to the host."""
         if sampler not in SAMPLERS:
@@ -367,8 +409,8 @@ class EzAudio:
         prog = self._fused_program(
             steps, guidance_scale if cfg else None, guidance_rescale, eta,
             tuple(guidance_interval) if guidance_interval is not None else None, sampler,
-            mode, tuple(layer_cache) if layer_cache is not None else None, B, frames,
-            initial_latents is None, cfg, min(B, 4), int(cfg_refresh))
+            mode, tuple(layer_cache) if layer_cache is not None else None, attn_impl,
+            self.dtype, B, frames, initial_latents is None, cfg, min(B, 4), int(cfg_refresh))
         return prog(ids, mask, noise, eta_noise).cpu().numpy()
 
     # ------------------------------------------------------------------
@@ -425,7 +467,8 @@ class EzAudio:
 
         ``attn_impl``: the JAX package's names that compute kernel 1's
         function (``'auto'``, ``'einsum'``, ``'pallas'``, ``'flash'``,
-        ``'chunked'``) all run on it; the bf16-logit variants raise.
+        ``'chunked'``) all run on it; ``'bf16'`` and ``'chunked_bf16'`` run
+        the bf16-logit einsum formulation (plain torch); ``'ring'`` raises.
         """
         check_attn_impl(attn_impl)
         batched = not isinstance(text, str)
@@ -454,13 +497,13 @@ class EzAudio:
             wav = self._generate_fused(
                 texts, frames, guidance_scale, guidance_rescale, ddim_steps, eta,
                 random_seed, guidance_interval, sampler, initial_latents, quant,
-                layer_cache, cfg_refresh)
+                layer_cache, attn_impl, cfg_refresh)
             return self.sr, (wav if batched else wav[0])
         latents = self._generate_latents(
             texts, frames, guidance_scale, guidance_rescale, ddim_steps, eta,
             random_seed, initial_latents=initial_latents,
             guidance_interval=guidance_interval, sampler=sampler,
-            layer_cache=layer_cache, cfg_refresh=cfg_refresh, quant=quant)
+            layer_cache=layer_cache, cfg_refresh=cfg_refresh, quant=quant, attn_impl=attn_impl)
         wav = self._decode(scale_shift_re(latents, self.scale, self.shift))
         return self.sr, (wav if batched else wav[0])
 
@@ -575,7 +618,8 @@ class EzAudio:
         gt_mask[:, s0:s1] = True
         latents = self._generate_latents(
             [text], L, guidance_scale, guidance_rescale, ddim_steps, eta, random_seed,
-            gt=gt_latent, gt_mask=gt_mask, layer_cache=layer_cache, quant=quant)
+            gt=gt_latent, gt_mask=gt_mask, layer_cache=layer_cache, quant=quant,
+            attn_impl=attn_impl)
         pred = scale_shift_re(latents, self.scale, self.shift)
         # paste the unmasked gt back (inference.py:104-105), then decode
         if crossfade > 0.0 and s1 - s0 >= 2:

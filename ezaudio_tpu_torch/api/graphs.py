@@ -10,9 +10,9 @@ inputs into the captured ones and replays.  A failed capture raises.  On
 the CPU, which has no graphs, the same function runs eagerly on every call.
 
 The hand-written kernels count their launches in Python, which a replay
-does not reach: the capture records the launches it saw (``launches``),
-and ``replays`` counts the replays, so a replay's launches are
-``launches[k] * replays``.
+does not reach: the capture records the launches it saw (``launches``,
+and by dtype ``launches_by_dtype``), and ``replays`` counts the replays,
+so a replay's launches are ``launches[k] * replays``.
 """
 
 from __future__ import annotations
@@ -32,6 +32,12 @@ def kernel_launches() -> Dict[str, int]:
     return {k: fn.launches for k, fn in _KERNELS.items()}
 
 
+def kernel_launches_by_dtype() -> Dict[str, int]:
+    """``{"<kernel>.<dtype>": launches}``, e.g. ``"attention.bfloat16"``."""
+    return {f"{k}.{dt}": n for k, fn in _KERNELS.items()
+            for dt, n in fn.launches_by_dtype.items()}
+
+
 class GraphProgram:
     """``fn(*inputs) -> tensor`` as a CUDA graph on CUDA, eagerly elsewhere.
 
@@ -49,6 +55,7 @@ class GraphProgram:
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self._inputs, self._output = None, None
         self.launches: Dict[str, int] = {}
+        self.launches_by_dtype: Dict[str, int] = {}
         self.replays = 0
         self.timings: Dict[str, float] = {}
 
@@ -71,7 +78,7 @@ class GraphProgram:
         t1 = time.perf_counter()
         # the graph's inputs live outside its pool, owned by this program
         static = [None if x is None else x.clone() for x in inputs]
-        before = kernel_launches()
+        before, before_dt = kernel_launches(), kernel_launches_by_dtype()
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph, pool=self.pool, capture_error_mode="thread_local"):
             t2 = time.perf_counter()
@@ -79,6 +86,9 @@ class GraphProgram:
             t3 = time.perf_counter()
         t4 = time.perf_counter()
         self.launches = {k: n - before[k] for k, n in kernel_launches().items()}
+        self.launches_by_dtype = {k: n - before_dt.get(k, 0)
+                                  for k, n in kernel_launches_by_dtype().items()
+                                  if n != before_dt.get(k, 0)}
         self.graph, self._inputs, self._output = graph, static, out
         graph.replay()
         self.replays += 1

@@ -42,9 +42,9 @@ class AutoencoderFacade:
         return decode_fused(self.model.decoder, self._tensor(embedding))
 
     def _tensor(self, x) -> torch.Tensor:
-        """``x`` (array or tensor) as float32 on the codec's device."""
-        dev = self.model.decoder.layers[0].weight.device
-        return torch.as_tensor(x, dtype=torch.float32, device=dev)
+        """``x`` (array or tensor) in the codec's dtype on its device."""
+        w = self.model.decoder.layers[0].weight
+        return torch.as_tensor(x, dtype=w.dtype, device=w.device)
 
     def __call__(self, audio=None, embedding=None, **kw):
         if audio is not None:

@@ -9,7 +9,8 @@ Reference ``src/modules/stable_vae/models/autoencoders.py``:
     ConvTranspose(k=2s, p=ceil(s/2)) + 3 dilated ResidualUnits (1, 3, 9)]
     -> snake -> Conv(k7, no bias) -> optional tanh;
 
-SnakeBeta with log-scale per-channel alpha/beta.  Modules keep the
+SnakeBeta with log-scale per-channel alpha/beta (f32 in a bf16 model, as
+the JAX package exps its f32 parameters and casts).  Modules keep the
 reference's ``layers`` Sequential indices, so a reference state dict loads
 after its weight norm is folded (``convert/from_jax.py::fold_weight_norm``).
 Inside, tensors are torch's (B, C, T); encoder and decoder take and return
@@ -27,6 +28,7 @@ from torch import nn
 
 from ezaudio_tpu_torch import utils
 from ezaudio_tpu_torch.ops.activations import snake_beta_vae
+from ezaudio_tpu_torch.ops.convs import Conv1d, ConvTranspose1d
 
 
 class SnakeBeta(nn.Module):
@@ -36,6 +38,10 @@ class SnakeBeta(nn.Module):
         super().__init__()
         self.alpha = nn.Parameter(torch.zeros(channels))
         self.beta = nn.Parameter(torch.zeros(channels))
+
+    def cast_(self, dtype):
+        """alpha and beta stay f32: exp'd in f32, then cast to x's dtype
+        (``utils.cast_params_``)."""
 
     def forward(self, x):
         a = self.alpha.exp().to(x.dtype)[None, :, None]
@@ -49,9 +55,9 @@ class ResidualUnit(nn.Module):
         self.dilation = dilation
         self.layers = nn.Sequential(
             SnakeBeta(channels),
-            nn.Conv1d(channels, channels, 7, dilation=dilation, padding=3 * dilation),
+            Conv1d(channels, channels, 7, dilation=dilation, padding=3 * dilation),
             SnakeBeta(channels),
-            nn.Conv1d(channels, channels, 1))
+            Conv1d(channels, channels, 1))
 
     def forward(self, x):
         return x + self.layers(x)
@@ -63,8 +69,8 @@ class EncoderBlock(nn.Module):
         self.layers = nn.Sequential(
             *(ResidualUnit(in_channels, d) for d in (1, 3, 9)),
             SnakeBeta(in_channels),
-            nn.Conv1d(in_channels, out_channels, 2 * stride, stride=stride,
-                      padding=math.ceil(stride / 2)))
+            Conv1d(in_channels, out_channels, 2 * stride, stride=stride,
+                   padding=math.ceil(stride / 2)))
 
     def forward(self, x):
         return self.layers(x)
@@ -75,8 +81,8 @@ class DecoderBlock(nn.Module):
         super().__init__()
         self.layers = nn.Sequential(
             SnakeBeta(in_channels),
-            nn.ConvTranspose1d(in_channels, out_channels, 2 * stride, stride=stride,
-                               padding=math.ceil(stride / 2)),
+            ConvTranspose1d(in_channels, out_channels, 2 * stride, stride=stride,
+                            padding=math.ceil(stride / 2)),
             *(ResidualUnit(out_channels, d) for d in (1, 3, 9)))
 
     def forward(self, x):
@@ -88,11 +94,11 @@ class OobleckEncoder(nn.Module):
                  c_mults: Sequence[int] = (1, 2, 4, 8), strides: Sequence[int] = (2, 4, 6, 10)):
         super().__init__()
         mults = (1,) + tuple(c_mults)
-        layers = [nn.Conv1d(in_channels, mults[0] * channels, 7, padding=3)]
+        layers = [Conv1d(in_channels, mults[0] * channels, 7, padding=3)]
         for i, s in enumerate(strides):
             layers.append(EncoderBlock(mults[i] * channels, mults[i + 1] * channels, s))
         layers += [SnakeBeta(mults[-1] * channels),
-                   nn.Conv1d(mults[-1] * channels, latent_dim, 3, padding=1)]
+                   Conv1d(mults[-1] * channels, latent_dim, 3, padding=1)]
         self.layers = nn.Sequential(*layers)
 
     def forward(self, x):
@@ -107,12 +113,12 @@ class OobleckDecoder(nn.Module):
         super().__init__()
         mults = (1,) + tuple(c_mults)
         n = len(strides)
-        layers = [nn.Conv1d(latent_dim, mults[-1] * channels, 7, padding=3)]
+        layers = [Conv1d(latent_dim, mults[-1] * channels, 7, padding=3)]
         for i in range(n, 0, -1):
             layers.append(DecoderBlock(mults[i] * channels, mults[i - 1] * channels,
                                        strides[i - 1]))
         layers += [SnakeBeta(mults[0] * channels),
-                   nn.Conv1d(mults[0] * channels, out_channels, 7, padding=3, bias=False)]
+                   Conv1d(mults[0] * channels, out_channels, 7, padding=3, bias=False)]
         if final_tanh:
             layers.append(nn.Tanh())
         self.layers = nn.Sequential(*layers)

@@ -5,7 +5,8 @@ diffusers ``DDIMScheduler`` math as the EzAudio config sets it:
 scaled-linear betas, zero-terminal-SNR rescale (arXiv 2305.08891),
 trailing timestep spacing, v-prediction, eta-variance DDIM step
 (arXiv 2010.02502 eq. 12), ``final_alpha_cumprod = 1``.  The tables are
-built in float64 numpy and kept as float32, exactly as the JAX package.
+built in float64 numpy and kept as float32, exactly as the JAX package;
+the step computes in f32 whatever the latents' dtype.
 """
 
 from __future__ import annotations
@@ -84,7 +85,9 @@ class DDIMSchedule:
         return a_t.astype(np.float32), a_prev, ts
 
     def convert_output(self, model_output, sample, alpha_prod_t):
-        """(pred_x0, pred_epsilon) for the configured prediction type."""
+        """(pred_x0, pred_epsilon) for the configured prediction type, in
+        f32: the JAX package's f32 tables promote bf16 operands."""
+        model_output, sample = model_output.float(), sample.float()
         a = torch.as_tensor(alpha_prod_t, dtype=torch.float32)
         sqrt_a, sqrt_b = a.sqrt(), (1.0 - a).sqrt()
         if self.prediction_type == "v_prediction":
@@ -96,7 +99,8 @@ class DDIMSchedule:
 
     def ddim_step(self, model_output, sample, alpha_prod_t, alpha_prod_prev,
                   eta: float = 0.0, noise: Optional[torch.Tensor] = None):
-        """One DDIM update x_t -> x_{t-1}."""
+        """One DDIM update x_t -> x_{t-1}, in f32 (the caller casts the
+        result back to the carry's dtype)."""
         x0, eps = self.convert_output(model_output, sample, alpha_prod_t)
         if self.clip_sample:
             x0 = x0.clamp(-1.0, 1.0)
@@ -109,5 +113,5 @@ class DDIMSchedule:
         if eta > 0:
             if noise is None:
                 raise ValueError("eta > 0 requires noise")
-            prev = prev + std * noise
+            prev = prev + std * noise.float()
         return prev

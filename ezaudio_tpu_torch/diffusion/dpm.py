@@ -117,9 +117,10 @@ def dpm_solver_sample(model_fn: Callable, schedule: DDIMSchedule, noise: torch.T
         returns the deep activation."""
         nonlocal x, x0_prev, has_prev, delta
         x0, deep, delta = predict_x0(x, i, deep, mode, delta)
+        # f32 update from a bf16 carry, cast back (the JAX f32 tables promote)
         w = float(inv2r[i]) * has_prev
-        d = (1.0 + w) * x0 - w * x0_prev
-        x = (float(s_ratio[i]) * x + float(coeff[i]) * d).to(noise.dtype)
+        d = (1.0 + w) * x0 - w * x0_prev.float()
+        x = (float(s_ratio[i]) * x.float() + float(coeff[i]) * d).to(noise.dtype)
         x0_prev, has_prev = x0.to(noise.dtype), 1.0
         return deep
 

@@ -7,7 +7,9 @@ so reference state dicts load as they are.  The residual gates keep the
 reference's ``x + (1 - gate) * f(x)``.
 
 Attention (self and cross) goes through ``ops/kernels/attention.py``:
-the hand-written CUDA kernel for CUDA tensors, its plain twin on the CPU.
+the hand-written CUDA kernel for CUDA tensors, its plain twin on the CPU;
+inside ``attention_impl_context('bf16' | 'chunked_bf16')`` it is the
+JAX package's bf16-logit einsum formulation in plain torch instead.
 The linear layers are ``ops/quant.py::QuantLinear``: int8 inside
 ``quant_context('int8')``, float otherwise.
 """
@@ -19,7 +21,10 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ezaudio_tpu_torch.ops.attention import (BF16_IMPLS, chunked_dot_product_attention,
+                                             current_attention_impl, dot_product_attention)
 from ezaudio_tpu_torch.ops.embeddings import unpatchify_1d
+from ezaudio_tpu_torch.ops.convs import Conv1d
 from ezaudio_tpu_torch.ops.kernels.attention import fused_attention
 from ezaudio_tpu_torch.ops.mlp import FeedForward, film_modulate
 from ezaudio_tpu_torch.ops.norms import make_norm
@@ -35,6 +40,9 @@ class RotaryEmbedding(nn.Module):
         super().__init__()
         self.register_buffer("inv_freq", inv_freq(head_dim))
         self._cache = {}
+
+    def cast_(self, dtype):
+        """``inv_freq`` stays f32: RoPE runs in f32 (``utils.cast_params_``)."""
 
     def tables(self, L: int):
         # every length stays cached: a captured CUDA graph reads its tables
@@ -86,8 +94,14 @@ class Attention(nn.Module):
         if self.rotary is not None:  # self-attention only (cross passes rope "none")
             cos, sin = self.rotary.tables(L)
             q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
-        out = fused_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                              key_mask=context_mask, scale=self.scale)
+        impl = current_attention_impl()
+        if impl in BF16_IMPLS:
+            mask = None if context_mask is None else context_mask.bool()[:, None, None, :]
+            fn = chunked_dot_product_attention if impl == "chunked_bf16" else dot_product_attention
+            out = fn(q, k, v, mask=mask, scale=self.scale, softmax_dtype=torch.bfloat16)
+        else:
+            out = fused_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                                  key_mask=context_mask, scale=self.scale)
         return self.proj(out.transpose(1, 2).reshape(B, L, H * Dh))
 
 
@@ -178,7 +192,7 @@ class FinalBlock(nn.Module):
         self.out_chans = out_chans
         self.norm = make_norm(norm_layer, embed_dim)
         self.linear = QuantLinear(embed_dim, patch_size * out_chans)
-        self.final_layer = (nn.Conv1d(out_chans, out_chans, 3, padding=1)
+        self.final_layer = (Conv1d(out_chans, out_chans, 3, padding=1)
                             if use_conv else None)
 
     def forward(self, x, time_ada):

@@ -29,6 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ezaudio_tpu_torch.models.blocks import DiTBlock
+from ezaudio_tpu_torch.ops.convs import Conv1d
 from ezaudio_tpu_torch.ops.embeddings import (MLPEmbedder, PatchEmbed1D, PEWrapper,
                                               TimestepEmbedder)
 from ezaudio_tpu_torch.ops.quant import QuantLinear
@@ -43,16 +44,16 @@ class ControlNetEmbed(nn.Module):
                  cond_mask: bool = False):
         super().__init__()
         blocks = list(blocks)
-        self.conv_in = nn.Conv1d(in_chans, blocks[0], 1)
+        self.conv_in = Conv1d(in_chans, blocks[0], 1)
         self.cond_mask = cond_mask
         if cond_mask:
             self.mask_embed = nn.Parameter(torch.zeros(blocks[0]))
             blocks[0] += 1
         self.blocks = nn.ModuleList([
-            nn.Sequential(nn.Conv1d(cin, cin, 3, padding=1), nn.SiLU(),
-                          nn.Conv1d(cin, cout, 3, padding=1, stride=2), nn.SiLU())
+            nn.Sequential(Conv1d(cin, cin, 3, padding=1), nn.SiLU(),
+                          Conv1d(cin, cout, 3, padding=1, stride=2), nn.SiLU())
             for cin, cout in zip(blocks[:-1], blocks[1:])])
-        self.conv_out = nn.Conv1d(blocks[-1], out_chans, 1)
+        self.conv_out = Conv1d(blocks[-1], out_chans, 1)
 
     def forward(self, conditioning, cond_mask_infer=None, train: bool = False):
         """conditioning (B, L, in_chans) -> (B, L / 2^(len(blocks)-1),

@@ -94,6 +94,14 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
+def count(wrapper, dtype) -> None:
+    """One launch of ``wrapper``'s kernel on ``dtype`` inputs: ``wrapper.launches``
+    and ``wrapper.launches_by_dtype[<dtype name>]`` each go up by one."""
+    wrapper.launches += 1
+    name = str(dtype).rsplit(".", 1)[-1]
+    wrapper.launches_by_dtype[name] = wrapper.launches_by_dtype.get(name, 0) + 1
+
+
 def check(err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err}")

@@ -5,7 +5,8 @@
 the (B, Lk) key mask — the function of
 ``ezaudio_tpu/ops/pallas/attention.py::fused_attention``.  A CPU tensor
 goes to :func:`attention_plain`; a CUDA tensor launches the kernel or
-raises.  ``fused_attention.launches`` counts kernel launches.
+raises.  ``fused_attention.launches`` counts kernel launches, and
+``fused_attention.launches_by_dtype`` counts them by input dtype.
 """
 
 from __future__ import annotations
@@ -80,8 +81,9 @@ def fused_attention(q, k, v, key_mask: Optional[torch.Tensor] = None,
                  B, H, Lq, Lk, D, float(scale), _DTYPES[q.dtype],
                  torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "ez_attention_fwd")
-    fused_attention.launches += 1
+    _build.count(fused_attention, q.dtype)
     return o
 
 
 fused_attention.launches = 0
+fused_attention.launches_by_dtype = {}

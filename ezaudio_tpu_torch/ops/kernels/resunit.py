@@ -8,7 +8,8 @@ computes ``x + W1 . snake2(conv7_d(snake1(x)) + b7) + b1`` on channel-last
 layouts: ``w7`` (7, C, C) as (tap, in, out), ``w1`` (C, C) as (in, out),
 ``a*``/``be*`` the exp'd per-channel snake parameters.  A CPU tensor goes
 to :func:`residual_unit_plain`; a CUDA tensor launches the kernel or
-raises.  ``fused_residual_unit.launches`` counts kernel launches.
+raises.  ``fused_residual_unit.launches`` counts kernel launches, and
+``fused_residual_unit.launches_by_dtype`` counts them by input dtype.
 """
 
 from __future__ import annotations
@@ -25,14 +26,20 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def residual_unit_plain(x, w7, b7, w1, b1, a1, be1, a2, be2, dilation: int):
-    """The kernel's function in plain PyTorch (same math as
-    ``residual_unit_reference`` of the JAX package)."""
-    a1, be1, a2, be2 = (t.to(x.dtype) for t in (a1, be1, a2, be2))
-    h = snake_beta_vae(x, a1, be1)
-    h = F.conv1d(h.transpose(1, 2), w7.permute(2, 1, 0), b7,
+    """The kernel's function in plain PyTorch, in every dtype: the Pallas
+    kernel's (``ezaudio_tpu/ops/pallas/resunit.py::_resunit_kernel``).
+    snake1 in f32, rounded to x's dtype; the conv7 taps and ``b7`` summed
+    in f32; snake2 in f32, rounded; the 1x1 product, ``b1`` and the
+    residual add in f32; one final rounding.  In f32 this is the JAX
+    package's ``residual_unit_reference``."""
+    dt = x.dtype
+    xf = x.float()
+    a1, be1, a2, be2 = (t.float() for t in (a1, be1, a2, be2))
+    h = snake_beta_vae(xf, a1, be1).to(dt).float()
+    h = F.conv1d(h.transpose(1, 2), w7.float().permute(2, 1, 0), b7.float(),
                  padding=3 * dilation, dilation=dilation).transpose(1, 2)
-    h = snake_beta_vae(h, a2, be2)
-    return x + (h @ w1 + b1)
+    g = snake_beta_vae(h, a2, be2).to(dt).float()
+    return (xf + (g @ w1.float() + b1.float())).to(dt)
 
 
 def _lib():
@@ -68,8 +75,9 @@ def fused_residual_unit(x, w7, b7, w1, b1, a1, be1, a2, be2, dilation: int):
                  _DTYPES[x.dtype], torch.cuda.current_stream(x.device).cuda_stream)
     # the kernel decides what it takes (C, dilation, shared memory, alignment)
     _build.check(err, f"ez_resunit_fwd on x {tuple(x.shape)} {x.dtype}, dilation {d}")
-    fused_residual_unit.launches += 1
+    _build.count(fused_residual_unit, x.dtype)
     return y
 
 
 fused_residual_unit.launches = 0
+fused_residual_unit.launches_by_dtype = {}

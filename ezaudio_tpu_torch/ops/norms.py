@@ -1,5 +1,6 @@
 """LayerNorm and RMSNorm over the trailing axis, normalized in float32
-(counterpart of ``ezaudio_tpu/ops/norms.py``)."""
+(counterpart of ``ezaudio_tpu/ops/norms.py``).  Their parameters stay
+float32 in a bf16 model, as the JAX package's do: ``cast_`` leaves them."""
 
 from __future__ import annotations
 
@@ -22,9 +23,14 @@ class LayerNorm(nn.Module):
                          self.bias.float(), self.eps)
         return y.to(x.dtype)
 
+    def cast_(self, dtype):
+        """Weight and bias stay f32 (``utils.cast_params_``)."""
+
 
 class RMSNorm(nn.Module):
-    """Reference RMSNorm: normalize in f32, cast back, then scale."""
+    """Reference RMSNorm: normalize in f32, cast back, then scale by the
+    f32 weight and cast to x's dtype (JAX ``y.astype(x.dtype) * w``, then
+    ``.astype(dtype)``)."""
 
     def __init__(self, dim: int, eps: float = 1e-6):
         super().__init__()
@@ -34,7 +40,10 @@ class RMSNorm(nn.Module):
     def forward(self, x):
         xf = x.float()
         y = xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + self.eps)
-        return y.to(x.dtype) * self.weight
+        return (y.to(x.dtype) * self.weight).to(x.dtype)
+
+    def cast_(self, dtype):
+        """The weight stays f32 (``utils.cast_params_``)."""
 
 
 def make_norm(kind: str, dim: int) -> nn.Module:

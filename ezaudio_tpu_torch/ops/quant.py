@@ -20,7 +20,9 @@ to 2^53; here at most K * 127^2).
 ``in * out >= MIN_QUANT_ELEMENTS`` into the int8 route while it is open;
 ``EZAUDIO_QUANT=int8`` in the environment does the same where no context
 says otherwise, and ``quant_context('off')`` turns both off.  Only the
-DiT builds :class:`QuantLinear`: T5 and the VAE stay in float.
+DiT builds :class:`QuantLinear`: T5 and the VAE stay in float.  In a
+bf16 model the product returns f32 and is cast to the activations' dtype
+before the bias, as the JAX ``Linear`` casts ``int8_dot``'s output.
 """
 
 from __future__ import annotations
@@ -128,11 +130,25 @@ class QuantLinear(nn.Linear):
 
     _wq_key = None
 
+    def _weight_key(self):
+        return (self.weight.data_ptr(), self.weight._version, self.weight.device)
+
+    def cast_(self, dtype):
+        """Cast weight and bias to ``dtype`` (``utils.cast_params_``),
+        quantizing the int8 weight first from the f32 weight: the JAX
+        package quantizes its f32 parameter, not a bf16 copy."""
+        if self.weight.dtype == dtype:
+            return
+        self._wq = quantize_symmetric(self.weight.detach().float(), -1)
+        for p in self.parameters(recurse=False):
+            p.data = p.data.to(dtype)
+        self._wq_key = self._weight_key()
+
     def forward(self, x):
         if (current_quant_mode() != "int8"
                 or self.in_features * self.out_features < MIN_QUANT_ELEMENTS):
             return super().forward(x)
-        key = (self.weight.data_ptr(), self.weight._version, self.weight.device)
+        key = self._weight_key()
         if self._wq_key != key:
             self._wq = quantize_symmetric(self.weight.detach().float(), -1)
             self._wq_key = key

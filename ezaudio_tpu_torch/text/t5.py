@@ -12,7 +12,10 @@ Counterpart of ``ezaudio_tpu/text/t5.py::T5Encoder``:
 Module names follow the HF ``T5EncoderModel`` encoder stack
 (``block.{i}.layer.0.SelfAttention.q`` ...), so an HF state dict loads
 through :func:`t5_state_dict_from_hf` with no renaming beyond the prefix.
-T5 runs once per prompt; its attention is a plain ``torch.matmul``.
+T5 runs once per prompt; its attention is a plain ``torch.matmul``.  In a
+bf16 model (``utils.cast_params_``) its scores, position bias and softmax
+stay f32 and P.V accumulates in f32, as the JAX encoder computes them;
+the relative position bias table keeps its f32 values.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ import torch
 from torch import nn
 
 from ezaudio_tpu_torch.ops.activations import gelu_tanh
+from ezaudio_tpu_torch.utils import cast_params_
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,6 +95,11 @@ class T5Attention(nn.Module):
             self.relative_attention_bias = nn.Embedding(
                 cfg.relative_attention_num_buckets, cfg.num_heads)
 
+    def cast_(self, dtype):
+        """Cast the projections; the position bias table stays f32."""
+        for m in (self.q, self.k, self.v, self.o):
+            cast_params_(m, dtype)
+
     def position_bias(self, L: int, device) -> torch.Tensor:
         c = self.cfg
         pos = torch.arange(L, device=device)
@@ -114,7 +123,8 @@ class T5Attention(nn.Module):
         scores = torch.matmul(q.float(), k.float().transpose(-1, -2))
         scores = scores + position_bias.float() + mask_bias
         weights = torch.softmax(scores, dim=-1).to(x.dtype)
-        out = torch.matmul(weights, v).transpose(1, 2).reshape(B, L, -1)
+        out = torch.matmul(weights.float(), v.float()).to(x.dtype)
+        out = out.transpose(1, 2).reshape(B, L, -1)
         return self.o(out), position_bias
 
 

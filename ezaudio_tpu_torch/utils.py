@@ -13,14 +13,43 @@ def scale_shift_re(x, scale: float, shift: float):
 
 
 def randn(shape, generator: Optional[torch.Generator], device, dtype=torch.float32):
-    """A standard-normal draw from ``generator``.
+    """A standard-normal draw from ``generator``, made in float32 and cast
+    to ``dtype``: a bf16 model at a seed starts from the rounded draws of
+    the f32 model at that seed.
 
     Every draw of the port's entry points goes through this one function
     (initial latents, the VAE posterior sample, the DDIM eta noise), so a
     parity test can substitute the JAX package's ``jax.random`` draws,
     which torch cannot reproduce (ROADMAP F1).
     """
-    return torch.randn(tuple(shape), generator=generator, device=device, dtype=dtype)
+    x = torch.randn(tuple(shape), generator=generator, device=device, dtype=torch.float32)
+    return x.to(dtype)
+
+
+@torch.no_grad()
+def cast_params_(module: torch.nn.Module, dtype: torch.dtype) -> torch.nn.Module:
+    """Cast ``module``'s floating parameters and buffers to ``dtype`` in
+    place, once: the bf16 copies the JAX package makes at every use of its
+    f32 parameters (``kernel.astype(dtype)``), which round the same way.
+
+    A module with a ``cast_(dtype)`` method casts itself and its children
+    instead: the norms, the VAE snakes, RoPE and T5's position bias keep
+    f32 where the JAX package computes with its f32 parameters, and
+    ``QuantLinear`` quantizes its int8 weight from the f32 weight first.
+    """
+    own = getattr(module, "cast_", None)
+    if own is not None:
+        own(dtype)
+        return module
+    for p in module.parameters(recurse=False):
+        if p.is_floating_point():
+            p.data = p.data.to(dtype)
+    for name, b in module.named_buffers(recurse=False):
+        if b.is_floating_point():
+            module._buffers[name] = b.to(dtype)
+    for child in module.children():
+        cast_params_(child, dtype)
+    return module
 
 
 def resolve_device(device: Optional[Union[str, torch.device]]) -> torch.device:

@@ -14,6 +14,17 @@ import torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+def counted(plain, wrapper):
+    """``plain`` counted as a launch of ``wrapper``'s kernel, by dtype, as
+    the wrapper counts one on the card."""
+    from ezaudio_tpu_torch.ops.kernels import _build
+
+    def run(*a, **k):
+        _build.count(wrapper, a[0].dtype)
+        return plain(*a, **k)
+    return run
+
+
 @pytest.fixture(autouse=True)
 def _one_thread():
     n = torch.get_num_threads()
@@ -58,12 +69,6 @@ def test_phases_rehearse_on_cpu(monkeypatch):
         t0 = time.perf_counter()
         fn()
         return (time.perf_counter() - t0) * 1e3
-
-    def counted(plain, wrapper):
-        def run(*a, **k):
-            wrapper.launches += 1
-            return plain(*a, **k)
-        return run
 
     monkeypatch.setattr(cs, "time_ms", time_cpu)
     monkeypatch.setattr(ka, "attention_plain", counted(ka.attention_plain, ka.fused_attention))
@@ -115,12 +120,6 @@ def test_new_phases_rehearse_on_cpu(monkeypatch):
     import ezaudio_tpu_torch.ops.kernels.resunit as kr
     import ezaudio_tpu_torch.ops.quant as qm
     from ezaudio_tpu_torch.config import get_model_config
-
-    def counted(plain, wrapper):
-        def run(*a, **k):
-            wrapper.launches += 1
-            return plain(*a, **k)
-        return run
 
     monkeypatch.setattr(cs, "time_ms", lambda fn, reps=1, iters=1: 0.0)
     monkeypatch.setattr(cs, "graph_ms", lambda fn, iters=1, reps=1: 0.0)
@@ -250,12 +249,6 @@ def test_controlnet_phases_rehearse_on_cpu(monkeypatch):
     import ezaudio_tpu_torch.ops.kernels.resunit as kr
     from ezaudio_tpu_torch.config import get_model_config
 
-    def counted(plain, wrapper):
-        def run(*a, **k):
-            wrapper.launches += 1
-            return plain(*a, **k)
-        return run
-
     monkeypatch.setattr(ka, "attention_plain", counted(ka.attention_plain, ka.fused_attention))
     monkeypatch.setattr(kr, "residual_unit_plain",
                         counted(kr.residual_unit_plain, kr.fused_residual_unit))
@@ -282,3 +275,59 @@ def test_controlnet_phases_rehearse_on_cpu(monkeypatch):
     assert row["stats"]["controlnet_requests"] == 1
     assert row["controlnet_vs_direct_max_abs_err"] == 0.0
     assert row["wav_shapes"] == [[2400]] * 3
+
+
+def test_bf16_phases_rehearse_on_cpu(monkeypatch):
+    """Phases 16-19 end to end at a tiny size: bf16 staged and fused with
+    every launch counted as bf16, a bf16 path that runs its decode in f32
+    failing the per-dtype count, bf16 card against CPU (here CPU against
+    CPU: equal), the checkpoint round trip, s3_xl's path; the bf16
+    ResidualUnit rows and their shapes in ``uncovered_shapes``."""
+    import chip_smoke as cs
+    import ezaudio_tpu_torch.api.controlnet as api_cn
+    import ezaudio_tpu_torch.ops.kernels.attention as ka
+    import ezaudio_tpu_torch.ops.kernels.resunit as kr
+    from ezaudio_tpu_torch.config import get_model_config
+
+    monkeypatch.setattr(cs, "time_ms", lambda fn, reps=1, iters=1: 0.0)
+    monkeypatch.setattr(ka, "attention_plain", counted(ka.attention_plain, ka.fused_attention))
+    monkeypatch.setattr(kr, "residual_unit_plain",
+                        counted(kr.residual_unit_plain, kr.fused_residual_unit))
+    monkeypatch.setattr(api_cn, "WINDOW_SECONDS", 0.1)
+    gen = torch.Generator().manual_seed(0)
+    rows = cs.check_resunit("cpu", gen, [(1, 100, 128, 9)], "bfloat16")
+    assert rows[0]["dtype"] == "bfloat16" and rows[0]["max_abs_err"] == 0.0
+
+    def tiny(name):
+        cfg = get_model_config(name).to_dict()
+        cfg["model"].update(embed_dim=32, depth=2, num_heads=4, context_dim=16,
+                            ada_sola_rank=2, ada_sola_alpha=2)
+        cfg["text_encoder"]["model"] = "tiny"
+        return cfg
+
+    f32 = cs.main_path(cs.build_ezaudio("cpu", config=tiny("s3_l")), length=0.1)
+    ez = cs.build_ezaudio("cpu", config=tiny("s3_l"), dtype="bfloat16")
+    rows = cs.bf16_paths(ez, f32, length=0.1, replays=1)
+    assert [r["launches_by_dtype"] for r in rows[:2]] == [
+        {"attention.bfloat16": 600, "resunit.bfloat16": 12}] * 2
+    assert rows[2]["max_abs_err_vs_staged"] == 0.0
+    assert 0 < rows[0]["vs_f32"]["max_abs_diff"] and rows[0]["vs_f32"]["corr"] > 0.9
+    shapes = rows[0]["resunit_shapes"]
+    assert shapes == [(2400, 128, "bfloat16"), (1200, 128, "bfloat16"),
+                      (300, 256, "bfloat16"), (50, 512, "bfloat16")]
+    assert cs.uncovered_shapes(rows[:1]) == sorted(shapes)
+    assert cs.uncovered_shapes(rows[:1], bf16_cases=[(1, L, C, 1) for L, C, _ in shapes]) == []
+    ez.autoencoder.model.float()  # a decode that quietly runs in f32
+    with pytest.raises(AssertionError, match="by dtype"):
+        cs.bf16_paths(ez, f32, length=0.1, replays=1)
+
+    row = cs.bf16_card_vs_cpu(gen, dev="cpu", cfg=tiny("s3_l"), length=0.1)
+    assert row["max_abs_err"] == 0.0 and row["launches_by_dtype"] == {
+        "attention.bfloat16": 30, "resunit.bfloat16": 12}
+    cn = cs.build_controlnet("cpu", config=tiny("energy"))
+    row = cs.checkpoint_round_trip(cn, length=0.1, steps=2)
+    assert row["weights_on_device"]
+    assert 0 < row["generate_rel_err"] <= cs.CKPT_REL_TOL  # the refolded VAE rounds
+    assert row["controlnet_rel_err"] <= cs.CKPT_REL_TOL
+    row = cs.s3_xl_path("cpu", config=tiny("s3_xl"), length=0.1)
+    assert row["launches_by_dtype"] == {"attention.bfloat16": 600, "resunit.bfloat16": 12}

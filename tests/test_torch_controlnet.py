@@ -364,10 +364,25 @@ class TestFacade:
                 srv.submit_controlnet("x", clip)
         assert srv.stats["controlnet_requests"] == 0
 
-    def test_unported_arguments_raise(self, pair):
+    def test_unported_arguments_raise(self, pair, tmp_path):
+        """``controlnet_path`` loads (the pair's ControlNet written as the
+        reference's ``{"model": state_dict}``: equal weights and waveform,
+        a missing key raises naming it); ``Conditioner('vc')``, training
+        masking and an unknown sampler raise."""
         _, cn = pair
-        with pytest.raises(NotImplementedError, match="ControlNet checkpoint"):
-            EzAudioControlNet(base=cn.base, controlnet_path="cn.pt")
+        sd = cn.controlnet.state_dict()
+        path = str(tmp_path / "cn.pt")
+        torch.save({"model": sd}, path)
+        loaded = EzAudioControlNet(base=cn.base, controlnet_path=path, seed=9)
+        for k, v in loaded.controlnet.state_dict().items():
+            assert torch.equal(v, sd[k]), k
+        kw = dict(sampler="dpm", ddim_steps=2, random_seed=3)
+        np.testing.assert_array_equal(loaded.generate_audio("x", burst_clip(), **kw)[1],
+                                      cn.generate_audio("x", burst_clip(), **kw)[1])
+        torch.save({"model": {k: v for k, v in sd.items() if k != "controlnet_pre.conv_out.bias"}},
+                   path)
+        with pytest.raises(RuntimeError, match="controlnet_pre.conv_out.bias"):
+            EzAudioControlNet(base=cn.base, controlnet_path=path)
         with pytest.raises(NotImplementedError, match="vc"):
             tc.Conditioner("vc")
         with pytest.raises(NotImplementedError, match="training"):

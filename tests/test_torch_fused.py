@@ -132,3 +132,35 @@ def test_program_cache(ez, monkeypatch):
     ez.generate_audio("a", eta=0.0, **{k: v for k, v in kw.items()})
     assert len(ez._fused) == 2 and first not in ez._fused
     assert all(p.graph is None for p in ez._fused.values())  # no graphs on the CPU
+
+
+@pytest.mark.parametrize("path", ["staged", "fused", "controlnet"])
+def test_del_frees_the_model_without_gc(path):
+    """ROADMAP F8: with the garbage collector off, ``del`` of a used
+    ``EzAudio`` (staged, or fused: its programs hold it only weakly) or of a
+    used ``EzAudioControlNet`` frees it and its weights at once."""
+    import gc
+    import weakref
+
+    from ezaudio_tpu_torch.api.controlnet import EzAudioControlNet
+    from tests.test_torch_controlnet import CONFIG, PORT_T5
+
+    gc.collect()
+    gc.disable()
+    try:
+        kw = dict(vae_config=TINY_VAE_CONFIG, t5_config=PORT_T5, device="cpu")
+        if path == "controlnet":
+            model = EzAudioControlNet(config=CONFIG, **kw)
+            base = model.base
+            model.generate_audio("rain", np.zeros(TINY_SR, np.float32), sampler="dpm",
+                                 ddim_steps=2, random_seed=1)
+        else:
+            model = base = EzAudio(config=TINY_CONFIG, **kw)
+            model.generate_audio("rain", length=0.5, ddim_steps=2, random_seed=1,
+                                 fused=path == "fused")
+            assert bool(model._fused) == (path == "fused")
+        refs = [weakref.ref(x) for x in (model, base, base.dit, base.dit.model.time_ada.weight)]
+        del model, base
+        assert [r() for r in refs] == [None] * len(refs)
+    finally:
+        gc.enable()
