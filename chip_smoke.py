@@ -80,11 +80,28 @@ Phases, each fatal on failure:
  19. s3_xl in bf16 at full width and depth (embed 1152, depth 28,
      FLAN-T5-XL): ``generate_audio`` at its defaults for 1 prompt, every
      launch a bf16 launch;
- 20. the launches of each path, a ``{"kernels": [...]}`` line (launches
-     summed over the paths of phases 4-8, 10-13, 15, 16 and 19), the card's
-     name and power limit, and last ``{"ok": true, "device": {...}}``.
+ 20. CLAP reranking on phase 4's EzAudio: ``CLAPScorer`` at the
+     ``laion/clap-htsat-unfused`` widths (HTSAT embed 96, depths 2/2/6/2;
+     RoBERTa-base; projection 512) on seeded weights,
+     ``generate_audio_reranked`` on 1 prompt with 4 candidates at the
+     reference recipe (seeded CLAP ids padded to 32, some rows shorter),
+     the scoring timed alone; the candidates scored again by the CPU scorer:
+     embeddings within CLAP_EMBED_ATOL, the same choice unless the CPU's
+     top two are within CLAP_TIE;
+ 21. a ``GenerationServer(ez, clap_scorer=)`` (DPM 25, ``fused=True`` in its
+     recipe): one ``submit_reranked`` (run staged) and one plain request;
+     the rerank equal to the direct call by phase 12's rule, one rerank
+     request counted;
+ 22. ``Conditioner('vc', sr=24000)`` at ContentVec-base widths (conv 7 x
+     512, 12 layers at 768) on a seeded 10 s clip: (1, 500, 768), one frame
+     per latent frame; wall (median of 5) and peak; the CPU extractor on the
+     same weights within VC_REL_TOL of its range;
+ 23. the launches of each path, a ``{"kernels": [...]}`` line (launches
+     summed over the paths of phases 4-8, 10-13, 15, 16, 19, 20 and 21),
+     the card's name and power limit, and last ``{"ok": true, "device":
+     {...}}``.
 
-Every path of phases 4, 6-8, 11-13, 15, 16 and 19 is driven with the launch
+Every path of phases 4, 6-8, 11-13, 15, 16, 19, 20 and 21 is driven with the launch
 counters set to 0 just before it and read just after, and must launch each
 kernel exactly as often as its model calls and decodes imply; the bf16
 paths count every launch by dtype (``launches_by_dtype``), so a path that
@@ -154,6 +171,9 @@ CKPT_REL_TOL = 1e-4
 # a deleted model's memory: allocated bytes back within this of their
 # value before it was built
 MEM_SLACK_GIB = 0.1
+# ContentVec features, card against CPU in f32: within this share of the
+# CPU output's range
+VC_REL_TOL = 1e-4
 
 
 def log(msg: str) -> None:
@@ -437,6 +457,7 @@ def check_freed(what, before_gib):
     clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
     if clear is not None:
         clear()
+    torch.backends.cuda.cufft_plan_cache.clear()  # cuFFT's plans (CLAP's STFT), likewise
     now = mem_gib(torch.cuda.memory_allocated)
     log(f"freed {what}: {now:.3f} GiB allocated after del, {before_gib:.3f} before the build")
     if now > before_gib + MEM_SLACK_GIB:
@@ -1410,6 +1431,263 @@ def s3_xl_path(dev="cuda", config=None, length=10.0):
                     want_attention(depth, 100), want_res, length, n_samples, dtype="bfloat16")
 
 
+# ---------------------------------------------------------------------------
+# Phases 20-22: CLAP reranking and the HuBERT (ContentVec) conditioner
+CLAP_IDS_LENGTHS = (32, 20, 11, 7)
+
+
+def clap_ids(vocab: int = 50265, pad: int = 1, lengths=CLAP_IDS_LENGTHS, seed: int = 0):
+    """Seeded RoBERTa ids (len(lengths), max(lengths)): BOS 0, random
+    tokens, and each row shorter than the longest padded with the pad id."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    ids = np.full((len(lengths), max(lengths)), pad, np.int64)
+    for b, n in enumerate(lengths):
+        ids[b, :n] = rng.integers(3, vocab, n)
+        ids[b, 0] = 0
+    return ids
+
+
+def build_scorer(dev="cuda", cfg=None):
+    """``CLAPScorer(cfg)`` (``laion/clap-htsat-unfused`` widths by default)
+    on seeded random weights."""
+    import torch
+
+    from ezaudio_tpu_torch.audio.clap import CLAPScorer
+
+    t0 = time.perf_counter()
+    scorer = CLAPScorer(cfg, device=dev)
+    sync(dev)
+    log(f"rerank: CLAPScorer built in {time.perf_counter() - t0:.2f} s, "
+        f"{sum(p.numel() for p in scorer.model.parameters()) / 1e6:.1f} M params, "
+        f"{mem_gib(torch.cuda.memory_allocated)} GiB allocated")
+    return scorer
+
+
+def rerank_path(ez, scorer, ids, row=2, n_candidates=4, length=10.0):
+    """Phase 20: ``generate_audio_reranked`` on 1 prompt at the reference
+    recipe, ``n_candidates`` candidates in one batched call, scored against
+    CLAP ids row ``row``; then the scoring alone, timed."""
+    import numpy as np
+
+    from ezaudio_tpu_torch.audio.clap import prepare_clap_audio
+    from ezaudio_tpu_torch.codecs.oobleck import ResidualUnit
+
+    depth = ez.params_cfg.model.depth
+    per_decode = sum(isinstance(m, ResidualUnit) for m in ez.autoencoder.model.decoder.modules())
+    n_samples = int(length * ez.latent_sr) * ez.autoencoder.downsampling_ratio
+    out = {}
+
+    def call():
+        sr, best, allw, scores = ez.generate_audio_reranked(
+            PROMPTS[:1], scorer, n_candidates=n_candidates, text_ids=ids[row:row + 1],
+            return_all=True, length=length, random_seed=1234)
+        out.update(sr=sr, all=allw[0], scores=scores[0])
+        return best[0]
+
+    res = run_path(f"rerank[1x{n_candidates}]", ez.device, call, want_attention(depth, 100),
+                   per_decode * -(-n_candidates // 4), length, n_samples)
+    if out["all"].shape != (n_candidates, n_samples) or not np.isfinite(out["scores"]).all():
+        raise AssertionError(f"rerank: candidates {out['all'].shape}, scores {out['scores']}")
+    sr, wavs, dev = out["sr"], out["all"], ez.device
+
+    def wall_ms(fn, reps=5):
+        times = []
+        for _ in range(reps):
+            sync(dev)
+            t0 = time.perf_counter()
+            fn()
+            sync(dev)
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    feats = prepare_clap_audio(wavs, sr, device=scorer.device)
+    res.update(out, row=row, score_ms=dict(
+        embed_audio=wall_ms(lambda: scorer.embed_audio(wavs, sr)),
+        prepare_audio=wall_ms(lambda: prepare_clap_audio(wavs, sr, device=scorer.device)),
+        audio_tower=wall_ms(lambda: scorer.model(input_features=feats)),
+        embed_text=wall_ms(lambda: scorer.embed_text(ids[row:row + 1]))))
+    log("rerank_scores " + json.dumps(dict(scores=out["scores"].tolist(),
+                                           score_ms=res["score_ms"])))
+    return res
+
+
+CLAP_EMBED_ATOL = 1e-4  # card against CPU, unit embeddings
+CLAP_TIE = 2e-4         # the choice may differ where the CPU's top two are this close
+CLAP_SCORE_ATOL = 2e-4  # card against CPU, the candidates' scores
+
+
+def clap_agreement(name, got_audio, want_audio, got_text, want_text, got_scores, want_scores):
+    """Card (``got_*``) against CPU (``want_*``): both embeddings within
+    CLAP_EMBED_ATOL; the same best candidate per prompt unless the CPU's
+    top two scores are within CLAP_TIE (a tie the card may break the other
+    way); the scores within CLAP_SCORE_ATOL."""
+    import numpy as np
+
+    got_audio, want_audio, got_text, want_text, got_scores, want_scores = (
+        np.asarray(x, np.float64) for x in (got_audio, want_audio, got_text, want_text,
+                                           got_scores, want_scores))
+    err_a = float(np.abs(got_audio - want_audio).max())
+    err_t = float(np.abs(got_text - want_text).max())
+    top2 = np.sort(want_scores, axis=-1)[..., -2:]
+    decided = top2[..., 1] - top2[..., 0] > CLAP_TIE
+    same = got_scores.argmax(-1) == want_scores.argmax(-1)
+    err_s = float(np.abs(got_scores - want_scores).max())
+    row = dict(audio_max_abs_err=err_a, text_max_abs_err=err_t, atol=CLAP_EMBED_ATOL,
+               scores_max_abs_err=err_s, scores_atol=CLAP_SCORE_ATOL,
+               top_two_gap=(top2[..., 1] - top2[..., 0]).tolist(),
+               card_choice=got_scores.argmax(-1).tolist(),
+               cpu_choice=want_scores.argmax(-1).tolist(), decided=decided.tolist(),
+               tie=CLAP_TIE)
+    log(f"{name} " + json.dumps(row))
+    if not (np.isfinite(got_audio).all() and np.isfinite(got_text).all()
+            and err_a <= CLAP_EMBED_ATOL and err_t <= CLAP_EMBED_ATOL):
+        raise AssertionError(f"{name}: card and CPU embeddings disagree")
+    if not np.all(same | ~decided):
+        raise AssertionError(f"{name}: card and CPU choose different candidates")
+    if not err_s <= CLAP_SCORE_ATOL:
+        raise AssertionError(f"{name}: card and CPU scores disagree")
+    return row
+
+
+def clap_card_vs_cpu(scorer, res, ids):
+    """Phase 20's check: the card's candidates scored again by the port's
+    CPU ``CLAPScorer`` on the same weights."""
+    import torch
+
+    from ezaudio_tpu_torch.audio.clap import CLAPScorer
+
+    cpu = CLAPScorer(scorer.cfg, device="cpu",
+                     weights={k: v.cpu() for k, v in scorer.model.state_dict().items()})
+    got_a = scorer.embed_audio(res["all"], res["sr"]).cpu()
+    want_a = cpu.embed_audio(res["all"], res["sr"])
+    got_t, want_t = scorer.embed_text(ids).cpu(), cpu.embed_text(ids)
+    row = res["row"]
+    want_scores = torch.einsum("kd,d->k", want_a, want_t[row])
+    return clap_agreement("rerank_card_vs_cpu", got_a, want_a, got_t, want_t, res["scores"],
+                          want_scores)
+
+
+def served_rerank(ez, scorer, ids, row=2, steps=25, length=10.0):
+    """Phase 21: a ``GenerationServer(ez, clap_scorer=scorer)`` whose recipe
+    (DPM, ``steps`` steps) has ``fused=True`` given one ``submit_reranked``
+    (4 candidates) and one plain request: the rerank runs staged and equals
+    the direct call (phase 12's rule), one rerank request is counted, and
+    the counters show the staged rerank plus the plain request's program."""
+    import numpy as np
+
+    from ezaudio_tpu_torch.serving import GenerationServer
+
+    depth = ez.params_cfg.model.depth
+    text_ids = ids[row:row + 1]
+    srv = GenerationServer(ez, clap_scorer=scorer, max_batch_size=4, max_wait_ms=100,
+                           length=length, ddim_steps=steps, sampler="dpm", fused=True)
+    seen = set()
+    replays_before = {k: p.replays for k, p in ez._fused.items()}
+    reset_counters()
+    sync(ez.device)
+    with resunit_shapes(seen), srv:
+        t0 = time.perf_counter()
+        fut_r = srv.submit_reranked(PROMPTS[0], n_candidates=4, seed=31, text_ids=text_ids)
+        fut_g = srv.submit(PROMPTS[1], seed=32)
+        (sr, wav), lat = fut_r.result(timeout=600), [time.perf_counter() - t0]
+        plain = fut_g.result(timeout=600)[1]
+        lat.append(time.perf_counter() - t0)
+        wall = time.perf_counter() - t0
+    attn, res = read_counters()
+    stats = dict(srv.stats)
+    per_call = want_attention(depth, steps)
+    new = [k for k in ez._fused if k not in replays_before]
+    replayed = sum(p.replays - replays_before.get(k, 0) for k, p in ez._fused.items())
+    if ez.device.type != "cuda":  # no graphs: the plain request runs eagerly
+        want, launches = (2 * per_call, 24), (attn, res)
+    else:  # its program's warm-up and capture pass the counters, replays do not
+        want = (per_call * (1 + 2 * len(new)), 12 * (1 + 2 * len(new)))
+        launches = (per_call * (1 + replayed), 12 * (1 + replayed))
+    row_ = dict(path="served_rerank", requests=2, wall_s=wall, **latency_stats(lat),
+                audio_s=2 * length, stats=stats, attention_launches=launches[0],
+                resunit_launches=launches[1], resunit_shapes=sorted(seen, reverse=True),
+                new_programs=len(new), replays=replayed)
+    log("served_rerank " + json.dumps(row_))
+    if stats["rerank_requests"] != 1:
+        raise AssertionError(f"served_rerank: {stats['rerank_requests']} rerank requests")
+    if (attn, res) != want:
+        raise AssertionError(f"served_rerank: counters {attn}, {res}: want {want}")
+    n = int(length * sr)
+    for w in (wav, plain):
+        if w.shape != (n,) or not np.isfinite(w).all():
+            raise AssertionError(f"served_rerank: output {w.shape} for {length} s")
+    _, direct = ez.generate_audio_reranked(PROMPTS[0], scorer, n_candidates=4,
+                                           text_ids=text_ids, random_seed=31, length=length,
+                                           ddim_steps=steps, sampler="dpm")
+    row_["vs_direct"] = agreement("served_rerank_vs_direct", wav, direct, {})
+    return row_
+
+
+def vc_frames(cfg, sr: int, seconds: float) -> int:
+    """ContentVec frames of ``seconds`` at ``sr``: resampled to 16 kHz,
+    padded by 40 samples on each side, through the conv stack."""
+    n = -(-int(seconds * sr) * 16000 // sr) + 80
+    for k, s in zip(cfg.conv_kernel, cfg.conv_stride):
+        n = (n - k) // s + 1
+    return n
+
+
+def check_vc_shape(feats, cfg, sr: int, seconds: float, latent_sr: int = 50):
+    """One ContentVec frame per latent frame: (1, seconds * latent_sr,
+    hidden_size)."""
+    want = (1, vc_frames(cfg, sr, seconds), cfg.hidden_size)
+    if tuple(feats.shape) != want or want[1] != round(seconds * latent_sr):
+        raise AssertionError(f"vc: features {tuple(feats.shape)}, want {want} "
+                             f"({seconds * latent_sr:g} latent frames)")
+
+
+def vc_path(dev="cuda", cfg=None, sr=24000, seconds=10.0, reps=5, latent_sr=50):
+    """Phase 22: ``Conditioner('vc', sr=sr)`` (ContentVec-base widths by
+    default) on a seeded clip: shape, wall (median of ``reps``), peak; then
+    the port's CPU extractor on the same weights, within VC_REL_TOL of the
+    CPU output's range."""
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from ezaudio_tpu_torch.models.conditioners import Conditioner
+    from ezaudio_tpu_torch.models.hubert import VoiceConversionExtractor
+
+    with warnings.catch_warnings(record=True) as caught:  # random weights: it warns
+        warnings.simplefilter("always")
+        cond = Conditioner("vc", sr=sr, hubert_config=cfg, device=dev)
+    log(f"vc: {sum(p.numel() for p in cond.fn.model.parameters()) / 1e6:.1f} M params; "
+        f"warned: {[str(w.message)[:40] for w in caught]}")
+    clip = seeded_clip(sr, seconds)[None]
+    cuda = torch.device(dev).type == "cuda"
+    feats = cond(clip)  # warm-up
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(reps):
+        sync(dev)
+        t0 = time.perf_counter()
+        feats = cond(clip)
+        sync(dev)
+        times.append(time.perf_counter() - t0)
+    check_vc_shape(feats, cond.fn.cfg, sr, seconds, latent_sr)
+    cpu = VoiceConversionExtractor(sr, cond.fn.cfg, device="cpu", weights={
+        k: v.cpu() for k, v in cond.fn.model.state_dict().items()})
+    got, want = feats.float().cpu().numpy(), cpu(clip).numpy()
+    err, scale = float(np.abs(got - want).max()), float(np.abs(want).max())
+    row = dict(path="vc", shape=list(got.shape), wall_s=statistics.median(times),
+               wall_s_all=times, peak_mem_gib=mem_gib(torch.cuda.max_memory_allocated)
+               if cuda else None, max_abs_err=err, ref_abs_max=scale, rel_err=err / scale,
+               rel_tol=VC_REL_TOL)
+    log("vc " + json.dumps(row))
+    if not (np.isfinite(got).all() and err <= VC_REL_TOL * scale):
+        raise AssertionError("vc: card and CPU features disagree")
+    return row
+
+
 def _kernel_class(name: str) -> str:
     n = name.lower()
     if "attn_fwd" in n:
@@ -1539,6 +1817,16 @@ def main(argv) -> int:
         served_replay = served_paths(ez, fused=True, name="served_fused_replay")
         served_checks(ez, served, served_fused, served_replay)
     paths += int8_rows + [served, served_fused, served_replay]
+
+    before_clap = mem_gib(torch.cuda.memory_allocated)
+    scorer, ids = build_scorer(), clap_ids()
+    with phase("20 rerank"):
+        rerank = rerank_path(ez, scorer, ids)
+        clap_card_vs_cpu(scorer, rerank, ids)
+    with phase("21 served rerank"):
+        paths += [rerank, served_rerank(ez, scorer, ids)]
+    del scorer
+    check_freed("CLAP scorer", before_clap)
     del ez  # no gc: nothing holds it in a cycle (ROADMAP F8)
     check_freed("s3_l f32", before)
 
@@ -1564,6 +1852,9 @@ def main(argv) -> int:
     with phase("19 s3_xl bf16"):
         paths.append(s3_xl_path())
     check_freed("s3_xl bf16", before)
+    with phase("22 vc"):
+        vc_path()
+    check_freed("ContentVec", before)
 
     missing = uncovered_shapes(paths)
     if missing:

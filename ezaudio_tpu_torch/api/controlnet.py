@@ -90,7 +90,10 @@ class EzAudioControlNet:
             base._cast_(dtype)
         self.controlnet = cast_params_(cn, dtype).eval().requires_grad_(False)
         self.dtype = dtype
-        self.conditioner = Conditioner(**cfg.conditioner.to_dict())
+        cond_kw = cfg.conditioner.to_dict()
+        if cond_kw.get("condition_type") == "vc":
+            cond_kw.setdefault("device", self.device)  # the HuBERT tower beside the model
+        self.conditioner = Conditioner(**cond_kw)
 
     # ------------------------------------------------------------------
     def _denoise(self, ctx, cmask, condition, noise, steps, guidance_scale,

@@ -13,7 +13,9 @@
   * ``editing_audio(text, boundary, gt_file, mask_start, mask_length, ...)``:
     mask-based inpainting/outpainting of a clip with boundary windowing;
   * ``generate_long(text, length, window=10, overlap=2, ...)``: chained
-    outpainting past the training window.
+    outpainting past the training window;
+  * ``generate_audio_reranked(text, scorer, n_candidates=4, ...)``: best of
+    K candidates by CLAP score (``audio/clap.py::CLAPScorer``).
 
 ``quant='int8'`` runs the DiT's linear layers as dynamic W8A8 int8
 products (``ops/quant.py``).  ``generate_audio(fused=True)`` runs the whole
@@ -506,6 +508,47 @@ class EzAudio:
             layer_cache=layer_cache, cfg_refresh=cfg_refresh, quant=quant, attn_impl=attn_impl)
         wav = self._decode(scale_shift_re(latents, self.scale, self.shift))
         return self.sr, (wav if batched else wav[0])
+
+    # ------------------------------------------------------------------
+    def generate_audio_reranked(
+        self,
+        text: Union[str, Sequence[str]],
+        scorer,
+        n_candidates: int = 4,
+        text_ids=None,
+        return_all: bool = False,
+        **generate_kw,
+    ):
+        """Best-of-K generation: ``n_candidates`` samples per prompt in ONE
+        batched ``generate_audio`` call, each scored against its prompt by
+        CLAP, the best waveform per prompt returned.
+
+        ``scorer``: a :class:`~ezaudio_tpu_torch.audio.clap.CLAPScorer`.
+        ``text_ids``: pre-tokenized CLAP ``input_ids`` of the B prompts,
+        needed when the scorer has no tokenizer.  The B prompts are embedded
+        once and the B*K waveforms once; the score is their cosine.
+        ``return_all=True`` also returns every candidate, (B, K, T), and the
+        (B, K) scores.  ``**generate_kw`` goes to :meth:`generate_audio`
+        (``random_seed``, samplers, ``layer_cache``, ``guidance_interval``,
+        ``fused`` ...); ``initial_latents`` there is (B*K, frames, C).
+        """
+        batched = not isinstance(text, str)
+        texts = list(text) if batched else [text]
+        B, K = len(texts), int(n_candidates)
+        if K < 1:
+            raise ValueError(f"n_candidates must be >= 1, got {n_candidates}")
+        sr, wav = self.generate_audio([t for t in texts for _ in range(K)], **generate_kw)
+        a = torch.as_tensor(scorer.embed_audio(wav, sr))                   # (B*K, D)
+        t = torch.as_tensor(scorer.embed_text(texts if text_ids is None else text_ids))
+        scores = torch.einsum("bkd,bd->bk", a.reshape(B, K, -1), t).float().cpu().numpy()
+        best = scores.argmax(axis=1)
+        wav = wav.reshape(B, K, -1)
+        best_wav = wav[np.arange(B), best]
+        if not batched:
+            best_wav = best_wav[0]
+        if return_all:
+            return sr, best_wav, wav, scores
+        return sr, best_wav
 
     # ------------------------------------------------------------------
     def generate_long(

@@ -13,7 +13,11 @@ package's torch -> jax converters:
   * :func:`vae_state_dict_from_jax` — AudioVAE params (``encoder`` and
     ``decoder`` subtrees) -> :class:`~ezaudio_tpu_torch.codecs.oobleck.AudioVAE`;
   * :func:`t5_state_dict_from_jax` — T5 params ->
-    :class:`~ezaudio_tpu_torch.text.t5.T5Encoder`.
+    :class:`~ezaudio_tpu_torch.text.t5.T5Encoder`;
+  * :func:`clap_params_to_torch` — CLAP params ->
+    :class:`~ezaudio_tpu_torch.models.clap.CLAP` (transformers names);
+  * :func:`hubert_params_to_torch` — HubertEncoder params ->
+    :class:`~ezaudio_tpu_torch.models.hubert.HubertEncoder` (transformers names).
 
 Inputs are nested dicts of numpy arrays (``jax.device_get`` of the
 trees); outputs map names to float32 ``torch.Tensor``.  Because the port
@@ -226,3 +230,93 @@ def fold_weight_norm(sd: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         else:
             out[k] = v
     return out
+
+
+def _ln(dst, prefix, p):
+    """A flax LayerNorm or GroupNorm (``scale``, ``bias``)."""
+    dst[f"{prefix}.weight"] = _t(p["scale"])
+    dst[f"{prefix}.bias"] = _t(p["bias"])
+
+
+def clap_params_to_torch(params: Dict[str, Any], cfg) -> Dict[str, torch.Tensor]:
+    """JAX CLAP params -> port CLAP state dict (the inverse of
+    ``ezaudio_tpu/models/clap.py::convert_clap_state_dict``).  ``cfg`` is a
+    ``ClapConfig`` of either package."""
+    sd: Dict[str, torch.Tensor] = {"logit_scale_a": _t(params["logit_scale_a"]),
+                                   "logit_scale_t": _t(params["logit_scale_t"])}
+    at, enc = params["audio_tower"], "audio_model.audio_encoder"
+    for name, key in (("weight", "bn_scale"), ("bias", "bn_bias"),
+                      ("running_mean", "bn_mean"), ("running_var", "bn_var")):
+        sd[f"{enc}.batch_norm.{name}"] = _t(at[key])
+    # flax Conv (kh, kw, in, out) -> torch Conv2d (out, in, kh, kw)
+    sd[f"{enc}.patch_embed.proj.weight"] = _t(
+        np.asarray(at["patch_proj"]["kernel"]).transpose(3, 2, 0, 1))
+    sd[f"{enc}.patch_embed.proj.bias"] = _t(at["patch_proj"]["bias"])
+    if cfg.audio.enable_patch_layer_norm:
+        _ln(sd, f"{enc}.patch_embed.norm", at["patch_norm"])
+    _ln(sd, f"{enc}.norm", at["norm"])
+    for i, depth in enumerate(cfg.audio.depths):
+        for j in range(depth):
+            b, pre = at[f"stage_{i}_block_{j}"], f"{enc}.layers.{i}.blocks.{j}"
+            _ln(sd, f"{pre}.layernorm_before", b["norm_before"])
+            _ln(sd, f"{pre}.layernorm_after", b["norm_after"])
+            a = b["attention"]
+            for name in ("query", "key", "value"):
+                _lin(sd, f"{pre}.attention.self.{name}", a[name])
+            sd[f"{pre}.attention.self.relative_position_bias_table"] = _t(
+                a["relative_position_bias_table"])
+            _lin(sd, f"{pre}.attention.output.dense", a["proj"])
+            _lin(sd, f"{pre}.intermediate.dense", b["mlp_in"])
+            _lin(sd, f"{pre}.output.dense", b["mlp_out"])
+        if i < len(cfg.audio.depths) - 1:
+            d, pre = at[f"stage_{i}_downsample"], f"{enc}.layers.{i}.downsample"
+            _ln(sd, f"{pre}.norm", d["norm"])
+            _lin(sd, f"{pre}.reduction", d["reduction"])
+
+    tt, emb = params["text_tower"], "text_model.embeddings"
+    for name in ("word_embeddings", "position_embeddings", "token_type_embeddings"):
+        sd[f"{emb}.{name}.weight"] = _t(tt[name]["embedding"])
+    _ln(sd, f"{emb}.LayerNorm", tt["embed_norm"])
+    _lin(sd, "text_model.pooler.dense", tt["pooler"])
+    for i in range(cfg.text.num_hidden_layers):
+        pre, p = f"text_model.encoder.layer.{i}", (lambda n, i=i: tt[f"layer_{i}_{n}"])
+        for name in ("query", "key", "value"):
+            _lin(sd, f"{pre}.attention.self.{name}", p(name))
+        _lin(sd, f"{pre}.attention.output.dense", p("attn_out"))
+        _ln(sd, f"{pre}.attention.output.LayerNorm", p("attn_norm"))
+        _lin(sd, f"{pre}.intermediate.dense", p("mlp_in"))
+        _lin(sd, f"{pre}.output.dense", p("mlp_out"))
+        _ln(sd, f"{pre}.output.LayerNorm", p("mlp_norm"))
+    for side in ("audio", "text"):
+        for name in ("linear1", "linear2"):
+            _lin(sd, f"{side}_projection.{name}", params[f"{side}_projection"][name])
+    return sd
+
+
+def hubert_params_to_torch(params: Dict[str, Any], cfg) -> Dict[str, torch.Tensor]:
+    """JAX HubertEncoder params -> port HubertEncoder state dict (the
+    inverse of ``ezaudio_tpu/models/hubert.py::convert_hubert_state_dict``;
+    the positional conv's weight is the folded one).  ``cfg`` is a
+    ``HubertConfig`` of either package."""
+    sd: Dict[str, torch.Tensor] = {}
+    fe = params["feature_extractor"]
+    for i in range(len(cfg.conv_kernel)):
+        pre = f"feature_extractor.conv_layers.{i}"
+        _conv(sd, f"{pre}.conv", fe[f"conv_{i}"])
+        if cfg.feat_extract_norm == "group" and i == 0:
+            _ln(sd, f"{pre}.layer_norm", fe["group_norm"])
+        elif cfg.feat_extract_norm == "layer":
+            _ln(sd, f"{pre}.layer_norm", fe[f"layer_norm_{i}"])
+    _ln(sd, "feature_projection.layer_norm", params["fp_layer_norm"])
+    _lin(sd, "feature_projection.projection", params["fp_projection"])
+    _conv(sd, "encoder.pos_conv_embed.conv", params["pos_conv_embed"]["conv"])
+    _ln(sd, "encoder.layer_norm", params["encoder_layer_norm"])
+    for i in range(cfg.num_hidden_layers):
+        p, pre = params[f"layer_{i}"], f"encoder.layers.{i}"
+        for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            _lin(sd, f"{pre}.attention.{name}", p["attention"][name])
+        _ln(sd, f"{pre}.layer_norm", p["layer_norm"])
+        _ln(sd, f"{pre}.final_layer_norm", p["final_layer_norm"])
+        for name in ("intermediate_dense", "output_dense"):
+            _lin(sd, f"{pre}.feed_forward.{name}", p["feed_forward"][name])
+    return sd

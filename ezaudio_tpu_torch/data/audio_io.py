@@ -1,5 +1,6 @@
-"""Wav IO on numpy + scipy (the port's copy of the jax-free
-``ezaudio_tpu/data/audio_io.py`` parts that editing needs).
+"""Wav IO and resampling on numpy + scipy (the port's copy of the jax-free
+``ezaudio_tpu/data/audio_io.py`` parts that editing, CLAP and the HuBERT
+conditioner need).
 
 ``load_wav`` reads RIFF/WAVE with ``scipy.io.wavfile`` and mirrors
 ``librosa.load(path, sr=sr)``: float32 in [-1, 1], mono downmix, polyphase
@@ -14,6 +15,14 @@ from math import gcd
 import numpy as np
 from scipy.io import wavfile
 from scipy.signal import resample_poly
+
+
+def resample(wav: np.ndarray, orig_sr: int, target_sr: int) -> np.ndarray:
+    """Polyphase resampling along the last axis, on the host."""
+    if orig_sr == target_sr:
+        return wav
+    g = gcd(orig_sr, target_sr)
+    return resample_poly(wav, target_sr // g, orig_sr // g, axis=-1).astype(wav.dtype)
 
 
 def load_wav(path: str, sr: int) -> np.ndarray:
@@ -33,10 +42,7 @@ def load_wav(path: str, sr: int) -> np.ndarray:
         wav = data.astype(np.float32)
     if wav.ndim == 2:
         wav = wav.mean(axis=1)
-    if file_sr != sr:
-        g = gcd(file_sr, sr)
-        wav = resample_poly(wav, sr // g, file_sr // g).astype(np.float32)
-    return wav
+    return resample(wav, file_sr, sr)
 
 
 def peak_normalize(wav: np.ndarray, eps: float = 1e-9) -> np.ndarray:

@@ -10,15 +10,17 @@ Each extractor maps a waveform batch (B, T) to channel-last features
   * ``multiband_energy_condition``: windowed-sinc band split, then the
     energy of each band;
   * ``chroma_condition``: normalized power spectrogram -> chroma
-    filterbank -> inf-norm -> optional argmax one-hot.
+    filterbank -> inf-norm -> optional argmax one-hot;
+  * ``condition_type='vc'``: ContentVec/HuBERT content features
+    (``models/hubert.py::VoiceConversionExtractor``, on its own device).
 
 The ``Conditioner`` facade picks one by name and tiles the condition over
-the frequency axis of 4-D latents.  ``condition_type='vc'`` (ContentVec
-features) waits for the HuBERT tower and raises.
+the frequency axis of 4-D latents.
 """
 
 from __future__ import annotations
 
+import warnings
 from functools import partial
 from typing import Optional
 
@@ -206,13 +208,32 @@ class Conditioner:
     (B, frames, C), channel-last."""
 
     def __init__(self, condition_type: str, **kwargs):
-        if condition_type == "vc":
-            raise NotImplementedError(
-                "condition_type='vc' (ContentVec features) waits for the HuBERT tower")
-        if condition_type not in _EXTRACTORS:
-            raise NotImplementedError(condition_type)
         self.condition_type = condition_type
-        self.fn = partial(_EXTRACTORS[condition_type], **kwargs)
+        if condition_type == "vc":
+            # ContentVec/HuBERT content features (reference
+            # src/models/conditions/voice.py:19-36): weights= (a
+            # transformers-format state dict), sr=, hubert_config=, dtype=,
+            # device=; or a callable injected as extractor=
+            extractor = kwargs.pop("extractor", None)
+            self.fn = extractor if extractor is not None else self._vc_extractor(**kwargs)
+        elif condition_type in _EXTRACTORS:
+            self.fn = partial(_EXTRACTORS[condition_type], **kwargs)
+        else:
+            raise NotImplementedError(condition_type)
+
+    @staticmethod
+    def _vc_extractor(sr: int = 24000, hubert_config=None, weights=None,
+                      dtype: torch.dtype = torch.float32, device=None):
+        from ezaudio_tpu_torch.models.hubert import VoiceConversionExtractor
+
+        if weights is None:
+            warnings.warn(
+                "Conditioner('vc') built WITHOUT weights: the HuBERT/ContentVec tower "
+                "is randomly initialized and its features are meaningless for real "
+                "conditioning. Pass weights= (a transformers-format state dict) or "
+                "extractor=.", stacklevel=3)
+        return VoiceConversionExtractor(sr=sr, cfg=hubert_config, weights=weights,
+                                        dtype=dtype, device=device)
 
     def __call__(self, waveform, latent_shape=None):
         cond = self.fn(torch.as_tensor(waveform))

@@ -1,6 +1,6 @@
-"""Conv1d and ConvTranspose1d that sum in f32 whatever their input's dtype
+"""Conv1d, Conv2d and ConvTranspose1d that sum in f32 whatever their input's dtype
 (counterpart of the convolutions of ``ezaudio_tpu/ops/convs.py`` and
-``codecs/oobleck_fast.py``).
+``codecs/oobleck_fast.py``, and of the CLAP patch embedding).
 
 In a bf16 model the JAX package convolves bf16 inputs with bf16 copies of
 its weights; the products are exact in f32, the sums f32, the output
@@ -26,6 +26,13 @@ def _f32(t):
 
 
 class Conv1d(nn.Conv1d):
+    def forward(self, x):
+        if x.dtype == torch.float32:
+            return super().forward(x)
+        return self._conv_forward(x.float(), self.weight.float(), _f32(self.bias)).to(x.dtype)
+
+
+class Conv2d(nn.Conv2d):
     def forward(self, x):
         if x.dtype == torch.float32:
             return super().forward(x)

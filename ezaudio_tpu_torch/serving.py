@@ -20,13 +20,13 @@ server aggregates concurrent requests into batches:
     (``submit_controlnet``, with ``controlnet=`` an ``EzAudioControlNet``
     sharing the server's EzAudio) ride the same queue and are served one
     by one (both APIs are single-clip);
+  * best-of-K requests (``submit_reranked``, with ``clap_scorer=`` a
+    ``CLAPScorer``) are served one by one through the same queue: the K
+    candidates of one request already fill a batch;
   * each request carries its own seed: its slot's starting noise is the
     draw a solo ``generate_audio(random_seed=seed)`` makes, so a (text,
     seed, length bucket) triple reproduces across batch compositions under
     a deterministic sampler.  Results come back through futures.
-
-CLAP reranking (``clap_scorer=``) is not ported yet and raises
-``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -48,8 +48,8 @@ from ezaudio_tpu_torch import utils
 class _Request:
     text: str
     seed: int
-    kind: str = "generate"            # "generate" | "edit" | "controlnet"
-    length: Optional[float] = None    # requested seconds (generate)
+    kind: str = "generate"            # "generate" | "edit" | "controlnet" | "rerank"
+    length: Optional[float] = None    # requested seconds (generate, rerank)
     bucket: Optional[float] = None    # length bucket (generate)
     edit_kwargs: Optional[dict] = None
     future: Future = field(default_factory=Future)
@@ -79,10 +79,8 @@ class GenerationServer:
         cfg_refresh: int = 1,  # uncond every P-th in-band group (dpm)
         fused: bool = False,  # the whole pipeline as one CUDA graph
         controlnet=None,  # EzAudioControlNet(base=ez): shares ez's weights
-        clap_scorer=None,
+        clap_scorer=None,  # CLAPScorer enabling submit_reranked
     ):
-        if clap_scorer is not None:
-            raise NotImplementedError("clap_scorer= (reranking) is not ported yet")
         if sampler == "distilled" and (layer_cache is not None
                                        or guidance_interval is not None):
             # fail at construction, not on the first drained batch
@@ -91,6 +89,7 @@ class GenerationServer:
                 "guidance_interval (guidance is folded into the student)")
         self.ez = ez
         self.controlnet = controlnet
+        self.clap_scorer = clap_scorer
         self.max_batch_size = max_batch_size
         self.max_wait = max_wait_ms / 1000.0
         buckets = batch_buckets or [b for b in (1, 2, 4, 8, 16) if b <= max_batch_size]
@@ -188,8 +187,20 @@ class GenerationServer:
 
     def submit_reranked(self, text: str, n_candidates: int = 4, seed: Optional[int] = None,
                         length: Optional[float] = None, **kw) -> Future:
-        raise ValueError("this GenerationServer was built without a clap_scorer= "
-                         "(CLAP reranking is not ported yet)")
+        """Enqueue a best-of-K generation (``EzAudio.generate_audio_reranked``
+        scored by the server's ``clap_scorer``), served on its own.  ``kw``
+        goes to that call (``text_ids`` when the scorer has no tokenizer);
+        the server's recipe applies unless ``kw`` overrides it."""
+        if self.clap_scorer is None:
+            raise ValueError("this GenerationServer was built without a clap_scorer=; "
+                             "pass a CLAPScorer (ezaudio_tpu_torch.audio.clap) to enable "
+                             "submit_reranked")
+        length = float(length if length is not None else self.default_length)
+        fut = self._enqueue(_Request(text=text, seed=_new_seed(seed), kind="rerank",
+                                     length=length,
+                                     edit_kwargs=dict(n_candidates=int(n_candidates), **kw)))
+        self.stats["rerank_requests"] += 1
+        return fut
 
     def generate(self, text: str, seed: Optional[int] = None,
                  timeout: Optional[float] = None,
@@ -284,6 +295,21 @@ class GenerationServer:
             if not req.future.done():
                 req.future.set_exception(e)
 
+    def _run_rerank(self, req: _Request):
+        self.stats["batches"] += 1
+        try:
+            # the staged batched path: the fused program is not taken here,
+            # as in the JAX server
+            kw = {k: v for k, v in self.gen_kwargs.items() if k != "fused"}
+            kw.update(req.edit_kwargs)
+            sr, wav = self.ez.generate_audio_reranked(req.text, self.clap_scorer,
+                                                      random_seed=req.seed,
+                                                      length=req.length, **kw)
+            req.future.set_result((sr, np.asarray(wav)))
+        except Exception as e:
+            if not req.future.done():
+                req.future.set_exception(e)
+
     def _loop(self):
         while not self._stop.is_set():
             batch = self._drain()
@@ -293,6 +319,8 @@ class GenerationServer:
                     self._run_edit(r)
                 elif r.kind == "controlnet":
                     self._run_controlnet(r)
+                elif r.kind == "rerank":
+                    self._run_rerank(r)
                 else:
                     groups.setdefault(r.bucket, []).append(r)
             for bucket_len, group in sorted(groups.items()):

@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Union
 
 import torch
@@ -49,6 +50,31 @@ def cast_params_(module: torch.nn.Module, dtype: torch.dtype) -> torch.nn.Module
             module._buffers[name] = b.to(dtype)
     for child in module.children():
         cast_params_(child, dtype)
+    return module
+
+
+@torch.no_grad()
+def init_seeded_(module: torch.nn.Module, generator: torch.Generator,
+                 norm_types: tuple) -> torch.nn.Module:
+    """Seeded random weights for a tower built without a checkpoint: the
+    modules of ``norm_types`` get weight 1 + N(0, 0.02) and bias N(0, 0.02),
+    every other matrix (and kernel, and table) xavier-uniform over its first
+    axis and the rest, every other vector N(0, 0.02).  0-d parameters are
+    left as built."""
+    done = set()
+    for m in module.modules():
+        if isinstance(m, norm_types):
+            m.weight.normal_(1.0, 0.02, generator=generator)
+            m.bias.normal_(0.0, 0.02, generator=generator)
+            done.update((id(m.weight), id(m.bias)))
+    for p in module.parameters():
+        if id(p) in done or p.ndim == 0:
+            continue
+        if p.ndim >= 2:
+            bound = math.sqrt(6.0 / (p[0].numel() + p.shape[0]))
+            p.uniform_(-bound, bound, generator=generator)
+        else:
+            p.normal_(0.0, 0.02, generator=generator)
     return module
 
 

@@ -331,3 +331,114 @@ def test_bf16_phases_rehearse_on_cpu(monkeypatch):
     assert row["controlnet_rel_err"] <= cs.CKPT_REL_TOL
     row = cs.s3_xl_path("cpu", config=tiny("s3_xl"), length=0.1)
     assert row["launches_by_dtype"] == {"attention.bfloat16": 600, "resunit.bfloat16": 12}
+
+
+def test_rerank_and_vc_phases_rehearse_on_cpu(monkeypatch):
+    """Phases 20-22 end to end at a tiny size: the reranked call's launches
+    (one batched call, one decode chunk), the CPU re-scoring (here CPU
+    against CPU: equal), the served rerank equal to the direct call with
+    one rerank request counted, and the ContentVec features at one frame
+    per latent frame (a tiny conv stack with the x320 downsample)."""
+    import chip_smoke as cs
+    import ezaudio_tpu_torch.ops.kernels.attention as ka
+    import ezaudio_tpu_torch.ops.kernels.resunit as kr
+    from ezaudio_tpu_torch.config import get_model_config
+    from ezaudio_tpu_torch.models.hubert import HubertConfig
+    from tests.test_torch_clap import CFG as CLAP_CFG
+
+    monkeypatch.setattr(ka, "attention_plain", counted(ka.attention_plain, ka.fused_attention))
+    monkeypatch.setattr(kr, "residual_unit_plain",
+                        counted(kr.residual_unit_plain, kr.fused_residual_unit))
+    cfg = get_model_config("s3_l").to_dict()
+    cfg["model"].update(embed_dim=32, depth=2, num_heads=4, context_dim=16,
+                        ada_sola_rank=2, ada_sola_alpha=2)
+    cfg["text_encoder"]["model"] = "tiny"
+    ez = cs.build_ezaudio("cpu", config=cfg)
+    scorer = cs.build_scorer("cpu", CLAP_CFG)
+    ids = cs.clap_ids(vocab=CLAP_CFG.text.vocab_size, lengths=(12, 8, 5, 3))
+    assert ids.shape == (4, 12) and (ids[1:, -1] == 1).all() and (ids[:, 0] == 0).all()
+    res = cs.rerank_path(ez, scorer, ids, length=0.1)
+    assert (res["attention_launches"], res["resunit_launches"]) == (600, 12)
+    assert res["all"].shape == (4, 2400) and res["wav_shape"] == [2400]
+    assert set(res["score_ms"]) == {"embed_audio", "prepare_audio", "audio_tower", "embed_text"}
+    row = cs.clap_card_vs_cpu(scorer, res, ids)
+    assert row["audio_max_abs_err"] == row["text_max_abs_err"] == 0.0
+    assert row["card_choice"] == row["cpu_choice"]
+    row = cs.served_rerank(ez, scorer, ids, steps=3, length=0.1)
+    assert row["stats"]["rerank_requests"] == 1 and row["vs_direct"]["max_abs_err"] == 0.0
+    assert (row["attention_launches"], row["resunit_launches"]) == (2 * 3 * 3 * 2, 24)
+
+    vc = HubertConfig(hidden_size=16, num_hidden_layers=1, num_attention_heads=2,
+                      intermediate_size=32, conv_dim=(8, 8, 8), conv_kernel=(10, 8, 8),
+                      conv_stride=(5, 8, 8), num_conv_pos_embeddings=8,
+                      num_conv_pos_embedding_groups=2)
+    row = cs.vc_path("cpu", cfg=vc, seconds=1.0, reps=1)
+    assert row["shape"] == [1, 50, 16] and row["max_abs_err"] == 0.0
+
+
+def test_clap_limits_catch_a_transposed_bias_gather():
+    """Phase 20's limits separate a fault from agreement: a CLAP whose
+    window attention gathers its relative-position bias transposed moves
+    the audio embeddings far past CLAP_EMBED_ATOL on the same weights, and
+    scores moved by 1e-3 fail CLAP_SCORE_ATOL."""
+    import numpy as np
+
+    import chip_smoke as cs
+    from ezaudio_tpu_torch.audio.clap import CLAPScorer
+    from ezaudio_tpu_torch.models.clap import _SelfAttention
+    from tests.test_torch_clap import CFG as CLAP_CFG
+
+    good = CLAPScorer(CLAP_CFG, device="cpu")
+    bad = CLAPScorer(CLAP_CFG, device="cpu", weights=good.model.state_dict())
+    for m in bad.model.modules():
+        if isinstance(m, _SelfAttention):
+            n = int(m.relative_index.numel() ** 0.5)
+            m.relative_index = m.relative_index.reshape(n, n).T.reshape(-1)
+    wav = np.random.default_rng(0).standard_normal((2, 24000)).astype(np.float32) * 0.1
+    ids = cs.clap_ids(vocab=CLAP_CFG.text.vocab_size, lengths=(6, 4))
+    emb = [(s.embed_audio(wav, 24000), s.embed_text(ids)) for s in (bad, good)]
+    scores = [a @ t[0] for a, t in emb]
+    cs.clap_agreement("same", *emb[1][:1], *emb[1][:1], *emb[1][1:], *emb[1][1:],
+                      scores[1], scores[1])
+    with pytest.raises(AssertionError, match="embeddings disagree"):
+        cs.clap_agreement("transposed", emb[0][0], emb[1][0], emb[0][1], emb[1][1],
+                          scores[0], scores[1])
+    with pytest.raises(AssertionError, match="scores disagree"):
+        cs.clap_agreement("scores", *emb[1][:1], *emb[1][:1], *emb[1][1:], *emb[1][1:],
+                          scores[1] + 1e-3, scores[1])
+
+
+@pytest.mark.parametrize("cpu_scores,passes", [
+    ([0.30, 0.30015, 0.10], True),   # the CPU's top two within CLAP_TIE: a tie
+    ([0.30, 0.3005, 0.10], False),   # decided: the card must choose as the CPU does
+])
+def test_clap_choice_rule(cpu_scores, passes):
+    """Phase 20's choice rule: a tie may break either way, a decided choice
+    may not."""
+    import numpy as np
+
+    import chip_smoke as cs
+
+    emb = np.eye(3)
+    card_scores = np.array([0.3001, 0.30005, 0.10])  # the card chooses candidate 0
+    check = lambda: cs.clap_agreement("choice", emb, emb, emb[:1], emb[:1], card_scores,
+                                      np.array(cpu_scores))
+    if passes:
+        check()
+    else:
+        with pytest.raises(AssertionError, match="different candidates"):
+            check()
+
+
+def test_contentvec_shape_rule():
+    """Phase 22: ContentVec-base on 10 s at 24 kHz gives 500 frames, one per
+    latent frame; another frame count or width fails."""
+    import chip_smoke as cs
+    from ezaudio_tpu_torch.models.hubert import HubertConfig
+
+    cfg = HubertConfig()
+    assert cs.vc_frames(cfg, 24000, 10.0) == cs.vc_frames(cfg, 16000, 10.0) == 500
+    cs.check_vc_shape(torch.zeros(1, 500, 768), cfg, 24000, 10.0)
+    for shape in ((1, 499, 768), (1, 500, 512), (2, 500, 768)):
+        with pytest.raises(AssertionError, match="vc: features"):
+            cs.check_vc_shape(torch.zeros(shape), cfg, 24000, 10.0)

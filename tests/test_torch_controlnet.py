@@ -25,6 +25,7 @@ from ezaudio_tpu_torch.convert.from_jax import (controlnet_state_dict_from_jax,
                                                 t5_state_dict_from_jax,
                                                 vae_state_dict_from_jax)
 from ezaudio_tpu_torch.models import conditioners as tc
+from ezaudio_tpu_torch.models.hubert import HubertConfig
 from ezaudio_tpu_torch.text.t5 import T5EncoderConfig
 from tests.tiny_config import TINY_CONFIG, TINY_SR, TINY_T5, TINY_VAE_CONFIG
 
@@ -38,6 +39,10 @@ COND_CFG = dict(condition_type="energy", hop_size=8, window_size=64, padding="re
                 min_db=-60, norm=True)
 CONFIG = dict(TINY_CONFIG, controlnet=CN_CFG, conditioner=COND_CFG)
 PORT_T5 = T5EncoderConfig(**dataclasses.asdict(TINY_T5))
+TINY_HUBERT = HubertConfig(hidden_size=16, num_hidden_layers=1, num_attention_heads=2,
+                           intermediate_size=32, conv_dim=(8, 8), conv_kernel=(10, 8),
+                           conv_stride=(5, 4), num_conv_pos_embeddings=8,
+                           num_conv_pos_embedding_groups=2)
 
 
 @pytest.fixture(autouse=True)
@@ -367,8 +372,10 @@ class TestFacade:
     def test_unported_arguments_raise(self, pair, tmp_path):
         """``controlnet_path`` loads (the pair's ControlNet written as the
         reference's ``{"model": state_dict}``: equal weights and waveform,
-        a missing key raises naming it); ``Conditioner('vc')``, training
-        masking and an unknown sampler raise."""
+        a missing key raises naming it); ``Conditioner('vc')`` builds (with
+        a warning, without weights) and runs, and a ControlNet with a ``vc``
+        conditioner builds it on its own device; training masking and an
+        unknown sampler raise."""
         _, cn = pair
         sd = cn.controlnet.state_dict()
         path = str(tmp_path / "cn.pt")
@@ -383,8 +390,16 @@ class TestFacade:
                    path)
         with pytest.raises(RuntimeError, match="controlnet_pre.conv_out.bias"):
             EzAudioControlNet(base=cn.base, controlnet_path=path)
-        with pytest.raises(NotImplementedError, match="vc"):
-            tc.Conditioner("vc")
+        with pytest.warns(UserWarning, match="WITHOUT weights"):  # builds, seeded
+            vc = tc.Conditioner("vc", sr=TINY_SR, hubert_config=TINY_HUBERT, device="cpu")
+        feats = vc(burst_clip(0.5)[None])  # 400 samples -> 8 080 at 16 kHz, padded
+        assert feats.shape == (1, 402, TINY_HUBERT.hidden_size) and torch.isfinite(feats).all()
+        vc_cfg = dict(CONFIG, conditioner=dict(condition_type="vc", sr=TINY_SR,
+                                               hubert_config=TINY_HUBERT))
+        with pytest.warns(UserWarning, match="WITHOUT weights"):
+            vc_cn = EzAudioControlNet(config=vc_cfg, t5_config=PORT_T5,
+                                      vae_config=TINY_VAE_CONFIG, device="cpu")
+        assert vc_cn.conditioner.fn.device == vc_cn.device == torch.device("cpu")
         with pytest.raises(NotImplementedError, match="training"):
             cn.controlnet.controlnet_pre(torch.zeros(1, 8, 1), train=True)
         with pytest.raises(ValueError, match="sampler"):

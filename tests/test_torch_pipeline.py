@@ -173,7 +173,8 @@ class TestPackageRules:
             "import importlib, pkgutil, sys, ezaudio_tpu_torch\n"
             "for m in pkgutil.walk_packages(ezaudio_tpu_torch.__path__, 'ezaudio_tpu_torch.'):\n"
             "    importlib.import_module(m.name)\n"
-            "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax')\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax',\n"
+            "                                                      'transformers')\n"
             "       or m == 'ezaudio_tpu' or m.startswith('ezaudio_tpu.')]\n"
             "assert not bad, bad\n"
             "print(len([m for m in sys.modules if m.startswith('ezaudio_tpu_torch')]))\n")

@@ -1,9 +1,9 @@
 """The port's micro-batching ``GenerationServer`` (``ezaudio_tpu_torch/serving.py``):
 every test of ``tests/test_serving.py`` on the port, with the same fake
-backends and the port's tiny ``EzAudio(device="cpu")``, except reranking,
-which is not ported and raises, and the served ControlNet request, which
-``tests/test_torch_controlnet.py`` holds against the direct call; plus
-served == solo for a (text, seed, length bucket) and a served
+backends and the port's tiny ``EzAudio(device="cpu")``, except the served
+ControlNet request, which ``tests/test_torch_controlnet.py`` holds against
+the direct call (as ``tests/test_torch_rerank.py`` holds a served rerank);
+plus served == solo for a (text, seed, length bucket) and a served
 ``fused=True`` request."""
 
 import concurrent.futures
@@ -222,8 +222,25 @@ class TestHeterogeneousServing:
 
 class TestServedRerank:
     def test_reranking_is_not_ported(self):
-        with pytest.raises(NotImplementedError, match="clap_scorer"):
-            GenerationServer(FakeEz(), clap_scorer=object())
+        """Reranking is served now: a server built with ``clap_scorer=``
+        accepts ``submit_reranked`` and passes the request's candidates,
+        seed and length to ``generate_audio_reranked`` (``test_serving.py``'s
+        ``test_served_rerank_path``)."""
+        class RerankEz(FakeEz):
+            def generate_audio_reranked(self, text, scorer, n_candidates=4,
+                                        random_seed=None, length=None, **kw):
+                with self.lock:
+                    self.calls.append(("rerank", text, scorer, n_candidates, random_seed,
+                                       length, kw["fused"] if "fused" in kw else None))
+                return 24000, np.full(16, float(n_candidates))
+
+        ez, scorer = RerankEz(), object()
+        with GenerationServer(ez, max_wait_ms=10, clap_scorer=scorer, fused=True) as srv:
+            sr, wav = srv.submit_reranked("rain", n_candidates=3, seed=7,
+                                          length=2.0).result(timeout=10)
+        assert sr == 24000 and wav[0] == 3.0
+        assert ez.calls[-1] == ("rerank", "rain", scorer, 3, 7, 2.0, None)  # fused dropped
+        assert srv.stats["rerank_requests"] == 1
 
     def test_rerank_requires_scorer(self):
         with GenerationServer(FakeEz(), max_wait_ms=10) as srv:
