@@ -96,12 +96,36 @@ Phases, each fatal on failure:
      512, 12 layers at 768) on a seeded 10 s clip: (1, 500, 768), one frame
      per latent frame; wall (median of 5) and peak; the CPU extractor on the
      same weights within VC_REL_TOL of its range;
- 23. the launches of each path, a ``{"kernels": [...]}`` line (launches
-     summed over the paths of phases 4-8, 10-13, 15, 16, 19, 20 and 21),
+ 23. (after phase 3) the kernels' gradients at the train step's shapes
+     (batch 8, f32): kernel 1's autograd gradients through its wrapper
+     against the plain twin's, s3_l self-attention and T5-masked
+     cross-attention and against SDPA's, with the backward's time (the
+     plain recompute), its bound and SDPA's forward and backward; kernel
+     2's nine gradients at one encoder shape; each output's kernel
+     ``grad_fn``;
+ 24. training s3_l at full width: ``train_cli.main`` on 16 seeded 10 s,
+     24 kHz clips and a CSV in a temporary directory, batch 8, 6 steps,
+     warmup 2, CFG dropout 0.1, ``use_checkpoint`` (full remat); every
+     step exactly 100 attention launches (50 forward, 50 recomputed) and
+     12 ResidualUnit launches (the batch's encode), all f32; per-step
+     wall (median of steps 2-6), samples/s, audio-s trained per s, model
+     TFLOP/s (``train_flops``), peak memory and the losses printed; then
+     the trainer is deleted (memory checked back), the step-6 checkpoint
+     removed, and the restart from step 4 must give steps 5-6's losses
+     within RESUME_REL_TOL;
+ 25. one train step on the card under each remat policy (full, dots,
+     off) against one on the CPU: s3_l widths at depth 2, the same
+     weights, batch (2) and injected draws: loss, grad norm, every
+     gradient and every updated parameter within the limits of
+     ``train_step_agreement``, the attention launches each policy
+     implies, and a non-zero gradient on the q, k and v projections of
+     every attention (ROADMAP F11);
+ 26. the launches of each path, a ``{"kernels": [...]}`` line (launches
+     summed over the paths of phases 4-8, 10-13, 15, 16, 19-21 and 24),
      the card's name and power limit, and last ``{"ok": true, "device":
      {...}}``.
 
-Every path of phases 4, 6-8, 11-13, 15, 16, 19, 20 and 21 is driven with the launch
+Every path of phases 4, 6-8, 11-13, 15, 16, 19-21 and 24 is driven with the launch
 counters set to 0 just before it and read just after, and must launch each
 kernel exactly as often as its model calls and decodes imply; the bf16
 paths count every launch by dtype (``launches_by_dtype``), so a path that
@@ -256,6 +280,12 @@ RESUNIT_CASES = ([(1, 5000, 512, d) for d in (1, 3, 9)]
                     (1, 1500, 512, 9)]
                  # decode of phase 12's 5 s length bucket, two clips
                  + [(2, 2500, 512, 9), (2, 15000, 256, 3), (2, 60000, 128, 1)])
+# the VAE encode of a training batch (phase 24): 8 clips of 10 s through
+# the encoder's four blocks, each with dilations 1, 3 and 9
+RESUNIT_TRAIN_CASES = [(8, L, C, d)
+                       for L, C in ((240000, 128), (120000, 128), (30000, 256), (5000, 512))
+                       for d in (1, 3, 9)]
+RESUNIT_CASES += RESUNIT_TRAIN_CASES
 # bf16: the decoder blocks of one 10 s clip, the shapes of phases 16 and 19
 RESUNIT_BF16_CASES = ([(1, 5000, 512, d) for d in (1, 3, 9)]
                       + [(1, 30000, 256, 9), (1, 120000, 128, 9)]
@@ -487,9 +517,9 @@ def want_attention(depth: int, steps: int, layer_cache=None, controlnet=False) -
 
 
 @contextlib.contextmanager
-def resunit_shapes(seen: set):
+def resunit_shapes(seen: set, full: bool = False):
     """Add the (L, C) of every ResidualUnit the codec gives the kernel's
-    wrapper to ``seen``."""
+    wrapper to ``seen``; with ``full``, its (B, L, C, dilation)."""
     from ezaudio_tpu_torch.codecs import oobleck_fast
 
     orig = oobleck_fast.fused_residual_unit
@@ -497,7 +527,10 @@ def resunit_shapes(seen: set):
     def record(x, *args):
         # (L, C) for f32 inputs, (L, C, "bfloat16") for bf16 ones
         dt = str(x.dtype).rsplit(".", 1)[-1]
-        seen.add(tuple(x.shape[1:]) + (() if dt == "float32" else (dt,)))
+        if full:
+            seen.add(tuple(x.shape) + (int(args[-1]),))
+        else:
+            seen.add(tuple(x.shape[1:]) + (() if dt == "float32" else (dt,)))
         return orig(x, *args)
 
     oobleck_fast.fused_residual_unit = record
@@ -1688,6 +1721,459 @@ def vc_path(dev="cuda", cfg=None, sr=24000, seconds=10.0, reps=5, latent_sr=50):
     return row
 
 
+# ---------------------------------------------------------------------------
+# Training (phases 23-25).  (B, H, Lq, Lk, head_dim, key mask) of the train
+# step at batch 8: s3_l self-attention and T5-masked cross-attention.
+TRAIN_BATCH = 8
+ATTN_GRAD_CASES = [(TRAIN_BATCH, 16, 500, 500, 64, False),
+                   (TRAIN_BATCH, 16, 500, 100, 64, True)]
+RESUNIT_GRAD_CASE = (TRAIN_BATCH, 30000, 256, 3)  # the encoder's third block
+# A kernel wrapper's gradients against the plain twin's on the same inputs:
+# the backward is the plain twin's vjp in both, so they agree to rounding.
+# Each gradient within KERNEL_GRAD_TOL of its largest entry, and none zero
+# where the plain twin's is not (a detached output).
+KERNEL_GRAD_TOL = 1e-6
+# Since that backward is the plain twin's vjp at the saved inputs, the
+# comparison above checks only which inputs were saved.  SDPA's gradients
+# on the same q, k, v and output gradient are an independent witness: f32
+# products summed in another order (TF32 off), each gradient within
+# SDPA_GRAD_TOL of its largest entry.
+SDPA_GRAD_TOL = 1e-4
+# The train step, card against CPU (s3_l widths, depth 2): the loss and the
+# grad norm within TRAIN_REL_TOL; each gradient within TRAIN_GRAD_TOL of its
+# largest entry (f32 sums in another order over batch, tokens and heads),
+# or of GRAD_FLOOR times the largest entry of all gradients where a
+# tensor's own gradient is rounding noise around an exact 0 (the bias of
+# the cross-attention's key norm shifts every score of a row alike, which
+# the softmax ignores: its gradient reads ~3e-11 against a largest entry of
+# all gradients of ~0.05, and differs by as much); the updated parameters
+# within 2 lr everywhere (Adam's first step moves a parameter by
+# lr g / (|g| + eps): a gradient near 0 may take either sign) and, where
+# |g| > ADAM_STABLE_GRAD, within 1e-3 lr (the ratio moves by eps dg / g^2
+# < 1e-3 for dg < 1e-5) plus two f32 ulps of the parameter (its rounding).
+TRAIN_REL_TOL = 1e-5
+TRAIN_GRAD_TOL = 1e-4
+GRAD_FLOOR = 1e-4
+ADAM_STABLE_GRAD = 1e-4
+# a resumed run's losses against the uninterrupted run's, relative
+RESUME_REL_TOL = 1e-5
+
+
+def grad_agreement(got: dict, want: dict, tol: float, floor: float = 0.0):
+    """``(ok, rows)``: each gradient of ``got`` within ``tol`` of the
+    largest entry of ``want``'s (or of ``floor`` times the largest entry of
+    all of them, where that is more), and none all zero where ``want``'s
+    is above that floor."""
+    scales = {n: w.float().abs().max().item() for n, w in want.items()}
+    least = floor * max(scales.values(), default=0.0)
+    rows = {}
+    for name, w in want.items():
+        g = got[name].float().cpu()
+        w = w.float().cpu()
+        scale = scales[name]
+        err = (g - w).abs().max().item() if g.shape == w.shape else float("inf")
+        zero = g.abs().max().item() == 0.0 and scale > least
+        rows[name] = dict(max_abs_err=err, scale=scale,
+                          rel_err=err / max(scale, least, 1e-30), zero=zero)
+    ok = all(r["rel_err"] <= tol and not r["zero"] for r in rows.values())
+    return ok, rows
+
+
+def qkv_grads_nonzero(grads: dict):
+    """The q, k and v projection weights of every attention with their
+    gradient's largest entry: a detached attention output leaves exactly
+    these at 0 (ROADMAP F11)."""
+    names = [n for n in grads if any(f"attn.to_{x}.weight" in n for x in "qkv")]
+    return {n: grads[n].abs().max().item() for n in names}
+
+
+def _grad_failures(rows, tol=KERNEL_GRAD_TOL):
+    return {n: r for n, r in rows.items() if r["zero"] or not r["rel_err"] <= tol}
+
+
+def check_attention_grad(dev, gen, cases=ATTN_GRAD_CASES):
+    """Phase 23, kernel 1: the autograd gradients through the kernel's
+    wrapper against those through the plain twin and SDPA's, the output's
+    ``grad_fn``; the backward's time (the plain recompute and its vjp), its
+    bound and SDPA's forward and backward."""
+    import torch
+    import torch.nn.functional as F
+
+    from ezaudio_tpu_torch.ops.kernels.attention import attention_plain, fused_attention
+
+    rows = []
+    for (B, H, Lq, Lk, D, masked) in cases:
+        q, k, v = (torch.randn(B, H, L, D, device=dev, generator=gen).requires_grad_()
+                   for L in (Lq, Lk, Lk))
+        g = torch.randn(B, H, Lq, D, device=dev, generator=gen)
+        mask = None
+        if masked:  # T5-style padding
+            lens = torch.tensor([23 if i % 2 == 0 else Lk for i in range(B)], device=dev)
+            mask = torch.arange(Lk, device=dev)[None, :] < lens[:, None]
+        o = fused_attention(q, k, v, key_mask=mask)
+        if o.grad_fn is None or type(o.grad_fn).__name__ != "FusedAttentionBackward":
+            raise AssertionError(f"attention {B, H, Lq, Lk, D}: output has no kernel grad_fn")
+        got = dict(zip("qkv", torch.autograd.grad(o, (q, k, v), g, retain_graph=True)))
+        want = dict(zip("qkv", torch.autograd.grad(attention_plain(q, k, v, mask), (q, k, v), g)))
+        sync(dev)
+        ok, grads = grad_agreement(got, want, KERNEL_GRAD_TOL)
+        sdpa_mask = None if mask is None else mask[:, None, None, :]
+
+        def sdpa_fwd_bwd():
+            out = F.scaled_dot_product_attention(q, k, v, attn_mask=sdpa_mask)
+            return torch.autograd.grad(out, (q, k, v), g)
+
+        ok_sdpa, by_sdpa = grad_agreement(got, dict(zip("qkv", sdpa_fwd_bwd())), SDPA_GRAD_TOL)
+
+        bwd_ms = time_ms(lambda: torch.autograd.grad(o, (q, k, v), g, retain_graph=True),
+                         reps=3, iters=3)
+        lib_ms = time_ms(sdpa_fwd_bwd, reps=3, iters=3)
+        # the backward reads q, k, v and the output's gradient once and
+        # writes the three gradients; its products: the scores again, dV,
+        # dP, dQ and dK
+        nbytes = 2 * (2 * Lq + 2 * Lk) * B * H * D * 4 + (B * Lk if masked else 0)
+        bms, by = bound_ms(nbytes, 10.0 * B * H * Lq * Lk * D, "float32")
+        row = dict(kind="attention_backward", shape=[B, H, Lq, Lk, D], masked=masked,
+                   grads={n: {k2: r[k2] for k2 in ("rel_err", "scale")} for n, r in grads.items()},
+                   sdpa_rel_err={n: r["rel_err"] for n, r in by_sdpa.items()},
+                   backward_ms=bwd_ms, bound_ms=bms, bound_by=by,
+                   library_fwd_bwd_ms=lib_ms, grad_fn=type(o.grad_fn).__name__)
+        log("attention_grad " + json.dumps(row))
+        if not ok:
+            raise AssertionError(f"attention gradients {row['shape']}: {_grad_failures(grads)}")
+        if not ok_sdpa:
+            raise AssertionError(f"attention gradients {row['shape']} against SDPA's: "
+                                 f"{_grad_failures(by_sdpa, SDPA_GRAD_TOL)}")
+        rows.append(row)
+    return rows
+
+
+def check_resunit_grad(dev, gen, case=RESUNIT_GRAD_CASE):
+    """Phase 23, kernel 2: the nine autograd gradients through the kernel's
+    wrapper against those through the plain twin at one encoder shape."""
+    import torch
+
+    from ezaudio_tpu_torch.ops.kernels.resunit import fused_residual_unit, residual_unit_plain
+
+    B, L, C, d = case
+    args = [a.requires_grad_() for a in resunit_args(dev, gen, B, L, C)]
+    g = torch.randn(B, L, C, device=dev, generator=gen)
+    y = fused_residual_unit(*args, d)
+    if y.grad_fn is None or type(y.grad_fn).__name__ != "FusedResidualUnitBackward":
+        raise AssertionError("resunit: output has no kernel grad_fn")
+    names = ["x", "w7", "b7", "w1", "b1", "a1", "be1", "a2", "be2"]
+    got = dict(zip(names, torch.autograd.grad(y, args, g)))
+    want = dict(zip(names, torch.autograd.grad(residual_unit_plain(*args, d), args, g)))
+    sync(dev)
+    ok, grads = grad_agreement(got, want, KERNEL_GRAD_TOL)
+    row = dict(kind="resunit_backward", shape=[B, L, C], dilation=d,
+               grads={n: r["rel_err"] for n, r in grads.items()},
+               grad_fn=type(y.grad_fn).__name__)
+    log("resunit_grad " + json.dumps(row))
+    if not ok:
+        raise AssertionError(f"resunit gradients: {_grad_failures(grads)}")
+    return row
+
+
+def write_training_set(root, clips=16, seconds=10.0, sr=24000, seed=0):
+    """``clips`` seeded clips (a tone in bursts over noise, each its own
+    pitch) as f32 wav files and a manifest; returns the manifest's path."""
+    import csv
+
+    import numpy as np
+
+    from ezaudio_tpu_torch.data.audio_io import save_wav
+
+    rng = np.random.default_rng(seed)
+    os.makedirs(os.path.join(root, "audio"), exist_ok=True)
+    t = np.arange(int(seconds * sr)) / sr
+    rows = []
+    for i in range(clips):
+        wav = (0.3 * np.sin(2 * np.pi * (110 + 40 * i) * t) * (np.floor(t * (2 + i % 3)) % 2)
+               + 0.05 * rng.standard_normal(t.size)).astype(np.float32)
+        save_wav(os.path.join(root, "audio", f"{i}.wav"), wav, sr)
+        rows.append(dict(audio_path=f"{i}.wav", caption=PROMPTS[i % len(PROMPTS)], split="train",
+                         audio_length=seconds, absolute_index=i, fine_tune_data=True))
+    meta = os.path.join(root, "meta.csv")
+    with open(meta, "w", newline="") as f:
+        w = csv.DictWriter(f, fieldnames=list(rows[0]))
+        w.writeheader()
+        w.writerows(rows)
+    return meta
+
+
+def training_config(root, cfg, meta, batch, seconds, sr, warmup=2):
+    """``cfg`` (s3_l's) with ``opt:`` and ``data:`` blocks; returns its path."""
+    cfg = dict(cfg, opt=dict(learning_rate=1e-4, beta1=0.9, beta2=0.999, weight_decay=0.01,
+                             adam_epsilon=1e-8, warmup=warmup, grad_clip=1.0, snr_gamma=None,
+                             batch_size=batch, accumulation_steps=1),
+               data=dict(train=dict(data_dir=os.path.join(root, "audio"), meta_dir=meta,
+                                    subset="train", seg_length=seconds, sr=sr, mono=True)))
+    cfg["text_encoder"] = dict(cfg["text_encoder"], cfg=0.1)
+    path = os.path.join(root, "train.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    return path
+
+
+def train_attention_launches(model_cfg: dict) -> int:
+    """Attention launches of one train step: self- and cross-attention in
+    each of the depth + 1 blocks, twice with remat (forward and the
+    backward's recompute); the backward itself launches none."""
+    return 2 * (model_cfg["depth"] + 1) * (2 if model_cfg.get("use_checkpoint") else 1)
+
+
+# The linears that see the text tokens, and those that see one token per
+# sample; every other linear or conv of the DiT sees the latent frames.
+TEXT_LINEARS = ("context_embed.", "cross_attn.to_k", "cross_attn.to_v")
+SAMPLE_LINEARS = ("time_embed.", "time_ada", "adaln.lora_")
+
+
+def train_flops(model, batch: int, frames: int, text_len: int, remat: bool = True) -> float:
+    """The model FLOPs of one train step of the MaskDiT ``model``: 2 per
+    weight of a linear or conv and per token it sees (the frames; the text
+    tokens for ``TEXT_LINEARS``; one per sample for ``SAMPLE_LINEARS``),
+    and attention's products, 4 B H Lq Lk D per call.  Each forward FLOP
+    counts once for the forward, twice for the backward and, with full
+    remat, once more inside the blocks for their recompute.  Biases,
+    norms, elementwise work, the VAE and T5 are not counted."""
+    from torch import nn
+
+    from ezaudio_tpu_torch.models.blocks import Attention
+
+    total = 0.0
+    for name, mod in model.named_modules():
+        times = 4 if remat and ("_blocks." in name or "mid_block." in name) else 3
+        if isinstance(mod, (nn.Linear, nn.modules.conv._ConvNd)):
+            seen = (text_len if any(s in name for s in TEXT_LINEARS)
+                    else 1 if any(s in name for s in SAMPLE_LINEARS) else frames)
+            total += times * 2.0 * mod.weight.numel() * batch * seen
+        elif isinstance(mod, Attention):
+            keys = text_len if name.endswith("cross_attn") else frames
+            total += times * 4.0 * batch * mod.num_heads * frames * keys * mod.head_dim
+    return total
+
+
+def training_path(dev="cuda", cfg=None, clips=16, batch=TRAIN_BATCH, seconds=10.0, steps=6,
+                  resume_at=4, sr=24000, t5_config=None, vae_config=None):
+    """Phase 24: ``train_cli.main`` on a seeded dataset of ``clips`` clips,
+    batch ``batch``, ``steps`` steps, warmup 2, CFG dropout 0.1, the
+    model config's remat; the per-step launches checked.  Then the trainer
+    is deleted, the checkpoint after ``steps`` removed, and a restart from
+    step ``resume_at`` must give the uninterrupted run's last losses."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from ezaudio_tpu_torch.config import get_model_config
+    from ezaudio_tpu_torch.models.udit import resolve_remat_policy
+    from ezaudio_tpu_torch.training import train_cli
+
+    cfg = cfg if cfg is not None else get_model_config("s3_l").to_dict()
+    m = cfg["model"]
+    want_attn = train_attention_launches(m)
+    cuda = torch.device(dev).type == "cuda"
+    frames = int(seconds * cfg["autoencoder"]["latent_sr"])
+    root = tempfile.mkdtemp(prefix="ezaudio_train_")
+    try:
+        meta = write_training_set(root, clips, seconds, sr)
+        path = training_config(root, cfg, meta, batch, seconds, sr)
+
+        def run(max_steps, record):
+            state = {"t": None}
+            shapes = set()
+
+            def on_step(step, metrics):
+                sync(dev)
+                now = time.perf_counter()
+                attn, res = read_counters()
+                record.append(dict(step=step, loss=metrics["loss"].item(),
+                                   grad_norm=metrics["grad_norm"].item(),
+                                   wall_s=now - state["t"], attention_launches=attn,
+                                   resunit_launches=res,
+                                   launches_by_dtype=read_dtype_counters()))
+                reset_counters()
+                state["t"] = time.perf_counter()
+
+            argv = ["--config-name", path, "--max-steps", str(max_steps),
+                    "--save-every-step", str(resume_at), "--log-step", "1",
+                    "--log-dir", os.path.join(root, "logs"),
+                    "--save-dir", os.path.join(root, "ckpts"), "--random-seed", "0"]
+            if not cuda:
+                argv += ["--device", dev]
+            with resunit_shapes(shapes, full=True):
+                reset_counters()
+                state["t"] = time.perf_counter()
+                trainer = train_cli.main(argv, t5_config=t5_config, vae_config=vae_config,
+                                         on_step=on_step)
+            n = sum(p.numel() for p in trainer.model.parameters())
+            udit = trainer.model.model
+            flops = train_flops(trainer.model, batch, frames, cfg["text_encoder"]["max_length"],
+                                remat=udit.use_checkpoint
+                                and resolve_remat_policy(udit.remat_policy) == "full")
+            del trainer  # its memory is checked back by the caller
+            return n, flops, shapes
+
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        first, resumed = [], []
+        n_params, flops, shapes = run(steps, first)
+        peak = mem_gib(torch.cuda.max_memory_allocated) if cuda else None
+        shutil.rmtree(os.path.join(root, "ckpts", cfg.get("model_name", "model"), str(steps)))
+        run(steps, resumed)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    walls = [r["wall_s"] for r in first[1:]]
+    wall = statistics.median(walls)
+    row = dict(path="train", card=card_line() if cuda else "cpu", batch=batch, clip_s=seconds,
+               steps=steps, dit_params=n_params,
+               step_wall_s=wall, step_wall_s_all=[r["wall_s"] for r in first],
+               samples_per_s=batch / wall, audio_s_per_s=batch * seconds / wall,
+               flops_per_step=flops, flop_rule="train_flops: per module, by the tokens each sees",
+               model_tflops=flops / wall / 1e12, peak_mem_gib=peak,
+               losses=[r["loss"] for r in first], grad_norms=[r["grad_norm"] for r in first],
+               resumed_losses=[r["loss"] for r in resumed],
+               launches_per_step=[[r["attention_launches"], r["resunit_launches"]] for r in first],
+               resunit_batch_shapes=sorted(shapes))
+    log("train " + json.dumps(row))
+    want_dtype = want_by_dtype(want_attn, 12, "float32")
+    for r in first + resumed:
+        if (r["attention_launches"], r["resunit_launches"]) != (want_attn, 12):
+            raise AssertionError(f"train step {r['step']}: launches {r['attention_launches']}, "
+                                 f"{r['resunit_launches']}: want {want_attn}, 12")
+        if r["launches_by_dtype"] != want_dtype:
+            raise AssertionError(f"train step {r['step']}: launches by dtype "
+                                 f"{r['launches_by_dtype']}, want {want_dtype}")
+    if len(first) != steps or not np.isfinite(row["losses"]).all():
+        raise AssertionError(f"train: losses {row['losses']}")
+    if [r["step"] for r in resumed] != list(range(resume_at + 1, steps + 1)):
+        raise AssertionError(f"train: the restart ran steps {[r['step'] for r in resumed]}")
+    tail = np.array(row["losses"][resume_at:])
+    if not np.allclose(row["resumed_losses"], tail, rtol=RESUME_REL_TOL, atol=0):
+        raise AssertionError(f"train: resumed losses {row['resumed_losses']}, want {tail}")
+    row.update(attention_launches=sum(r["attention_launches"] for r in first + resumed),
+               resunit_launches=sum(r["resunit_launches"] for r in first + resumed),
+               resunit_shapes=sorted({s[1:3] for s in shapes}, reverse=True))
+    return row
+
+
+def train_step_card_vs_cpu(gen, dev="cuda", cfg=None, batch=2, text_len=100,
+                           policies=("full", "dots", "off")):
+    """Phase 25: one train step on the card under each remat policy of
+    ``policies`` and one on the CPU (full remat), all from the same
+    weights, batch and draws (s3_l widths, depth 2).  Each card step is
+    held to the CPU's: loss, grad norm, every gradient, every updated
+    parameter, the attention launches its policy implies, and a non-zero
+    gradient on the q, k and v projections of every attention."""
+    import copy
+
+    import torch
+
+    from ezaudio_tpu_torch.api.ezaudio import init_random_
+    from ezaudio_tpu_torch.config import get_model_config
+    from ezaudio_tpu_torch.diffusion.ddim import DDIMSchedule
+    from ezaudio_tpu_torch.models.maskdit import maskdit_from_config
+    from ezaudio_tpu_torch.training.trainer import Trainer
+
+    if cfg is None:
+        cfg = get_model_config("s3_l").to_dict()
+        cfg["model"]["depth"] = 2
+    cfg = copy.deepcopy(cfg)
+    m = cfg["model"]
+    schedule = DDIMSchedule.from_config(cfg["diff"])
+    lr = 1e-4
+    opt = dict(learning_rate=lr, warmup=0, grad_clip=1.0, weight_decay=0.01, snr_gamma=5.0)
+    cpu_gen = torch.Generator().manual_seed(25)
+    with torch.device(dev):
+        first = maskdit_from_config(m)
+    init_random_(first, gen)
+    weights = {k: v.cpu() for k, v in first.state_dict().items()}
+    del first
+    frames, C = m["img_size"], m["out_chans"]
+    ctx = m["context_dim"]
+    text_mask = torch.ones(batch, text_len, dtype=torch.bool)
+    text_mask[0, 23:] = False
+    uncond_mask = torch.zeros(1, text_len, dtype=torch.bool)
+    uncond_mask[0, :1] = True
+    host = dict(latents=torch.randn(batch, frames, C, generator=cpu_gen),
+                text=torch.randn(batch, text_len, ctx, generator=cpu_gen), text_mask=text_mask,
+                uncond=torch.randn(1, text_len, ctx, generator=cpu_gen), uncond_mask=uncond_mask)
+
+    def remat(policy):
+        return dict(m, use_checkpoint=policy != "off",
+                    remat_policy="full" if policy == "off" else policy)
+
+    def step(policy, device):
+        with torch.device(device):
+            model = maskdit_from_config(remat(policy))
+        model.load_state_dict(weights)
+        trainer = Trainer.create(model.train(), schedule, opt)
+        draws = trainer.step_fn.draw(torch.Generator().manual_seed(26), batch, frames, C, "cpu")
+        draws["cfg"][:] = torch.tensor([0.05] + [0.9] * (batch - 1))  # one sample drops its text
+        reset_counters()
+        res = trainer.step_fn({k: v.to(device) for k, v in host.items()}, seed=0,
+                              draws={k: v.to(device) for k, v in draws.items()},
+                              return_grads=True)
+        sync(device)
+        return dict(loss=res["loss"].item(), grad_norm=res["grad_norm"].item(),
+                    grads={k: v.cpu() for k, v in res["grads"].items()},
+                    params={k: v.detach().cpu() for k, v in model.named_parameters()},
+                    launches=read_counters())
+
+    cpu = step("full", "cpu")
+    rows, bad = [], []
+    for policy in policies:
+        row, failed = train_step_agreement(step(policy, dev), cpu, lr, m["depth"],
+                                           train_attention_launches(remat(policy)))
+        row.update(path="train_step_card_vs_cpu", remat=policy, depth=m["depth"], batch=batch)
+        log("train_card_vs_cpu " + json.dumps(row))
+        rows.append(row)
+        bad += [f"remat {policy}: {b}" for b in failed]
+    if bad:
+        raise AssertionError("train step, card against CPU: " + "; ".join(bad))
+    return rows
+
+
+def train_step_agreement(g: dict, c: dict, lr: float, depth: int, want_attn: int):
+    """Phase 25's limits on the card's step ``g`` against the CPU's ``c``
+    (each: ``loss``, ``grad_norm``, ``grads``, updated ``params`` and the
+    card's ``launches``): ``(row, failures)``."""
+    ok_grads, rows = grad_agreement(g["grads"], c["grads"], TRAIN_GRAD_TOL, GRAD_FLOOR)
+    worst = max(rows, key=lambda n: rows[n]["rel_err"])
+    qkv = qkv_grads_nonzero(g["grads"])
+    param_err, stable_err = 0.0, 0.0  # the latter in units of its limit
+    for n, p in g["params"].items():
+        d = (p - c["params"][n]).abs()
+        param_err = max(param_err, d.max().item())
+        stable = c["grads"][n].abs() > ADAM_STABLE_GRAD
+        if stable.any():
+            limit = 1e-3 * lr + 2.0 ** -22 * c["params"][n].abs()
+            stable_err = max(stable_err, (d / limit)[stable].max().item())
+    row = dict(loss=[g["loss"], c["loss"]], grad_norm=[g["grad_norm"], c["grad_norm"]],
+               worst_grad=dict(rows[worst], name=worst), n_grads=len(rows),
+               param_max_abs_err=param_err, param_stable_err_share_of_limit=stable_err, lr=lr,
+               qkv_grads=len(qkv), qkv_min_grad=min(qkv.values(), default=0.0),
+               launches=list(g["launches"]), want_attention_launches=want_attn)
+    bad = []
+    if not abs(g["loss"] - c["loss"]) <= TRAIN_REL_TOL * abs(c["loss"]):
+        bad.append("loss")
+    if not abs(g["grad_norm"] - c["grad_norm"]) <= TRAIN_REL_TOL * c["grad_norm"]:
+        bad.append("grad_norm")
+    if not ok_grads:
+        bad.append("gradients " + str(sorted(n for n, r in rows.items()
+                                             if r["zero"] or not r["rel_err"] <= TRAIN_GRAD_TOL)))
+    if not (param_err <= 2 * lr and stable_err <= 1.0):
+        bad.append("updated parameters")
+    if len(qkv) != 3 * 2 * (depth + 1) or not min(qkv.values(), default=0.0) > 0:
+        bad.append(f"q/k/v gradients {qkv}")
+    if g["launches"][0] != want_attn:
+        bad.append(f"attention launches {g['launches'][0]}, want {want_attn}")
+    return row, bad
+
+
 def _kernel_class(name: str) -> str:
     n = name.lower()
     if "attn_fwd" in n:
@@ -1704,11 +2190,76 @@ def _kernel_class(name: str) -> str:
 def profile(steps: int = 5, out_dir: str = "chiprun_out") -> None:
     """Device-time breakdown of the main path (s3_l, 10 s, ``steps`` DDIM
     steps), f32 then bf16, staged and ``fused=True`` (a replay of its
-    graph), with torch.profiler: time per kernel class, busy share of the
-    wall time, and the top kernels (written to ``out_dir``)."""
+    graph), and of one s3_l train step, with torch.profiler: time per
+    kernel class, busy share of the wall time, and the top kernels
+    (written to ``out_dir``)."""
     os.makedirs(out_dir, exist_ok=True)
     for dtype in ("float32", "bfloat16"):
         profile_dtype(steps, out_dir, dtype)
+    profile_train(out_dir)
+
+
+def _breakdown(prof, wall_ms, out_path, **info):
+    """Log a profile's device ms by kernel class and busy share; write the
+    top kernels to ``out_path``."""
+    import torch
+
+    by_class, kernels = {}, []
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
+            continue
+        t = getattr(e, "self_device_time_total", None)
+        t = (e.self_cuda_time_total if t is None else t) / 1e3  # ms
+        by_class[_kernel_class(e.key)] = by_class.get(_kernel_class(e.key), 0.0) + t
+        kernels.append((t, e.count, e.key))
+    busy = sum(by_class.values())
+    row = dict(info, wall_ms=wall_ms, device_busy_ms=busy, busy_share=busy / wall_ms,
+               ms_by_class=by_class)
+    log("profile " + json.dumps(row))
+    kernels.sort(reverse=True)
+    with open(out_path, "w") as f:
+        f.write(json.dumps(row) + "\n")
+        for t, cnt, key in kernels[:40]:
+            f.write(f"{t:10.3f} ms {cnt:7d}x  {key[:150]}\n")
+    return row
+
+
+def profile_train(out_dir: str, batch: int = TRAIN_BATCH) -> dict:
+    """Device-time breakdown of one s3_l train step (batch ``batch`` x 10 s,
+    full remat, f32) on seeded latents and text embeddings: the step alone,
+    without the data, the VAE encode and T5 of ``train_cli``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    from ezaudio_tpu_torch.api.ezaudio import init_random_
+    from ezaudio_tpu_torch.config import get_model_config
+    from ezaudio_tpu_torch.diffusion.ddim import DDIMSchedule
+    from ezaudio_tpu_torch.models.maskdit import maskdit_from_config
+    from ezaudio_tpu_torch.training.trainer import Trainer
+
+    cfg = get_model_config("s3_l").to_dict()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    with torch.device("cuda"):
+        dit = maskdit_from_config(cfg["model"])
+    init_random_(dit, gen)
+    trainer = Trainer.create(dit.train(), DDIMSchedule.from_config(cfg["diff"]),
+                             dict(learning_rate=1e-4, warmup=2))
+    lens = torch.tensor([23 + 9 * i for i in range(batch)], device="cuda")
+    batch_ = dict(latents=torch.randn(batch, 500, 128, device="cuda", generator=gen),
+                  text=torch.randn(batch, 100, 1024, device="cuda", generator=gen),
+                  text_mask=torch.arange(100, device="cuda")[None] < lens[:, None],
+                  uncond=torch.randn(1, 100, 1024, device="cuda", generator=gen),
+                  uncond_mask=torch.arange(100, device="cuda")[None] < 1)
+    for _ in range(2):
+        trainer.train_step(batch_, 0)
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.train_step(batch_, 0)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    return _breakdown(prof, wall_ms, os.path.join(out_dir, "profile_train.txt"),
+                      path="train_step", batch=batch, remat="full", dtype="float32")
 
 
 def profile_dtype(steps: int, out_dir: str, dtype: str) -> None:
@@ -1730,24 +2281,9 @@ def profile_dtype(steps: int, out_dir: str, dtype: str) -> None:
             ez.generate_audio(prompts, ddim_steps=steps, random_seed=0, fused=fused)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-        by_class, kernels = {}, []
-        for e in prof.key_averages():
-            if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
-                continue
-            t = getattr(e, "self_device_time_total", None)
-            t = (e.self_cuda_time_total if t is None else t) / 1e3  # ms
-            by_class[_kernel_class(e.key)] = by_class.get(_kernel_class(e.key), 0.0) + t
-            kernels.append((t, e.count, e.key))
-        busy = sum(by_class.values())
-        row = dict(prompts=n, fused=fused, dtype=dtype, ddim_steps=steps, wall_ms=wall_ms,
-                   device_busy_ms=busy, busy_share=busy / wall_ms, ms_by_class=by_class)
-        log("profile " + json.dumps(row))
-        kernels.sort(reverse=True)
         tag = ("_fused" if fused else "") + ("" if dtype == "float32" else f"_{dtype}")
-        with open(os.path.join(out_dir, f"profile_{n}prompt{tag}.txt"), "w") as f:
-            f.write(json.dumps(row) + "\n")
-            for t, cnt, key in kernels[:40]:
-                f.write(f"{t:10.3f} ms {cnt:7d}x  {key[:150]}\n")
+        _breakdown(prof, wall_ms, os.path.join(out_dir, f"profile_{n}prompt{tag}.txt"),
+                   prompts=n, fused=fused, dtype=dtype, ddim_steps=steps)
 
 
 # ---------------------------------------------------------------------------
@@ -1794,6 +2330,9 @@ def main(argv) -> int:
         attn_rows = check_attention("cuda", gen)
         res_rows = check_resunit("cuda", gen)
         res_rows += check_resunit("cuda", gen, RESUNIT_BF16_CASES, "bfloat16")
+    with phase("23 kernel gradients"):
+        check_attention_grad("cuda", gen)
+        check_resunit_grad("cuda", gen)
     before = mem_gib(torch.cuda.memory_allocated)
     ez = build_ezaudio()
     with phase("4 main"):
@@ -1855,6 +2394,16 @@ def main(argv) -> int:
     with phase("22 vc"):
         vc_path()
     check_freed("ContentVec", before)
+    with phase("24 train"):
+        train = training_path()
+        paths.append(train)
+    check_freed("s3_l trainer", before)
+    missing = sorted(set(train["resunit_batch_shapes"]) - set(RESUNIT_CASES))
+    if missing:
+        raise AssertionError(f"ResidualUnit shapes of the training path not in phase 3: {missing}")
+    with phase("25 train step card_vs_cpu"):
+        train_step_card_vs_cpu(gen)
+    check_freed("train step card_vs_cpu", before)
 
     missing = uncovered_shapes(paths)
     if missing:

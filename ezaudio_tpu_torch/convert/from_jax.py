@@ -105,8 +105,9 @@ def _embedders(dst, prefix, m, cfg):
     dst[f"{prefix}patch_embed.proj.bias"] = _t(m["patch_embed"]["bias"])
     _lin(dst, f"{prefix}time_embed.mlp.0", m["time_embed"]["fc1"])
     _lin(dst, f"{prefix}time_embed.mlp.2", m["time_embed"]["fc2"])
-    _lin(dst, f"{prefix}context_embed.0", m["context_embed"]["fc1"])
-    _lin(dst, f"{prefix}context_embed.2", m["context_embed"]["fc2"])
+    if "context_embed" in m:  # none in the MAE pretraining stage
+        _lin(dst, f"{prefix}context_embed.0", m["context_embed"]["fc1"])
+        _lin(dst, f"{prefix}context_embed.2", m["context_embed"]["fc2"])
     _lin(dst, f"{prefix}time_ada", m["time_ada"])
 
 

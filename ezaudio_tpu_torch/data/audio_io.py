@@ -1,16 +1,18 @@
 """Wav IO and resampling on numpy + scipy (the port's copy of the jax-free
-``ezaudio_tpu/data/audio_io.py`` parts that editing, CLAP and the HuBERT
-conditioner need).
+``ezaudio_tpu/data/audio_io.py`` parts that editing, CLAP, the HuBERT
+conditioner and the training data need).
 
 ``load_wav`` reads RIFF/WAVE with ``scipy.io.wavfile`` and mirrors
-``librosa.load(path, sr=sr)``: float32 in [-1, 1], mono downmix, polyphase
-resampling to ``sr``.  Other containers need the JAX package's libavcodec
-bridge, which the port does not carry: they raise.
+``librosa.load(path, sr=sr)``: float32 in [-1, 1], mono downmix (or the
+channels as (C, T) with ``mono=False``), polyphase resampling to ``sr``.
+``save_wav`` writes f32 or 16-bit PCM RIFF.  Other containers need the JAX
+package's libavcodec bridge, which the port does not carry: they raise.
 """
 
 from __future__ import annotations
 
 from math import gcd
+from typing import Optional
 
 import numpy as np
 from scipy.io import wavfile
@@ -25,8 +27,10 @@ def resample(wav: np.ndarray, orig_sr: int, target_sr: int) -> np.ndarray:
     return resample_poly(wav, target_sr // g, orig_sr // g, axis=-1).astype(wav.dtype)
 
 
-def load_wav(path: str, sr: int) -> np.ndarray:
-    """A wav file -> its float32 mono waveform (T,) at ``sr``."""
+def load_wav(path: str, sr: Optional[int] = None, mono: bool = True) -> np.ndarray:
+    """A wav file -> its float32 waveform at ``sr`` (the file's rate when
+    None): (T,) mono, or with ``mono=False`` (C, T) for a multichannel
+    file and (T,) for a mono one."""
     with open(path, "rb") as f:
         head = f.read(12)
     if head[:4] != b"RIFF" or head[8:12] != b"WAVE":
@@ -41,8 +45,23 @@ def load_wav(path: str, sr: int) -> np.ndarray:
     else:
         wav = data.astype(np.float32)
     if wav.ndim == 2:
-        wav = wav.mean(axis=1)
-    return resample(wav, file_sr, sr)
+        wav = wav.mean(axis=1) if mono else wav.T
+    return wav if sr is None else resample(wav, file_sr, sr)
+
+
+def save_wav(path: str, wav: np.ndarray, sr: int, subtype: str = "float") -> None:
+    """Write a mono (T,) or multichannel (C, T) / (T, C) wav; ``subtype``
+    'float' (f32) or 'pcm16'."""
+    wav = np.asarray(wav)
+    if wav.ndim == 2 and wav.shape[0] < wav.shape[1]:
+        wav = wav.T  # (T, C)
+    if subtype == "pcm16":
+        data = (np.clip(wav, -1.0, 1.0) * 32767.0).astype(np.int16)
+    elif subtype == "float":
+        data = wav.astype(np.float32)
+    else:
+        raise ValueError(f"subtype must be 'float' or 'pcm16', got {subtype!r}")
+    wavfile.write(path, sr, data)
 
 
 def peak_normalize(wav: np.ndarray, eps: float = 1e-9) -> np.ndarray:

@@ -1,4 +1,4 @@
-"""DDIM noise schedule and step (counterpart of
+"""DDIM noise schedule, step and training targets (counterpart of
 ``ezaudio_tpu/diffusion/ddim.py::DDIMSchedule``).
 
 diffusers ``DDIMScheduler`` math as the EzAudio config sets it:
@@ -115,3 +115,26 @@ class DDIMSchedule:
                 raise ValueError("eta > 0 requires noise")
             prev = prev + std * noise.float()
         return prev
+
+    def _abar(self, timesteps, like):
+        """alphas_cumprod[timesteps] in f32 on ``like``'s device, shaped to
+        broadcast against ``like``."""
+        t = torch.as_tensor(timesteps, device=like.device).long()
+        a = torch.from_numpy(self.alphas_cumprod).to(like.device)[t]
+        return a.reshape(a.shape + (1,) * (like.ndim - a.ndim))
+
+    def add_noise(self, sample, noise, timesteps):
+        """q(x_t | x_0): ``sqrt(abar) x0 + sqrt(1-abar) eps``."""
+        a = self._abar(timesteps, sample)
+        return a.sqrt() * sample + (1.0 - a).sqrt() * noise
+
+    def get_velocity(self, sample, noise, timesteps):
+        """v target: ``sqrt(abar) eps - sqrt(1-abar) x0``."""
+        a = self._abar(timesteps, sample)
+        return a.sqrt() * noise - (1.0 - a).sqrt() * sample
+
+    def snr(self, timesteps):
+        """SNR(t) = abar / (1 - abar) (reference src/utils/utils.py:61-86)."""
+        t = torch.as_tensor(timesteps)
+        a = torch.from_numpy(self.alphas_cumprod).to(t.device)[t.long()]
+        return a / (1.0 - a)

@@ -7,6 +7,13 @@ the (B, Lk) key mask — the function of
 goes to :func:`attention_plain`; a CUDA tensor launches the kernel or
 raises.  ``fused_attention.launches`` counts kernel launches, and
 ``fused_attention.launches_by_dtype`` counts them by input dtype.
+
+Differentiable as ``_fused_attention_diff`` is: with grad enabled and an
+input that requires grad, the call goes through :class:`FusedAttention`,
+whose forward is the kernel (the plain twin on the CPU) and whose
+backward recomputes the plain twin and takes its vjp
+(``_fused_attention_bwd``).  It saves q, k, v and the mask, never the
+score matrix.  Only forward launches are counted.
 """
 
 from __future__ import annotations
@@ -26,6 +33,11 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 def key_bias(key_mask: torch.Tensor) -> torch.Tensor:
     """(B, Lk) bool key mask -> additive f32 bias, 0 or -1e30."""
     return torch.where(key_mask.bool(), 0.0, _NEG).to(torch.float32)
+
+
+def _plain(q, k, v, key_mask, scale):
+    mask = None if key_mask is None else key_mask.bool()[:, None, None, :]
+    return dot_product_attention(q, k, v, mask=mask, scale=scale)
 
 
 def attention_plain(q, k, v, key_mask: Optional[torch.Tensor] = None,
@@ -49,12 +61,38 @@ def _lib():
     return fn
 
 
+class FusedAttention(torch.autograd.Function):
+    """Kernel forward, plain-recompute backward: the gradients of q, k and
+    v are the vjp of :func:`attention_plain` at the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, key_mask, scale):
+        ctx.scale = scale
+        ctx.save_for_backward(q, k, v, key_mask)
+        return _forward(q, k, v, key_mask, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, key_mask = ctx.saved_tensors
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_() for t in (q, k, v)]
+            o = _plain(*inputs, key_mask, ctx.scale)
+            dq, dk, dv = torch.autograd.grad(o, inputs, g)
+        return dq, dk, dv, None, None
+
+
 def fused_attention(q, k, v, key_mask: Optional[torch.Tensor] = None,
                     scale: Optional[float] = None):
     """(B, H, Lq, D) x (B, H, Lk, D) -> (B, H, Lq, D), optional (B, Lk)
-    boolean key mask (True = attend)."""
+    boolean key mask (True = attend); differentiable in q, k and v."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return FusedAttention.apply(q, k, v, key_mask, scale)
+    return _forward(q, k, v, key_mask, scale)
+
+
+def _forward(q, k, v, key_mask, scale):
     if q.device.type == "cpu":
         return attention_plain(q, k, v, key_mask, scale)
     if q.device.type != "cuda":

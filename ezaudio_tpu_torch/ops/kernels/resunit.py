@@ -10,6 +10,13 @@ layouts: ``w7`` (7, C, C) as (tap, in, out), ``w1`` (C, C) as (in, out),
 to :func:`residual_unit_plain`; a CUDA tensor launches the kernel or
 raises.  ``fused_residual_unit.launches`` counts kernel launches, and
 ``fused_residual_unit.launches_by_dtype`` counts them by input dtype.
+
+Differentiable as the JAX ``custom_vjp`` is: with grad enabled and an
+input that requires grad, the call goes through
+:class:`FusedResidualUnit`, whose forward is the kernel (the plain twin on
+the CPU) and whose backward is the vjp of :func:`residual_unit_plain` at
+the saved inputs (``_fru_bwd``), for all nine tensor inputs.  Only forward
+launches are counted.
 """
 
 from __future__ import annotations
@@ -52,7 +59,37 @@ def _lib():
     return fn
 
 
+class FusedResidualUnit(torch.autograd.Function):
+    """Kernel forward, plain-recompute backward."""
+
+    @staticmethod
+    def forward(ctx, dilation, *args):
+        ctx.dilation = dilation
+        ctx.save_for_backward(*args)
+        return _forward(*args, dilation)
+
+    @staticmethod
+    def backward(ctx, g):
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+            y = _plain(*inputs, ctx.dilation)
+            grads = torch.autograd.grad(y, inputs, g)
+        return (None, *grads)
+
+
+_plain = residual_unit_plain
+
+
 def fused_residual_unit(x, w7, b7, w1, b1, a1, be1, a2, be2, dilation: int):
+    """Channel-last ``x`` (B, L, C) -> (B, L, C); differentiable in all
+    nine tensor inputs."""
+    args = (x, w7, b7, w1, b1, a1, be1, a2, be2)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        return FusedResidualUnit.apply(int(dilation), *args)
+    return _forward(*args, dilation)
+
+
+def _forward(x, w7, b7, w1, b1, a1, be1, a2, be2, dilation: int):
     if x.device.type == "cpu":
         return residual_unit_plain(x, w7, b7, w1, b1, a1, be1, a2, be2, dilation)
     if x.device.type != "cuda":

@@ -8,6 +8,11 @@ from typing import Optional, Union
 import torch
 
 
+def scale_shift(x, scale: float, shift: float):
+    """Latents into model space (reference utils.py:20-21)."""
+    return (x + shift) * scale
+
+
 def scale_shift_re(x, scale: float, shift: float):
     """Latents back from model space (reference utils.py:24-25)."""
     return (x / scale) - shift

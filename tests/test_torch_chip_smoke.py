@@ -442,3 +442,118 @@ def test_contentvec_shape_rule():
     for shape in ((1, 499, 768), (1, 500, 512), (2, 500, 768)):
         with pytest.raises(AssertionError, match="vc: features"):
             cs.check_vc_shape(torch.zeros(shape), cfg, 24000, 10.0)
+
+
+def _tiny_s3_l():
+    from ezaudio_tpu_torch.config import get_model_config
+
+    cfg = get_model_config("s3_l").to_dict()
+    cfg["model"].update(embed_dim=32, depth=2, num_heads=4, context_dim=16,
+                        ada_sola_rank=2, ada_sola_alpha=2)
+    cfg["text_encoder"]["model"] = "tiny"
+    return cfg
+
+
+def test_training_phases_rehearse_on_cpu(monkeypatch):
+    """Phases 23-25 end to end at a tiny size: the kernels' gradients
+    against the plain twin's, ``train_cli`` with full remat (4 attention
+    launches per block and step, 12 ResidualUnit launches per encode, all
+    f32), the restart equal to the uninterrupted run, and one train step
+    under each remat policy against itself with full remat (here CPU
+    against CPU: equal; 2 launches per block without remat)."""
+    import chip_smoke as cs
+    import ezaudio_tpu_torch.ops.kernels.attention as ka
+    import ezaudio_tpu_torch.ops.kernels.resunit as kr
+
+    monkeypatch.setattr(cs, "time_ms", lambda fn, reps=1, iters=1: 0.0)
+    monkeypatch.setattr(ka, "attention_plain", counted(ka.attention_plain, ka.fused_attention))
+    monkeypatch.setattr(kr, "residual_unit_plain",
+                        counted(kr.residual_unit_plain, kr.fused_residual_unit))
+    gen = torch.Generator().manual_seed(0)
+    rows = cs.check_attention_grad("cpu", gen, [(2, 2, 16, 16, 8, False), (3, 2, 16, 9, 8, True)])
+    assert all(g["rel_err"] == 0.0 for r in rows for g in r["grads"].values())
+    assert rows[0]["grad_fn"] == "FusedAttentionBackward"
+    row = cs.check_resunit_grad("cpu", gen, (2, 50, 128, 3))
+    assert len(row["grads"]) == 9 and set(row["grads"].values()) == {0.0}
+
+    row = cs.training_path("cpu", cfg=_tiny_s3_l(), clips=4, batch=2, seconds=0.1, steps=3,
+                           resume_at=2)
+    assert row["launches_per_step"] == [[12, 12]] * 3
+    assert row["resumed_losses"] == row["losses"][2:]
+    assert (row["attention_launches"], row["resunit_launches"]) == (48, 48)
+    assert row["resunit_batch_shapes"] == sorted(
+        (2, L, C, d) for L, C in ((2400, 128), (1200, 128), (300, 256), (50, 512))
+        for d in (1, 3, 9))
+    assert cs.uncovered_shapes([row], [(1, L, C, 1) for L, C in row["resunit_shapes"]]) == []
+
+    rows = cs.train_step_card_vs_cpu(gen, dev="cpu", cfg=_tiny_s3_l(), batch=2, text_len=12)
+    assert [r["remat"] for r in rows] == ["full", "dots", "off"]
+    for row, launches in zip(rows, (12, 12, 6)):
+        assert row["loss"][0] == row["loss"][1] and row["param_max_abs_err"] == 0.0
+        assert row["qkv_grads"] == 18 and row["launches"][0] == launches
+
+
+def test_training_limits_catch_a_detached_attention_and_a_transposed_gradient():
+    """Phase 23's and phase 25's limits: an attention whose output is
+    detached (zero q, k and v gradients) and a gradient transposed fail;
+    the gradients themselves, summed in another order, pass."""
+    import chip_smoke as cs
+
+    g = torch.Generator().manual_seed(1)
+    want = {n: torch.randn(2, 2, 8, 8, generator=g) for n in "qkv"}
+    noisy = {n: w * (1 + 1e-7 * torch.randn(w.shape, generator=g)) for n, w in want.items()}
+    assert cs.grad_agreement(noisy, want, cs.KERNEL_GRAD_TOL)[0]
+    assert not cs.grad_agreement({n: torch.zeros_like(w) for n, w in want.items()}, want,
+                                 cs.KERNEL_GRAD_TOL)[0]
+    assert not cs.grad_agreement(dict(want, k=want["k"].transpose(-1, -2)), want,
+                                 cs.KERNEL_GRAD_TOL)[0]
+
+    names = [f"model.{b}.{a}.to_{x}.weight" for b in ("in_blocks.0", "mid_block", "out_blocks.0")
+             for a in ("attn", "cross_attn") for x in "qkv"] + ["model.time_ada.weight"]
+    grads = {n: torch.randn(8, 8, generator=g) for n in names}
+    params = {n: torch.randn(8, 8, generator=g) for n in names}
+    cpu = dict(loss=1.0, grad_norm=2.0, grads=grads, params=params, launches=(12, 0))
+
+    def card(**kw):
+        return dict(cpu, **kw)
+
+    assert cs.train_step_agreement(card(), cpu, 1e-4, 2, 12)[1] == []
+    detached = {n: torch.zeros_like(v) if "attn.to_" in n else v for n, v in grads.items()}
+    bad = cs.train_step_agreement(card(grads=detached), cpu, 1e-4, 2, 12)[1]
+    assert any(b.startswith("gradients") for b in bad) and any("q/k/v" in b for b in bad)
+    flipped = dict(grads, **{"model.time_ada.weight": grads["model.time_ada.weight"].t()})
+    assert cs.train_step_agreement(card(grads=flipped), cpu, 1e-4, 2, 12)[1] == [
+        "gradients ['model.time_ada.weight']"]
+    moved = {n: p + 3e-4 if n == names[0] else p for n, p in params.items()}
+    assert cs.train_step_agreement(card(params=moved), cpu, 1e-4, 2, 12)[1] == [
+        "updated parameters"]
+    # a gradient that is rounding noise around an exact 0 (the cross
+    # attention's key-norm bias) is held to the floor, not to its own scale
+    noise = dict(grads, **{"model.time_ada.weight": torch.full((8, 8), 1e-11)})
+    shifted = dict(noise, **{"model.time_ada.weight": torch.full((8, 8), 3e-11)})
+    assert cs.train_step_agreement(card(grads=shifted), dict(cpu, grads=noise), 1e-4, 2,
+                                   12)[1] == []
+
+
+def test_train_flops_count_what_each_module_sees():
+    """``train_flops`` counts each linear by the tokens it sees: without
+    remat it is 3 times the forward's products as torch's own counter
+    reads them (text-side and per-sample linears included), and full
+    remat adds the blocks' forward once more."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    import chip_smoke as cs
+    from ezaudio_tpu_torch.models.maskdit import maskdit_from_config
+
+    m = _tiny_s3_l()["model"]
+    torch.manual_seed(0)
+    model = maskdit_from_config(dict(m, img_size=10))
+    B, T, L = 2, 10, 7
+    with FlopCounterMode(display=False) as fc, torch.no_grad():
+        model(torch.randn(B, T, m["out_chans"]), torch.tensor([3, 500]),
+              torch.randn(B, L, m["context_dim"]), context_mask=torch.ones(B, L, dtype=torch.bool))
+    counts = fc.get_flop_counts()
+    blocks = sum(sum(v.values()) for k, v in counts.items()
+                 if k.endswith(".mid_block") or (k.count(".") == 3 and "_blocks." in k))
+    assert cs.train_flops(model, B, T, L, remat=False) == 3 * fc.get_total_flops()
+    assert cs.train_flops(model, B, T, L) == 3 * fc.get_total_flops() + blocks

@@ -181,3 +181,43 @@ class TestInt8AndGraphsOnGPU:
         got = prog(x2, q2).clone()
         assert prog.replays == 2
         torch.testing.assert_close(got, fn(x2, q2), rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+class TestKernelGradientsOnGPU:
+    """The kernels' autograd Functions on the card: every output computed
+    with grad enabled has the kernel's ``grad_fn`` (ROADMAP F11), one
+    counted launch per forward, and the gradients of the plain twin
+    (the backward is its vjp in both: within 1e-6 of each gradient's
+    largest entry)."""
+
+    @pytest.mark.parametrize("Lk,masked", [(500, False), (100, True)])
+    def test_attention_gradients(self, rng, Lk, masked):
+        dev = _cuda()
+        arrays = _qkv(rng, 2, 4, 500, Lk, 64)
+        leaves = [torch.from_numpy(a).to(dev).requires_grad_() for a in arrays]
+        mask = torch.from_numpy(_tail_mask(2, Lk, [23, Lk])).to(dev) if masked else None
+        g = torch.from_numpy(rng.standard_normal((2, 4, 500, 64)).astype(np.float32)).to(dev)
+        before = fused_attention.launches
+        o = fused_attention(*leaves, key_mask=mask)
+        assert type(o.grad_fn).__name__ == "FusedAttentionBackward"
+        got = torch.autograd.grad(o, leaves, g)
+        assert fused_attention.launches == before + 1
+        want = torch.autograd.grad(attention_plain(*leaves, key_mask=mask), leaves, g)
+        for a, b in zip(got, want):
+            assert a.abs().max() > 0
+            torch.testing.assert_close(a, b, rtol=0, atol=1e-6 * b.abs().max().item())
+
+    def test_resunit_gradients(self, rng):
+        dev = _cuda()
+        leaves = [torch.from_numpy(a).to(dev).requires_grad_()
+                  for a in _resunit_inputs(rng, 2, 300, 256)]
+        g = torch.from_numpy(rng.standard_normal((2, 300, 256)).astype(np.float32)).to(dev)
+        before = fused_residual_unit.launches
+        y = fused_residual_unit(*leaves, 3)
+        assert type(y.grad_fn).__name__ == "FusedResidualUnitBackward"
+        got = torch.autograd.grad(y, leaves, g)
+        assert fused_residual_unit.launches == before + 1
+        want = torch.autograd.grad(residual_unit_plain(*leaves, 3), leaves, g)
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, rtol=0, atol=1e-6 * b.abs().max().item())
