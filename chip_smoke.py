@@ -120,12 +120,43 @@ Phases, each fatal on failure:
      ``train_step_agreement``, the attention launches each policy
      implies, and a non-zero gradient on the q, k and v projections of
      every attention (ROADMAP F11);
- 26. the launches of each path, a ``{"kernels": [...]}`` line (launches
-     summed over the paths of phases 4-8, 10-13, 15, 16, 19-21 and 24),
-     the card's name and power limit, and last ``{"ok": true, "device":
-     {...}}``.
+ 28. (after phase 25) bf16 mixed-precision training: kernel 1's bf16
+     autograd gradients at the train shapes against SDPA's bf16 ones (no
+     farther from the f32 gradients than BF16_REF_FACTOR times SDPA's,
+     correlated above BF16_ATTN_GRAD_CORR); ``train_cli.main --dtype
+     bfloat16`` on phase 24's data and recipe (every step 100 attention and
+     12 ResidualUnit launches, all bf16; f32 parameters and moments; the
+     restart from step 4 equal), its step wall, samples/s, model TFLOP/s
+     against the bf16 peak and peak memory printed beside phase 24's; then
+     one bf16 step at depth 2 under AdamW, AdamW with a bf16 first moment
+     and Adafactor, card against CPU by the statistical rule (``BF16_*``);
+ 26. ControlNet fine-tuning of EzAudio-L-Energy: the frozen s3_l base and
+     the ControlNet's trainable subset, batch 8 × 10 s of seeded latents,
+     energy conditions of seeded clips, T5 on seeded captions, remat on,
+     f32, 4 steps: step wall (median of steps 2-4), samples/s, peak; the
+     base's and the frozen ControlNet tensors' bytes unchanged, every
+     trainable tensor moved, every zero block's gradient non-zero (F6),
+     ``controlnet_train_launches`` a step; then one step at depth 2, card
+     against CPU by ``train_step_agreement``;
+ 27. progressive distillation on a fresh f32 s3_l: one stage (the student,
+     a deep copy, 8 steps on the teacher's 16; CFG 5 folded in), batch 4 ×
+     10 s, 4 steps: one student DDIM step with v* lands on the teacher's
+     two-step target within DISTILL_LAND_TOL, the teacher's bytes
+     unchanged, 200 launches a step; the student served by
+     ``generate_audio(sampler='distilled')`` for 10 s (8 × 50 attention
+     and 12 ResidualUnit launches); then one step at depth 2, card against
+     CPU;
+ 29. on the same model: one ``flow_matching_loss`` train step (batch 4) and
+     a 10-step Heun ``flow_sample`` with CFG 5 and rescale 0.75, decoded;
+     ``eval_udit`` in MAE mode on one seeded clip (50 DDIM steps, the
+     encode and the decode); ``prepare_embeddings`` on phase 24's
+     manifest, then one ``train_cli`` step from those files;
+ 30. the launches of each path, a ``{"kernels": [...]}`` line (launches
+     summed over the paths of phases 4-8, 10-13, 15, 16, 19-21, 24 and
+     26-29), the card's name and power limit, and last ``{"ok": true,
+     "device": {...}}``.
 
-Every path of phases 4, 6-8, 11-13, 15, 16, 19-21 and 24 is driven with the launch
+Every path of phases 4, 6-8, 11-13, 15, 16, 19-21, 24 and 26-29 is driven with the launch
 counters set to 0 just before it and read just after, and must launch each
 kernel exactly as often as its model calls and decodes imply; the bf16
 paths count every launch by dtype (``launches_by_dtype``), so a path that
@@ -149,9 +180,11 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 HBM_BYTES_PER_S = 3.35e12
@@ -280,16 +313,23 @@ RESUNIT_CASES = ([(1, 5000, 512, d) for d in (1, 3, 9)]
                     (1, 1500, 512, 9)]
                  # decode of phase 12's 5 s length bucket, two clips
                  + [(2, 2500, 512, 9), (2, 15000, 256, 3), (2, 60000, 128, 1)])
-# the VAE encode of a training batch (phase 24): 8 clips of 10 s through
-# the encoder's four blocks, each with dilations 1, 3 and 9
+# the VAE encode of a training batch (phases 24 and 28): 8 clips of 10 s
+# through the encoder's four blocks, each with dilations 1, 3 and 9
 RESUNIT_TRAIN_CASES = [(8, L, C, d)
                        for L, C in ((240000, 128), (120000, 128), (30000, 256), (5000, 512))
                        for d in (1, 3, 9)]
 RESUNIT_CASES += RESUNIT_TRAIN_CASES
-# bf16: the decoder blocks of one 10 s clip, the shapes of phases 16 and 19
+# bf16: the decoder blocks of one 10 s clip, the shapes of phases 16 and
+# 19, and phase 28's bf16 encode of a training batch
 RESUNIT_BF16_CASES = ([(1, 5000, 512, d) for d in (1, 3, 9)]
                       + [(1, 30000, 256, 9), (1, 120000, 128, 9)]
-                      + [(1, 240000, 128, d) for d in (1, 3, 9)])
+                      + [(1, 240000, 128, d) for d in (1, 3, 9)]
+                      + RESUNIT_TRAIN_CASES)
+# The bf16 ResidualUnit's snake2 output g, read from the kernel itself:
+# with W1 = G_PROBE * I and b1 = 0 it returns round(x + G_PROBE * g), which
+# is G_PROBE * g exactly wherever |g| > 3e-9 (x is then below half a bf16
+# ulp of it), and within 1e-11 of it elsewhere.
+G_PROBE = 2.0 ** 40
 
 
 def bf16_agreement(got, want, slack=None):
@@ -305,20 +345,48 @@ def bf16_agreement(got, want, slack=None):
     return ok, diff.max().item(), share
 
 
-def resunit_bf16_slack(x, w7, b7, w1, b1, a1, be1, a2, be2, dilation):
-    """The bf16 ResidualUnit's allowance beyond one output ulp: where a
-    snake2 output ``g``, summed in another order, rounds to the other
-    side, every output of its row moves by one bf16 ulp of ``g`` times a
-    weight of ``W1``: 2^-7 max|g| max|W1|, ``g`` computed in f32."""
-    import torch.nn.functional as F
+def resunit_bf16_agreement(fn, args, dilation, got=None):
+    """``(ok, stats)`` of a bf16 ResidualUnit ``fn(*args, dilation)`` (or
+    its output ``got``) against ``residual_unit_plain``, a stage at a time.
+
+    g, the snake2 output it feeds the 1x1 product (read with G_PROBE): by
+    :func:`bf16_agreement` against the plain g, with the slack of one
+    flipped snake1 output h in the conv's window, 2^-7 max|h| max|w7|
+    max|snake2'|.  A g summed in another order rounds to the other side
+    now and then, in any number of a row's channels (PERF.md §6).
+    The output: every element within one bf16 rounding of each side
+    (2^-8 (|got| + |want|) + 1e-5: the sides' f32 sums may round into
+    different binades) plus what the kernel's own g differences move it
+    by, |dg| @ |W1|."""
+    import torch
 
     from ezaudio_tpu_torch.ops.activations import snake_beta_vae
+    from ezaudio_tpu_torch.ops.kernels.resunit import residual_unit_g, residual_unit_plain
 
-    h = snake_beta_vae(x.float(), a1.float(), be1.float())
-    acc = F.conv1d(h.transpose(1, 2), w7.float().permute(2, 1, 0), b7.float(),
-                   padding=3 * dilation, dilation=dilation).transpose(1, 2)
-    g = snake_beta_vae(acc, a2.float(), be2.float())
-    return 2.0 ** -7 * g.abs().max().item() * w1.float().abs().max().item()
+    x, w7, b7, w1, b1, a1, be1, a2, be2 = args
+    C = x.shape[-1]
+    got = (fn(*args, dilation) if got is None else got).float()
+    want = residual_unit_plain(*args, dilation).float()
+    probe = (torch.eye(C, device=x.device) * G_PROBE).to(x.dtype)
+    g_got = fn(x, w7, b7, probe, torch.zeros_like(b1), a1, be1, a2, be2,
+               dilation).float() / G_PROBE
+    g_want = residual_unit_g(x, w7, b7, a1, be1, a2, be2, dilation)
+    h_max = snake_beta_vae(x.float(), a1.float(), be1.float()).abs().max().item()
+    a2, be2 = a2.float(), be2.float()
+    g_slack = (2.0 ** -7 * h_max * w7.float().abs().max().item()
+               * (1.0 + (a2 / (be2 + 1e-9)).abs().max().item()))
+    g_ok, g_err, g_share = bf16_agreement(g_got, g_want, g_slack)
+    dg = (g_got - g_want).abs()
+    g_ratio = (dg / (2.0 ** -7 * g_want.abs() + 1e-5 + g_slack)).max().item()
+    flips = (dg > 0).sum(-1)
+    allowed = 2.0 ** -8 * (got.abs() + want.abs()) + 1e-5 + dg @ w1.float().abs()
+    ratio = ((got - want).abs() / allowed).max().item()  # NaN fails below
+    stats = dict(max_abs_err=(got - want).abs().max().item(), out_ratio=ratio,
+                 g_max_abs_err=g_err, g_slack=g_slack, g_ratio=g_ratio,
+                 g_off_ulp_share=g_share,
+                 g_diff_share=(flips.sum() / dg.numel()).item(),
+                 g_diffs_per_row_max=int(flips.max().item()))
+    return bool(g_ok and ratio <= 1.0), stats
 
 
 def attention_agreement(got, want, v):
@@ -397,7 +465,7 @@ def resunit_args(dev, gen, B, L, C):
 def check_resunit(dev, gen, cases=RESUNIT_CASES, dtype="float32"):
     """Kernel 2 against its plain version at ``cases``: f32 within
     RESUNIT_TOL; bf16 (x and weights bf16, snake parameters f32) by
-    :func:`bf16_agreement` with :func:`resunit_bf16_slack`."""
+    :func:`resunit_bf16_agreement`."""
     import torch
 
     from ezaudio_tpu_torch.ops.kernels.resunit import (fused_residual_unit,
@@ -408,25 +476,26 @@ def check_resunit(dev, gen, cases=RESUNIT_CASES, dtype="float32"):
         args = resunit_args(dev, gen, B, L, C)
         args = [a.to(getattr(torch, dtype)) for a in args[:5]] + args[5:]
         got = fused_residual_unit(*args, d)
-        want = residual_unit_plain(*args, d)
-        sync(dev)
         if dtype == "float32":
+            want = residual_unit_plain(*args, d)
+            sync(dev)
             err = (got - want).abs().max().item()
-            ok, tol = err <= RESUNIT_TOL, RESUNIT_TOL
+            ok, checked = err <= RESUNIT_TOL, dict(max_abs_err=err, tol=RESUNIT_TOL)
+            del want
         else:
-            tol = resunit_bf16_slack(*args, d)
-            ok, err, share = bf16_agreement(got, want, tol)
+            ok, checked = resunit_bf16_agreement(fused_residual_unit, args, d, got)
+        del got
         ms = time_ms(lambda: fused_residual_unit(*args, d), reps=3, iters=3)
         plain_ms = time_ms(lambda: residual_unit_plain(*args, d), reps=3, iters=3)
         elt = args[0].element_size()
         nbytes = (2 * B * L * C + 8 * C * C + 2 * C) * elt + 4 * C * 4
         bms, by = bound_ms(nbytes, 2.0 * B * L * C * C * 8, dtype)
-        row = dict(shape=[B, L, C], dilation=d, dtype=dtype, max_abs_err=err,
-                   tol=tol, ms=ms, plain_ms=plain_ms, library_ms=None,
+        row = dict(shape=[B, L, C], dilation=d, dtype=dtype, **checked,
+                   ms=ms, plain_ms=plain_ms, library_ms=None,
                    bound_ms=bms, bound_by=by)
         log("resunit " + json.dumps(row))
         if not ok:
-            raise AssertionError(f"resunit {row['shape']} d={d} {dtype}: err {err}")
+            raise AssertionError(f"resunit {row['shape']} d={d} {dtype}: {checked}")
         rows.append(row)
     return rows
 
@@ -546,6 +615,14 @@ def uncovered_shapes(paths, cases=RESUNIT_CASES, bf16_cases=RESUNIT_BF16_CASES):
     checked = ({(L, C) for _, L, C, _ in cases}
                | {(L, C, "bfloat16") for _, L, C, _ in bf16_cases})
     return sorted({tuple(s) for p in paths for s in p["resunit_shapes"]} - checked)
+
+
+def check_batch_shapes(row, cases) -> None:
+    """Every (B, L, C, dilation) a training path gave the ResidualUnit is
+    one of ``cases``, which phase 3 holds against the plain version."""
+    missing = sorted(set(row["resunit_batch_shapes"]) - set(cases))
+    if missing:
+        raise AssertionError(f"ResidualUnit shapes of {row['path']} not in phase 3: {missing}")
 
 
 def run_path(name, dev, fn, want_attn, want_res, audio_s, want_len, dtype=None):
@@ -1754,6 +1831,16 @@ SDPA_GRAD_TOL = 1e-4
 TRAIN_REL_TOL = 1e-5
 TRAIN_GRAD_TOL = 1e-4
 GRAD_FLOOR = 1e-4
+# A gradient that is 0 in exact arithmetic (the cross-attention key norm's
+# bias: it shifts every score of a row alike, which the softmax ignores;
+# in self-attention RoPE rotates it per key, so there it is no zero) is
+# rounding noise of the terms that cancel in it.  In phases 26 and 27 that
+# noise reads 2.4e-8 of the step's largest gradient (the ControlNet's
+# gradients reach it through the frozen backbone; the distillation loss
+# regresses v*), more than GRAD_FLOOR * TRAIN_GRAD_TOL (1e-8) allows; phase
+# 25 reads ~6e-10.  Such a tensor, named by the caller, is held to be noise
+# on both sides: within ZERO_GRAD_TOL of the largest entry of all gradients.
+ZERO_GRAD_TOL = 1e-6
 ADAM_STABLE_GRAD = 1e-4
 # a resumed run's losses against the uninterrupted run's, relative
 RESUME_REL_TOL = 1e-5
@@ -1955,10 +2042,11 @@ def train_flops(model, batch: int, frames: int, text_len: int, remat: bool = Tru
 
 
 def training_path(dev="cuda", cfg=None, clips=16, batch=TRAIN_BATCH, seconds=10.0, steps=6,
-                  resume_at=4, sr=24000, t5_config=None, vae_config=None):
-    """Phase 24: ``train_cli.main`` on a seeded dataset of ``clips`` clips,
-    batch ``batch``, ``steps`` steps, warmup 2, CFG dropout 0.1, the
-    model config's remat; the per-step launches checked.  Then the trainer
+                  resume_at=4, sr=24000, t5_config=None, vae_config=None, dtype="float32"):
+    """Phase 24 (``dtype`` bfloat16: phase 28): ``train_cli.main`` on a
+    seeded dataset of ``clips`` clips, batch ``batch``, ``steps`` steps,
+    warmup 2, CFG dropout 0.1, the model config's remat, ``--dtype``; the
+    per-step launches checked, every one in ``dtype``.  Then the trainer
     is deleted, the checkpoint after ``steps`` removed, and a restart from
     step ``resume_at`` must give the uninterrupted run's last losses."""
     import shutil
@@ -2000,7 +2088,8 @@ def training_path(dev="cuda", cfg=None, clips=16, batch=TRAIN_BATCH, seconds=10.
             argv = ["--config-name", path, "--max-steps", str(max_steps),
                     "--save-every-step", str(resume_at), "--log-step", "1",
                     "--log-dir", os.path.join(root, "logs"),
-                    "--save-dir", os.path.join(root, "ckpts"), "--random-seed", "0"]
+                    "--save-dir", os.path.join(root, "ckpts"), "--random-seed", "0",
+                    "--dtype", dtype]
             if not cuda:
                 argv += ["--device", dev]
             with resunit_shapes(shapes, full=True):
@@ -2013,13 +2102,14 @@ def training_path(dev="cuda", cfg=None, clips=16, batch=TRAIN_BATCH, seconds=10.
             flops = train_flops(trainer.model, batch, frames, cfg["text_encoder"]["max_length"],
                                 remat=udit.use_checkpoint
                                 and resolve_remat_policy(udit.remat_policy) == "full")
+            faults = mixed_precision_faults(trainer) if dtype == "bfloat16" else []
             del trainer  # its memory is checked back by the caller
-            return n, flops, shapes
+            return n, flops, shapes, faults
 
         if cuda:
             torch.cuda.reset_peak_memory_stats()
         first, resumed = [], []
-        n_params, flops, shapes = run(steps, first)
+        n_params, flops, shapes, faults = run(steps, first)
         peak = mem_gib(torch.cuda.max_memory_allocated) if cuda else None
         shutil.rmtree(os.path.join(root, "ckpts", cfg.get("model_name", "model"), str(steps)))
         run(steps, resumed)
@@ -2028,18 +2118,23 @@ def training_path(dev="cuda", cfg=None, clips=16, batch=TRAIN_BATCH, seconds=10.
 
     walls = [r["wall_s"] for r in first[1:]]
     wall = statistics.median(walls)
-    row = dict(path="train", card=card_line() if cuda else "cpu", batch=batch, clip_s=seconds,
-               steps=steps, dit_params=n_params,
+    row = dict(path="train" if dtype == "float32" else f"train_{dtype}",
+               card=card_line() if cuda else "cpu", batch=batch, clip_s=seconds,
+               steps=steps, dtype=dtype, dit_params=n_params,
                step_wall_s=wall, step_wall_s_all=[r["wall_s"] for r in first],
                samples_per_s=batch / wall, audio_s_per_s=batch * seconds / wall,
                flops_per_step=flops, flop_rule="train_flops: per module, by the tokens each sees",
-               model_tflops=flops / wall / 1e12, peak_mem_gib=peak,
+               model_tflops=flops / wall / 1e12,
+               share_of_peak=flops / wall / PEAK_FLOPS[dtype], peak_mem_gib=peak,
+               mixed_precision_faults=faults,
                losses=[r["loss"] for r in first], grad_norms=[r["grad_norm"] for r in first],
                resumed_losses=[r["loss"] for r in resumed],
                launches_per_step=[[r["attention_launches"], r["resunit_launches"]] for r in first],
                resunit_batch_shapes=sorted(shapes))
     log("train " + json.dumps(row))
-    want_dtype = want_by_dtype(want_attn, 12, "float32")
+    want_dtype = want_by_dtype(want_attn, 12, dtype)
+    if faults:
+        raise AssertionError(f"train {dtype}: mixed precision faults {faults[:4]}")
     for r in first + resumed:
         if (r["attention_launches"], r["resunit_launches"]) != (want_attn, 12):
             raise AssertionError(f"train step {r['step']}: launches {r['attention_launches']}, "
@@ -2054,9 +2149,10 @@ def training_path(dev="cuda", cfg=None, clips=16, batch=TRAIN_BATCH, seconds=10.
     tail = np.array(row["losses"][resume_at:])
     if not np.allclose(row["resumed_losses"], tail, rtol=RESUME_REL_TOL, atol=0):
         raise AssertionError(f"train: resumed losses {row['resumed_losses']}, want {tail}")
+    tag = () if dtype == "float32" else (dtype,)
     row.update(attention_launches=sum(r["attention_launches"] for r in first + resumed),
                resunit_launches=sum(r["resunit_launches"] for r in first + resumed),
-               resunit_shapes=sorted({s[1:3] for s in shapes}, reverse=True))
+               resunit_shapes=sorted({s[1:3] + tag for s in shapes}, reverse=True))
     return row
 
 
@@ -2137,11 +2233,21 @@ def train_step_card_vs_cpu(gen, dev="cuda", cfg=None, batch=2, text_len=100,
     return rows
 
 
-def train_step_agreement(g: dict, c: dict, lr: float, depth: int, want_attn: int):
+def train_step_agreement(g: dict, c: dict, lr: float, depth: int, want_attn: int,
+                         n_attn=None, zero_names=()):
     """Phase 25's limits on the card's step ``g`` against the CPU's ``c``
     (each: ``loss``, ``grad_norm``, ``grads``, updated ``params`` and the
-    card's ``launches``): ``(row, failures)``."""
-    ok_grads, rows = grad_agreement(g["grads"], c["grads"], TRAIN_GRAD_TOL, GRAD_FLOOR)
+    card's ``launches``): ``(row, failures)``.  ``n_attn``: the attention
+    modules with q/k/v gradients (default: a MaskDiT's, 2 (depth + 1));
+    ``zero_names``: gradients 0 in exact arithmetic, held to
+    ZERO_GRAD_TOL instead (see there)."""
+    n_attn = 2 * (depth + 1) if n_attn is None else n_attn
+    largest = max(v.abs().max().item() for v in c["grads"].values())
+    noise = {n: max(g["grads"][n].abs().max().item(), c["grads"][n].abs().max().item())
+             for n in zero_names}
+    ok_grads, rows = grad_agreement({n: v for n, v in g["grads"].items() if n not in noise},
+                                    {n: v for n, v in c["grads"].items() if n not in noise},
+                                    TRAIN_GRAD_TOL, GRAD_FLOOR)
     worst = max(rows, key=lambda n: rows[n]["rel_err"])
     qkv = qkv_grads_nonzero(g["grads"])
     param_err, stable_err = 0.0, 0.0  # the latter in units of its limit
@@ -2156,6 +2262,7 @@ def train_step_agreement(g: dict, c: dict, lr: float, depth: int, want_attn: int
                worst_grad=dict(rows[worst], name=worst), n_grads=len(rows),
                param_max_abs_err=param_err, param_stable_err_share_of_limit=stable_err, lr=lr,
                qkv_grads=len(qkv), qkv_min_grad=min(qkv.values(), default=0.0),
+               zero_grads_share_of_largest=max(noise.values(), default=0.0) / largest,
                launches=list(g["launches"]), want_attention_launches=want_attn)
     bad = []
     if not abs(g["loss"] - c["loss"]) <= TRAIN_REL_TOL * abs(c["loss"]):
@@ -2167,11 +2274,746 @@ def train_step_agreement(g: dict, c: dict, lr: float, depth: int, want_attn: int
                                              if r["zero"] or not r["rel_err"] <= TRAIN_GRAD_TOL)))
     if not (param_err <= 2 * lr and stable_err <= 1.0):
         bad.append("updated parameters")
-    if len(qkv) != 3 * 2 * (depth + 1) or not min(qkv.values(), default=0.0) > 0:
+    if any(v > ZERO_GRAD_TOL * largest for v in noise.values()):
+        bad.append("zero gradients " + str(sorted(n for n, v in noise.items()
+                                                   if v > ZERO_GRAD_TOL * largest)))
+    if len(qkv) != 3 * n_attn or not min(qkv.values(), default=0.0) > 0:
         bad.append(f"q/k/v gradients {qkv}")
     if g["launches"][0] != want_attn:
         bad.append(f"attention launches {g['launches'][0]}, want {want_attn}")
     return row, bad
+
+
+# ---------------------------------------------------------------------------
+# The rest of training (phases 26-29): ControlNet fine-tuning, progressive
+# distillation, bf16 mixed-precision training, rectified flow and the tools.
+# One student DDIM step with v* from x_t lands on the teacher's two-step
+# target: within this share of the target's largest magnitude (f32 algebra,
+# x' = A x + B v* with v* = (x_target - A x) / B).
+DISTILL_LAND_TOL = 1e-4
+# bf16 gradients, card against CPU (and kernel 1's bf16 gradients against
+# SDPA's): the statistical rule of tests/test_torch_bf16.py.  The card's
+# gradients (one vector) no farther from the CPU's bf16 ones than
+# BF16_REF_FACTOR times the CPU's bf16 distance from its f32 ones, and
+# correlated above BF16_TRAIN_CORR; the loss, one scalar mean, within
+# 2^-8 relative; the parameters' updates correlated above BF16_TRAIN_CORR.
+BF16_TRAIN_CORR = 0.99
+BF16_LOSS_REL = 2.0 ** -8
+BF16_ATTN_GRAD_CORR = 0.999
+BF16_TRAIN_OPTIMIZERS = (("adamw", {}), ("adamw_mu_bf16", dict(mu_dtype="bfloat16")),
+                         ("adafactor", dict(optimizer="adafactor")))
+
+
+def controlnet_train_launches(model_cfg: dict) -> int:
+    """Attention launches of one ControlNet train step: the frozen base's
+    depth + 1 blocks forward and, under remat, its depth // 2 out-blocks
+    again in the backward (only they lie on the gradient's path: the skips
+    enter there); the ControlNet's depth // 2 in-blocks (no remat); two
+    attentions a block."""
+    half = model_cfg["depth"] // 2
+    recompute = half if model_cfg.get("use_checkpoint") else 0
+    return 2 * (model_cfg["depth"] + 1 + recompute + half)
+
+
+def distill_train_launches(model_cfg: dict) -> int:
+    """Attention launches of one distillation step: the teacher's two CFG
+    calls (each one call on the doubled batch, no grad) and the student's
+    call, whose blocks remat recomputes in the backward."""
+    blocks = model_cfg["depth"] + 1
+    return 2 * blocks * (2 + (2 if model_cfg.get("use_checkpoint") else 1))
+
+
+def snapshot(module):
+    """A host copy of every parameter and buffer of ``module``."""
+    return {k: v.detach().to("cpu", copy=True) for k, v in module.state_dict().items()}
+
+
+def unchanged(module, before: dict) -> list:
+    """The names whose bytes differ from ``before``'s."""
+    import torch
+
+    return [k for k, v in module.state_dict().items()
+            if not torch.equal(v.detach().cpu(), before[k])]
+
+
+def timed_steps(dev, n, fn):
+    """``fn(i)`` for i < n with the counters set to 0 before each call and
+    read after: per step (wall s, attention, resunit launches, by dtype,
+    fn's result)."""
+    rows = []
+    for i in range(n):
+        sync(dev)
+        reset_counters()
+        t0 = time.perf_counter()
+        out = fn(i)
+        sync(dev)
+        rows.append(dict(wall_s=time.perf_counter() - t0, launches=list(read_counters()),
+                         by_dtype=read_dtype_counters(), out=out))
+    return rows
+
+
+def controlnet_train_path(dev="cuda", cfg=None, batch=TRAIN_BATCH, seconds=10.0, steps=4,
+                          sr=24000, lr=1e-4, t5_config=None, vae_config=None):
+    """Phase 26: ControlNet fine-tuning of EzAudio-L-Energy: the frozen
+    s3_l base and the ControlNet's trainable subset, ``batch`` seeded
+    latents of ``seconds``, energy conditions of seeded clips, T5 on
+    seeded captions, the config's remat, f32, ``steps`` steps.  The base
+    and the ControlNet's frozen leaves keep their bytes, every trainable
+    tensor moves, every zero block gets a non-zero gradient (F6), and each
+    step launches what ``controlnet_train_launches`` says, all f32."""
+    import numpy as np
+    import torch
+
+    from ezaudio_tpu_torch.api.controlnet import EzAudioControlNet
+    from ezaudio_tpu_torch.models.controlnet import trainable_mask
+    from ezaudio_tpu_torch.training.controlnet_trainer import make_controlnet_train_step
+
+    cuda = torch.device(dev).type == "cuda"
+    cn = EzAudioControlNet("energy", config=cfg, device=dev, seed=0, t5_config=t5_config,
+                           vae_config=vae_config)
+    base, m = cn.base, cn.base.params_cfg.model.to_dict()
+    frames = int(seconds * base.latent_sr)
+    gen = torch.Generator(device=dev).manual_seed(26)
+    clips = np.stack([np.roll(burst_clip(sr, seconds), 997 * i) for i in range(batch)])
+    # clones: the API embeds in inference mode, whose tensors autograd refuses
+    condition = cn.conditioner(torch.from_numpy(clips).to(dev)).float().clone()
+    text, text_mask = (t.clone() for t in base.embed_text(
+        [PROMPTS[i % len(PROMPTS)] for i in range(batch)]))
+    data = dict(latents=torch.randn(batch, frames, base.latent_dim, device=dev, generator=gen),
+                condition=condition, text=text, text_mask=text_mask)
+    base_before, cn_before = snapshot(base.dit), snapshot(cn.controlnet)
+    step = make_controlnet_train_step(base.dit, cn.controlnet, base.noise_scheduler,
+                                      learning_rate=lr, warmup=0, scale=base.scale,
+                                      shift=base.shift)
+    mask = trainable_mask(cn.controlnet)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    def run(i):
+        # the step's own draws, with the first sample's condition masked:
+        # mask_embed has a gradient only where a condition is masked
+        draws = step.draw(torch.Generator(device=dev).manual_seed(260 + i), data)
+        draws["select"][0] = 0.0
+        return step(data, seed=0, draws=draws, return_grads=i == 0)
+
+    rows = timed_steps(dev, steps, run)
+    peak = mem_gib(torch.cuda.max_memory_allocated) if cuda else None
+    grads = rows[0]["out"].pop("grads")
+    zero_blocks = {n: g.abs().max().item() for n, g in grads.items()
+                   if n.startswith("controlnet_zero_blocks.")}
+    del grads
+    moved_base = unchanged(base.dit, base_before)
+    changed = set(unchanged(cn.controlnet, cn_before))
+    frozen_moved = sorted(n for n in changed if n in mask and not mask[n])
+    still = sorted(n for n, t in mask.items() if t and n not in changed)
+    wall = statistics.median(r["wall_s"] for r in rows[1:]) if steps > 1 else rows[0]["wall_s"]
+    want = controlnet_train_launches(m)
+    row = dict(path="controlnet_train", card=card_line() if cuda else "cpu", batch=batch,
+               clip_s=seconds, steps=steps, lr=lr,
+               controlnet_params=sum(p.numel() for p in cn.controlnet.parameters()),
+               trainable_params=sum(p.numel() for n, p in cn.controlnet.named_parameters()
+                                    if mask[n]),
+               base_params=sum(p.numel() for p in base.dit.parameters()),
+               step_wall_s=wall, step_wall_s_all=[r["wall_s"] for r in rows],
+               samples_per_s=batch / wall, peak_mem_gib=peak,
+               losses=[r["out"]["loss"].item() for r in rows],
+               grad_norms=[r["out"]["grad_norm"].item() for r in rows],
+               launches_per_step=[r["launches"] for r in rows],
+               zero_block_grad_min=min(zero_blocks.values(), default=0.0),
+               base_tensors_changed=len(moved_base), frozen_tensors_changed=len(frozen_moved),
+               trainable_tensors_unmoved=len(still))
+    log("controlnet_train " + json.dumps(row))
+    bad = []
+    if moved_base or frozen_moved:
+        bad.append(f"frozen tensors changed: {moved_base[:3]} {frozen_moved[:3]}")
+    if still:
+        bad.append(f"trainable tensors that did not move: {still[:5]}")
+    if len(zero_blocks) != 2 * (m["depth"] // 2) or not min(zero_blocks.values(),
+                                                            default=0.0) > 0:
+        bad.append(f"zero block gradients {zero_blocks}")
+    for i, r in enumerate(rows):
+        if r["launches"] != [want, 0] or r["by_dtype"] != want_by_dtype(want, 0, "float32"):
+            bad.append(f"step {i + 1} launches {r['launches']} {r['by_dtype']}, want {want}, 0")
+    if not np.isfinite(row["losses"]).all():
+        bad.append("losses")
+    if bad:
+        raise AssertionError("controlnet train: " + "; ".join(bad))
+    row.update(attention_launches=sum(r["launches"][0] for r in rows),
+               resunit_launches=sum(r["launches"][1] for r in rows), resunit_shapes=[])
+    return row
+
+
+def _step_row(res, params, launches):
+    """A train step's result as ``train_step_agreement`` reads it."""
+    from ezaudio_tpu_torch.training.optim import global_norm
+
+    grads = {k: v.float().cpu() for k, v in res["grads"].items()}
+    return dict(loss=res["loss"].item(), grad_norm=global_norm(grads.values()).item(),
+                grads=grads, params={k: v.detach().cpu() for k, v in params.items()},
+                launches=launches)
+
+
+def controlnet_train_card_vs_cpu(gen, dev="cuda", cfg=None, batch=2, text_len=100):
+    """Phase 26, second half: one ControlNet train step on the card and on
+    the CPU from the same weights, batch and draws (the energy config at
+    full width, depth 2): ``train_step_agreement``'s limits over the
+    ControlNet's gradients and parameters, its q/k/v gradients non-zero."""
+    import copy
+
+    import torch
+
+    from ezaudio_tpu_torch.api.ezaudio import init_random_
+    from ezaudio_tpu_torch.config import get_model_config
+    from ezaudio_tpu_torch.diffusion.ddim import DDIMSchedule
+    from ezaudio_tpu_torch.models.controlnet import controlnet_from_config, init_from_base_
+    from ezaudio_tpu_torch.models.maskdit import maskdit_from_config
+    from ezaudio_tpu_torch.training.controlnet_trainer import make_controlnet_train_step
+
+    if cfg is None:
+        cfg = get_model_config("energy").to_dict()
+        cfg["model"]["depth"] = 2
+    cfg = copy.deepcopy(cfg)
+    m, lr = cfg["model"], 1e-4
+    cpu_gen = torch.Generator().manual_seed(261)
+    dit = init_random_(maskdit_from_config(m), cpu_gen)
+    cn = init_random_(controlnet_from_config(m, cfg["controlnet"]), cpu_gen)
+    init_from_base_(cn, dit.model)
+    weights = (dit.state_dict(), cn.state_dict())
+    frames = m["img_size"]
+    text_mask = torch.ones(batch, text_len, dtype=torch.bool)
+    text_mask[0, 23:] = False
+    host = dict(latents=torch.randn(batch, frames, m["out_chans"], generator=cpu_gen),
+                condition=torch.rand(batch, 2 * frames, cfg["controlnet"]["cond_in"],
+                                     generator=cpu_gen),
+                text=torch.randn(batch, text_len, m["context_dim"], generator=cpu_gen),
+                text_mask=text_mask)
+    schedule = DDIMSchedule.from_config(cfg["diff"])
+
+    def step(device):
+        with torch.device(device):
+            d, c = maskdit_from_config(m), controlnet_from_config(m, cfg["controlnet"])
+        d.load_state_dict(weights[0])
+        c.load_state_dict(weights[1])
+        fn = make_controlnet_train_step(d, c, schedule, learning_rate=lr, warmup=0, snr_gamma=5.0)
+        draws = fn.draw(torch.Generator().manual_seed(262), host)
+        draws["select"][:] = torch.tensor([0.1] + [0.9] * (batch - 1))  # one sample masked
+        reset_counters()
+        res = fn({k: v.to(device) for k, v in host.items()}, seed=0,
+                 draws={k: v.to(device) for k, v in draws.items()}, return_grads=True)
+        sync(device)
+        return _step_row(res, dict(c.named_parameters()), read_counters())
+
+    cpu = step("cpu")
+    want = controlnet_train_launches(m)
+    row, bad = train_step_agreement(step(dev), cpu, lr, m["depth"], want,
+                                    n_attn=2 * (m["depth"] // 2),
+                                    zero_names=[n for n in cpu["grads"]
+                                                if n.endswith("cross_attn.norm_k.bias")])
+    row.update(path="controlnet_train_card_vs_cpu", depth=m["depth"], batch=batch)
+    log("controlnet_train_card_vs_cpu " + json.dumps(row))
+    if bad:
+        raise AssertionError("controlnet train step, card against CPU: " + "; ".join(bad))
+    return row
+
+
+def _distill_fns(guidance):
+    """The student (single batch, no CFG) and the CFG teacher of
+    scripts/distill_validate.py: cond and zero context on the doubled batch."""
+    import torch
+
+    def builder(batch, teacher):
+        def fn(x, t):
+            ctx = torch.cat([batch["text"], torch.zeros_like(batch["text"])])
+            out, _ = teacher(torch.cat([x, x]), torch.cat([t, t]), ctx)
+            cond, unc = out.chunk(2)
+            return unc + guidance * (cond - unc)
+        return fn
+
+    def student_apply(student):
+        return lambda x, t, batch: student(x, t, batch["text"])[0]
+
+    return builder, student_apply
+
+
+def distill_land_error(step, data, gen) -> float:
+    """One student DDIM step with ``v*`` from ``x_t``, against the
+    teacher's two-step target: max error over max |target|."""
+    import torch
+
+    from ezaudio_tpu_torch.diffusion import distill
+
+    d = step.draw(gen, data["latents"])
+    x0, m = data["latents"].float(), d["m"]
+    a = distill._table(step.tables.a_t, m, x0)
+    a_prev = distill._table(step.tables.a_prev, m, x0)
+    x_t = a.sqrt() * x0 + (1.0 - a).sqrt() * d["eps"]
+    with torch.no_grad():
+        target = distill.teacher_two_step_target(step.builder(data, step.teacher), step.schedule,
+                                                 x_t, m, step.tables)
+    v_star = distill.v_target_from_endpoint(x_t, target, a, a_prev)
+    land = step.schedule.ddim_step(v_star, x_t, a, a_prev)
+    return ((land - target).abs().max() / target.abs().max()).item()
+
+
+def distill_path(ez, batch=4, seconds=10.0, steps=4, n_student=8, guidance=5.0, lr=1e-4):
+    """Phase 27: one progressive-distillation stage on ``ez``'s DiT (the student,
+    a deep copy of the teacher, takes ``n_student`` steps for the teacher's
+    2 ``n_student``; CFG ``guidance`` folded in), ``batch`` seeded latents
+    of ``seconds`` with T5 on seeded captions, ``steps`` steps; the
+    landing check, the teacher's bytes unchanged, the launches of each
+    step.  Then the student serves ``generate_audio(sampler='distilled')``
+    for 10 s: ``n_student`` model calls and the decode."""
+    import numpy as np
+    import torch
+
+    from ezaudio_tpu_torch.codecs.oobleck import ResidualUnit
+    from ezaudio_tpu_torch.diffusion import distill
+    from ezaudio_tpu_torch.training.optim import make_optimizer
+
+    dev = ez.device
+    cuda = dev.type == "cuda"
+    m = ez.params_cfg.model.to_dict()
+    teacher = ez.dit
+    student = distill.student_from_teacher(teacher)
+    builder, student_apply = _distill_fns(guidance)
+    step = distill.make_distill_step(student_apply(student), builder, ez.noise_scheduler,
+                                     make_optimizer(student, learning_rate=lr, warmup=0),
+                                     distill.distill_tables(ez.noise_scheduler, n_student),
+                                     teacher=teacher)
+    frames = int(seconds * ez.latent_sr)
+    gen = torch.Generator(device=dev).manual_seed(27)
+    text = ez.embed_text([PROMPTS[i % len(PROMPTS)] for i in range(batch)])[0].clone()
+    data = dict(latents=torch.randn(batch, frames, ez.latent_dim, device=dev, generator=gen),
+                text=text)
+    land = distill_land_error(step, data, gen)
+    before = snapshot(teacher)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    rows = timed_steps(dev, steps, lambda i: step(data, seed=0))
+    peak = mem_gib(torch.cuda.max_memory_allocated) if cuda else None
+    moved = unchanged(teacher, before)
+    student_moved = sum(not torch.equal(p.detach().cpu(), before[n])
+                        for n, p in student.state_dict().items())
+    want = distill_train_launches(m)
+    wall = statistics.median(r["wall_s"] for r in rows[1:]) if steps > 1 else rows[0]["wall_s"]
+    ez.dit = student.eval()
+    n_res = sum(isinstance(x, ResidualUnit) for x in ez.autoencoder.model.decoder.modules())
+    n_samples = int(seconds * ez.latent_sr) * ez.autoencoder.downsampling_ratio
+    served = run_path("distilled_student", dev,
+                      lambda: ez.generate_audio(PROMPTS[0], length=seconds, sampler="distilled",
+                                                ddim_steps=n_student, random_seed=7)[1],
+                      2 * (m["depth"] + 1) * n_student, n_res, seconds, n_samples,
+                      dtype="float32")
+    served.pop("wav")
+    ez.dit = teacher
+    row = dict(path="distill_train", card=card_line() if cuda else "cpu", batch=batch,
+               clip_s=seconds, steps=steps, student_steps=n_student,
+               teacher_steps=2 * n_student, guidance=guidance, lr=lr,
+               land_rel_err=land, land_tol=DISTILL_LAND_TOL,
+               step_wall_s=wall, step_wall_s_all=[r["wall_s"] for r in rows],
+               samples_per_s=batch / wall, peak_mem_gib=peak,
+               losses=[r["out"]["loss"].item() for r in rows],
+               launches_per_step=[r["launches"] for r in rows],
+               teacher_tensors_changed=len(moved), student_tensors_moved=student_moved,
+               served=served)
+    log("distill_train " + json.dumps(row))
+    bad = []
+    if not land <= DISTILL_LAND_TOL:
+        bad.append(f"v* lands {land} from the target")
+    if moved or not student_moved:
+        bad.append(f"teacher changed {moved[:3]}, student moved {student_moved}")
+    for i, r in enumerate(rows):
+        if r["launches"] != [want, 0] or r["by_dtype"] != want_by_dtype(want, 0, "float32"):
+            bad.append(f"step {i + 1} launches {r['launches']}, want {want}, 0")
+    if not np.isfinite(row["losses"]).all():
+        bad.append("losses")
+    if bad:
+        raise AssertionError("distill: " + "; ".join(bad))
+    row.update(attention_launches=sum(r["launches"][0] for r in rows)
+               + served["attention_launches"],
+               resunit_launches=served["resunit_launches"],
+               resunit_shapes=served["resunit_shapes"])
+    return row
+
+
+def distill_card_vs_cpu(gen, dev="cuda", cfg=None, batch=2, text_len=100, n_student=8,
+                        guidance=5.0):
+    """Phase 27, second half: one distillation step on the card and on the
+    CPU from the same weights, batch and draws (s3_l at full width, depth
+    2): ``train_step_agreement``'s limits over the student."""
+    import copy
+
+    import torch
+
+    from ezaudio_tpu_torch.api.ezaudio import init_random_
+    from ezaudio_tpu_torch.config import get_model_config
+    from ezaudio_tpu_torch.diffusion import distill
+    from ezaudio_tpu_torch.diffusion.ddim import DDIMSchedule
+    from ezaudio_tpu_torch.models.maskdit import maskdit_from_config
+    from ezaudio_tpu_torch.training.optim import make_optimizer
+
+    if cfg is None:
+        cfg = get_model_config("s3_l").to_dict()
+        cfg["model"]["depth"] = 2
+    cfg = copy.deepcopy(cfg)
+    m, lr = cfg["model"], 1e-4
+    cpu_gen = torch.Generator().manual_seed(271)
+    weights = init_random_(maskdit_from_config(m), cpu_gen).state_dict()
+    host = dict(latents=torch.randn(batch, m["img_size"], m["out_chans"], generator=cpu_gen),
+                text=torch.randn(batch, text_len, m["context_dim"], generator=cpu_gen))
+    schedule = DDIMSchedule.from_config(cfg["diff"])
+    builder, student_apply = _distill_fns(guidance)
+
+    def step(device):
+        with torch.device(device):
+            teacher = maskdit_from_config(m)
+        teacher.load_state_dict(weights)
+        student = distill.student_from_teacher(teacher)
+        fn = distill.make_distill_step(student_apply(student), builder, schedule,
+                                       make_optimizer(student, learning_rate=lr, warmup=0),
+                                       distill.distill_tables(schedule, n_student),
+                                       teacher=teacher)
+        draws = fn.draw(torch.Generator().manual_seed(272), host["latents"])
+        reset_counters()
+        res = fn({k: v.to(device) for k, v in host.items()}, seed=0,
+                 draws={k: v.to(device) for k, v in draws.items()}, return_grads=True)
+        sync(device)
+        return _step_row(res, dict(student.named_parameters()), read_counters())
+
+    cpu = step("cpu")
+    row, bad = train_step_agreement(step(dev), cpu, lr, m["depth"], distill_train_launches(m),
+                                    zero_names=[n for n in cpu["grads"]
+                                                if n.endswith("cross_attn.norm_k.bias")])
+    row.update(path="distill_card_vs_cpu", depth=m["depth"], batch=batch)
+    log("distill_card_vs_cpu " + json.dumps(row))
+    if bad:
+        raise AssertionError("distill step, card against CPU: " + "; ".join(bad))
+    return row
+
+
+def mixed_precision_faults(trainer, mu_dtype=None) -> list:
+    """The bf16 trainer's invariants: the step computes in bf16, the
+    parameters stay f32, and so does every optimizer state tensor but a
+    first moment kept in ``mu_dtype``."""
+    import torch
+
+    faults = [] if trainer.step_fn.dtype == torch.bfloat16 else ["compute dtype"]
+    faults += [n for n, p in trainer.model.named_parameters() if p.dtype != torch.float32]
+    mu = torch.bfloat16 if mu_dtype == "bfloat16" else torch.float32
+
+    def walk(obj, key=""):
+        if isinstance(obj, torch.Tensor):
+            want = mu if key in ("mu", "ema") else torch.float32
+            if obj.is_floating_point() and obj.dtype != want:
+                faults.append(f"optimizer {key} {obj.dtype}")
+        elif isinstance(obj, dict):
+            for k, v in obj.items():
+                walk(v, k if k in ("mu", "ema") else key)
+        elif isinstance(obj, (list, tuple)):
+            for v in obj:
+                walk(v, key)
+
+    walk(trainer.optimizer.rule.state_dict())
+    return faults
+
+
+def bf16_agreement_stats(got, want, ref):
+    """``(d_got, d_ref, corr)``: max |got - want|, max |want - ref| and the
+    correlation of got with want, over flat f32 copies."""
+    import torch
+
+    got, want, ref = (t.detach().float().cpu().ravel() for t in (got, want, ref))
+    corr = torch.corrcoef(torch.stack([got, want]))[0, 1].item()
+    return (got - want).abs().max().item(), (want - ref).abs().max().item(), corr
+
+
+def check_attention_grad_bf16(dev, gen, cases=ATTN_GRAD_CASES):
+    """Phase 28: kernel 1's bf16 autograd gradients (the kernel forward,
+    the plain twin's vjp at the bf16 inputs) held against SDPA's bf16
+    gradients by the statistical rule: no farther from the f32 gradients
+    (the plain twin's at the same inputs in f32) than BF16_REF_FACTOR times
+    SDPA's distance, correlated with SDPA's above BF16_ATTN_GRAD_CORR."""
+    import torch
+    import torch.nn.functional as F
+
+    from ezaudio_tpu_torch.ops.kernels.attention import attention_plain, fused_attention
+
+    rows = []
+    for (B, H, Lq, Lk, D, masked) in cases:
+        q, k, v = (torch.randn(B, H, L, D, device=dev, generator=gen) for L in (Lq, Lk, Lk))
+        g = torch.randn(B, H, Lq, D, device=dev, generator=gen)
+        mask = None
+        if masked:
+            lens = torch.tensor([23 if i % 2 == 0 else Lk for i in range(B)], device=dev)
+            mask = torch.arange(Lk, device=dev)[None, :] < lens[:, None]
+        sdpa_mask = None if mask is None else mask[:, None, None, :]
+
+        def grads(fn, dtype):
+            ins = [t.to(dtype).requires_grad_() for t in (q, k, v)]
+            out = fn(*ins)
+            return out, dict(zip("qkv", torch.autograd.grad(out, ins, g.to(dtype))))
+
+        o, got = grads(lambda *a: fused_attention(*a, key_mask=mask), torch.bfloat16)
+        if o.grad_fn is None or type(o.grad_fn).__name__ != "FusedAttentionBackward":
+            raise AssertionError(f"bf16 attention {B, H, Lq, Lk, D}: no kernel grad_fn")
+        _, sdpa = grads(lambda *a: F.scaled_dot_product_attention(*a, attn_mask=sdpa_mask),
+                        torch.bfloat16)
+        _, ref = grads(lambda *a: attention_plain(*a, key_mask=mask), torch.float32)
+        sync(dev)
+        stats = {}
+        for n in "qkv":
+            d_kernel = (got[n].float() - ref[n]).abs().max().item()
+            d_sdpa = (sdpa[n].float() - ref[n]).abs().max().item()
+            corr = bf16_agreement_stats(got[n], sdpa[n], ref[n])[2]
+            stats[n] = dict(kernel_to_f32=d_kernel, sdpa_to_f32=d_sdpa, corr_with_sdpa=corr,
+                            ok=d_kernel <= BF16_REF_FACTOR * d_sdpa
+                            and corr > BF16_ATTN_GRAD_CORR)
+        row = dict(kind="attention_backward_bf16", shape=[B, H, Lq, Lk, D], masked=masked,
+                   grads=stats, grad_fn=type(o.grad_fn).__name__)
+        log("attention_grad_bf16 " + json.dumps(row))
+        if not all(s["ok"] for s in stats.values()):
+            raise AssertionError(f"bf16 attention gradients {row['shape']}: {stats}")
+        rows.append(row)
+    return rows
+
+
+def bf16_train_card_vs_cpu(gen, dev="cuda", cfg=None, batch=2, text_len=100,
+                           optimizers=BF16_TRAIN_OPTIMIZERS):
+    """Phase 28, second half: one bf16 mixed-precision train step under
+    each optimizer of ``optimizers``, on the card and on the CPU, and one
+    f32 step on the CPU, from the same weights, bf16 batch and draws (s3_l
+    at full width, depth 2): the statistical rule (``BF16_*``) on the
+    gradients, the loss and the parameters' updates; every launch bf16;
+    ``mixed_precision_faults`` empty."""
+    import copy
+
+    import torch
+
+    from ezaudio_tpu_torch.api.ezaudio import init_random_
+    from ezaudio_tpu_torch.config import get_model_config
+    from ezaudio_tpu_torch.diffusion.ddim import DDIMSchedule
+    from ezaudio_tpu_torch.models.maskdit import maskdit_from_config
+    from ezaudio_tpu_torch.training.trainer import Trainer
+
+    if cfg is None:
+        cfg = get_model_config("s3_l").to_dict()
+        cfg["model"]["depth"] = 2
+    cfg = copy.deepcopy(cfg)
+    m, lr = cfg["model"], 1e-4
+    schedule = DDIMSchedule.from_config(cfg["diff"])
+    cpu_gen = torch.Generator().manual_seed(281)
+    weights = init_random_(maskdit_from_config(m), cpu_gen).state_dict()
+    frames, C, ctx = m["img_size"], m["out_chans"], m["context_dim"]
+    text_mask = torch.ones(batch, text_len, dtype=torch.bool)
+    text_mask[0, 23:] = False
+    uncond_mask = torch.zeros(1, text_len, dtype=torch.bool)
+    uncond_mask[0, :1] = True
+    host = dict(latents=torch.randn(batch, frames, C, generator=cpu_gen).bfloat16(),
+                text=torch.randn(batch, text_len, ctx, generator=cpu_gen).bfloat16(),
+                text_mask=text_mask,
+                uncond=torch.randn(1, text_len, ctx, generator=cpu_gen).bfloat16(),
+                uncond_mask=uncond_mask)
+
+    def step(device, dtype, opt_kw):
+        with torch.device(device):
+            model = maskdit_from_config(m)
+        model.load_state_dict(weights)
+        trainer = Trainer.create(model.train(), schedule,
+                                 dict(learning_rate=lr, warmup=0, snr_gamma=5.0, **opt_kw),
+                                 dtype=dtype)
+        draws = trainer.step_fn.draw(torch.Generator().manual_seed(282), batch, frames, C, "cpu")
+        draws["cfg"][:] = torch.tensor([0.05] + [0.9] * (batch - 1))
+        reset_counters()
+        res = trainer.step_fn({k: v.to(device, dtype if v.is_floating_point() else v.dtype)
+                               for k, v in host.items()}, seed=0,
+                              draws={k: v.to(device) for k, v in draws.items()},
+                              return_grads=True)
+        sync(device)
+        names = sorted(res["grads"])
+        return dict(loss=res["loss"].item(),
+                    grads=torch.cat([res["grads"][n].float().cpu().ravel() for n in names]),
+                    update=torch.cat([(p.detach().float().cpu() - weights[n]).ravel()
+                                      for n, p in sorted(model.named_parameters())]),
+                    faults=mixed_precision_faults(trainer, opt_kw.get("mu_dtype"))
+                    if dtype == torch.bfloat16 else [],
+                    launches=list(read_counters()), by_dtype=read_dtype_counters())
+
+    ref = step("cpu", torch.float32, {})
+    want = train_attention_launches(m)
+    rows, bad = [], []
+    for name, kw in optimizers:
+        c, g = step("cpu", torch.bfloat16, kw), step(dev, torch.bfloat16, kw)
+        d_card, d_ref, corr = bf16_agreement_stats(g["grads"], c["grads"], ref["grads"])
+        upd_corr = bf16_agreement_stats(g["update"], c["update"], c["update"])[2]
+        row = dict(path="bf16_train_card_vs_cpu", optimizer=name, depth=m["depth"], batch=batch,
+                   loss=[g["loss"], c["loss"], ref["loss"]], grad_card_to_cpu=d_card,
+                   grad_cpu_bf16_to_f32=d_ref, grad_corr=corr, update_corr=upd_corr,
+                   faults=g["faults"] + c["faults"], launches=g["launches"],
+                   by_dtype=g["by_dtype"])
+        log("bf16_train_card_vs_cpu " + json.dumps(row))
+        if not (d_card <= BF16_REF_FACTOR * d_ref and corr > BF16_TRAIN_CORR):
+            bad.append(f"{name}: gradients {d_card} vs {d_ref}, corr {corr}")
+        if not abs(g["loss"] - c["loss"]) <= BF16_LOSS_REL * abs(c["loss"]):
+            bad.append(f"{name}: loss {g['loss']} vs {c['loss']}")
+        if not upd_corr > BF16_TRAIN_CORR:
+            bad.append(f"{name}: updates correlate {upd_corr}")
+        if row["faults"]:
+            bad.append(f"{name}: mixed precision {row['faults'][:4]}")
+        if g["launches"][0] != want or g["by_dtype"] != want_by_dtype(want, 0, "bfloat16"):
+            bad.append(f"{name}: launches {g['by_dtype']}, want {want} bf16")
+        rows.append(row)
+    if bad:
+        raise AssertionError("bf16 train step, card against CPU: " + "; ".join(bad))
+    return rows
+
+
+def flow_paths(ez, batch=4, seconds=10.0, steps=10, lr=1e-4, guidance=5.0, rescale=0.75):
+    """Phase 29, flow: one ``flow_matching_loss`` train step of a copy of
+    ``ez``'s DiT (``batch`` seeded latents, the MAE training branch, AdamW)
+    and a ``steps``-step Heun ``flow_sample`` with CFG and rescale on one
+    prompt, decoded; each run's launches."""
+    import copy
+
+    import torch
+
+    from ezaudio_tpu_torch.codecs.oobleck import ResidualUnit
+    from ezaudio_tpu_torch.diffusion.flow import FlowSchedule, flow_matching_loss, flow_sample
+    from ezaudio_tpu_torch.ops.quant import quant_context
+    from ezaudio_tpu_torch.training.optim import make_optimizer, named_grads
+    from ezaudio_tpu_torch.utils import scale_shift_re
+
+    dev, m = ez.device, ez.params_cfg.model.to_dict()
+    frames = int(seconds * ez.latent_sr)
+    gen = torch.Generator(device=dev).manual_seed(29)
+    sched = FlowSchedule()
+    text, text_mask = (t.clone() for t in ez.embed_text(
+        [PROMPTS[i % len(PROMPTS)] for i in range(batch)]))
+    model = copy.deepcopy(ez.dit).train().requires_grad_(True)
+    opt = make_optimizer(model, learning_rate=lr, warmup=0)
+    x0 = torch.randn(batch, frames, ez.latent_dim, device=dev, generator=gen)
+    noise = torch.randn(x0.shape, device=dev, generator=gen)
+    t = torch.rand(batch, device=dev, generator=gen)
+    draws = model.draw_mask(gen, batch, frames, dev)
+
+    def train():
+        with quant_context("off"):
+            loss = flow_matching_loss(
+                lambda xt, ts: model(xt, ts, text, context_mask=text_mask, gt=x0,
+                                     mask_draws=draws), x0, noise, t, schedule=sched)
+            opt.update(named_grads(opt.params.items(), loss))
+        return loss.detach()
+
+    (tr,) = timed_steps(dev, 1, lambda i: train())
+    want_train = train_attention_launches(m)
+    del model, opt
+    cond, cmask = ez.embed_text([PROMPTS[0]])
+    uncond, umask = ez._uncond_embedding(1)
+    ctx, ctx_mask = torch.cat([cond, uncond]), torch.cat([cmask, umask])
+
+    @torch.no_grad()
+    def sample():
+        z = flow_sample(lambda x, ts: ez.dit(x, ts, ctx[:x.shape[0]],
+                                             context_mask=ctx_mask[:x.shape[0]])[0],
+                        sched, torch.randn(1, frames, ez.latent_dim, device=dev, generator=gen),
+                        steps, guidance_scale=guidance, guidance_rescale=rescale, method="heun")
+        return ez._decode(scale_shift_re(z, ez.scale, ez.shift))
+
+    n_res = sum(isinstance(x, ResidualUnit) for x in ez.autoencoder.model.decoder.modules())
+    n_samples = frames * ez.autoencoder.downsampling_ratio
+    row = run_path("flow_heun_cfg", dev, sample, 2 * steps * 2 * (m["depth"] + 1), n_res,
+                   seconds, n_samples, dtype="float32")
+    row.pop("wav")
+    train_row = dict(path="flow_train", batch=batch, clip_s=seconds, loss=tr["out"].item(),
+                     wall_s=tr["wall_s"], attention_launches=tr["launches"][0],
+                     resunit_launches=tr["launches"][1], launches_by_dtype=tr["by_dtype"],
+                     resunit_shapes=[])
+    log("flow_train " + json.dumps(train_row))
+    if (tr["launches"] != [want_train, 0] or not torch.isfinite(tr["out"])
+            or tr["by_dtype"] != want_by_dtype(want_train, 0, "float32")):
+        raise AssertionError(f"flow train step: {train_row}")
+    return [train_row, row]
+
+
+def tool_paths(ez, root, clips=16, seconds=10.0, batch=TRAIN_BATCH, t5_config=None,
+               vae_config=None):
+    """Phase 29, the tools: ``eval_udit`` in MAE mode on one seeded clip
+    (kernel 2's encode and decode; the sampler at its defaults), then
+    ``prepare_embeddings`` on phase 24's manifest and one ``train_cli`` step
+    from those files (batch 8)."""
+    import csv
+
+    import numpy as np
+
+    from ezaudio_tpu_torch.codecs.oobleck import ResidualUnit
+    from ezaudio_tpu_torch.data.audio_io import load_wav, save_wav
+    from ezaudio_tpu_torch.training import evaluate, prepare_embeddings, train_cli
+
+    dev, m = ez.device, ez.params_cfg.model.to_dict()
+    val = os.path.join(root, "val")
+    os.makedirs(val, exist_ok=True)
+    save_wav(os.path.join(val, "0.wav"), seeded_clip(ez.sr, seconds), ez.sr)
+    with open(os.path.join(val, "meta.csv"), "w", newline="") as f:
+        w = csv.DictWriter(f, fieldnames=["audio_path", "caption", "split", "audio_length"])
+        w.writeheader()
+        w.writerow(dict(audio_path="0.wav", caption=PROMPTS[1], split="val",
+                        audio_length=seconds))
+    vae = ez.autoencoder.model
+    n_enc, n_dec = (sum(isinstance(x, ResidualUnit) for x in part.modules())
+                    for part in (vae.encoder, vae.decoder))
+    steps = 50  # eval_udit's default; it renders 10 s
+    row = run_path("eval_udit_mae", dev,
+                   lambda: load_wav(evaluate.eval_udit(
+                       ez, os.path.join(val, "meta.csv"), "val", audio_dir=val, mae=True,
+                       save_path=os.path.join(root, "eval"), val_num=1)[0])[None],
+                   steps * 2 * (m["depth"] + 1), n_enc + n_dec, 10.0,
+                   int(10 * ez.sr), dtype="float32")
+    row.pop("wav")
+    rows = [row]
+
+    meta = write_training_set(os.path.join(root, "train"), clips, seconds, ez.sr)
+    emb = os.path.join(root, "emb")
+    t0 = time.perf_counter()
+    n = prepare_embeddings.prepare(ez, meta, emb, "train", batch_size=batch)
+    prep_s = time.perf_counter() - t0
+    if n != clips or len(os.listdir(emb)) != clips + 1:
+        raise AssertionError(f"prepare_embeddings wrote {n} clips: {sorted(os.listdir(emb))}")
+    cfg = json.loads(json.dumps(ez.params_cfg.to_dict()))
+    path = training_config(os.path.join(root, "train"), cfg, meta, batch, seconds, ez.sr)
+    with open(path) as f:
+        cfg = json.load(f)
+    cfg["data"]["train"].update(text_path=emb, uncond_path=os.path.join(emb, "uncond.npz"),
+                                cfg_prob=0.1)
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    record = []
+
+    def on_step(step, metrics):
+        sync(dev)
+        record.append(dict(loss=metrics["loss"].item(), launches=list(read_counters()),
+                           by_dtype=read_dtype_counters()))
+
+    argv = ["--config-name", path, "--max-steps", "1", "--log-dir", os.path.join(root, "logs"),
+            "--save-dir", os.path.join(root, "ckpts"), "--random-seed", "0"]
+    if dev.type != "cuda":
+        argv += ["--device", str(dev)]
+    seen = set()
+    reset_counters()
+    with resunit_shapes(seen):
+        trainer = train_cli.main(argv, t5_config=t5_config, vae_config=vae_config,
+                                 on_step=on_step)
+    del trainer
+    want = train_attention_launches(cfg["model"])
+    offline = dict(path="train_offline_embeddings", prepare_s=prep_s, clips=n,
+                   loss=record[0]["loss"] if record else None,
+                   attention_launches=record[0]["launches"][0] if record else 0,
+                   resunit_launches=record[0]["launches"][1] if record else 0,
+                   resunit_shapes=sorted(seen, reverse=True))
+    log("train_offline_embeddings " + json.dumps(offline))
+    if (len(record) != 1 or record[0]["launches"] != [want, n_enc]
+            or not np.isfinite(record[0]["loss"])
+            or record[0]["by_dtype"] != want_by_dtype(want, n_enc, "float32")):
+        raise AssertionError(f"train from offline embeddings: {record}")
+    return rows + [offline]
+
 
 
 def _kernel_class(name: str) -> str:
@@ -2196,7 +3038,7 @@ def profile(steps: int = 5, out_dir: str = "chiprun_out") -> None:
     os.makedirs(out_dir, exist_ok=True)
     for dtype in ("float32", "bfloat16"):
         profile_dtype(steps, out_dir, dtype)
-    profile_train(out_dir)
+        profile_train(out_dir, dtype=dtype)
 
 
 def _breakdown(prof, wall_ms, out_path, **info):
@@ -2224,9 +3066,10 @@ def _breakdown(prof, wall_ms, out_path, **info):
     return row
 
 
-def profile_train(out_dir: str, batch: int = TRAIN_BATCH) -> dict:
+def profile_train(out_dir: str, batch: int = TRAIN_BATCH, dtype: str = "float32") -> dict:
     """Device-time breakdown of one s3_l train step (batch ``batch`` x 10 s,
-    full remat, f32) on seeded latents and text embeddings: the step alone,
+    full remat, f32 or bf16 mixed precision) on seeded latents and text
+    embeddings (in ``dtype``, as the VAE and T5 give them): the step alone,
     without the data, the VAE encode and T5 of ``train_cli``."""
     import torch
     from torch.profiler import ProfilerActivity, profile as tprofile
@@ -2242,13 +3085,14 @@ def profile_train(out_dir: str, batch: int = TRAIN_BATCH) -> dict:
     with torch.device("cuda"):
         dit = maskdit_from_config(cfg["model"])
     init_random_(dit, gen)
+    dt = getattr(torch, dtype)
     trainer = Trainer.create(dit.train(), DDIMSchedule.from_config(cfg["diff"]),
-                             dict(learning_rate=1e-4, warmup=2))
+                             dict(learning_rate=1e-4, warmup=2), dtype=dt)
     lens = torch.tensor([23 + 9 * i for i in range(batch)], device="cuda")
-    batch_ = dict(latents=torch.randn(batch, 500, 128, device="cuda", generator=gen),
-                  text=torch.randn(batch, 100, 1024, device="cuda", generator=gen),
+    batch_ = dict(latents=torch.randn(batch, 500, 128, device="cuda", generator=gen).to(dt),
+                  text=torch.randn(batch, 100, 1024, device="cuda", generator=gen).to(dt),
                   text_mask=torch.arange(100, device="cuda")[None] < lens[:, None],
-                  uncond=torch.randn(1, 100, 1024, device="cuda", generator=gen),
+                  uncond=torch.randn(1, 100, 1024, device="cuda", generator=gen).to(dt),
                   uncond_mask=torch.arange(100, device="cuda")[None] < 1)
     for _ in range(2):
         trainer.train_step(batch_, 0)
@@ -2258,8 +3102,9 @@ def profile_train(out_dir: str, batch: int = TRAIN_BATCH) -> dict:
         trainer.train_step(batch_, 0)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    return _breakdown(prof, wall_ms, os.path.join(out_dir, "profile_train.txt"),
-                      path="train_step", batch=batch, remat="full", dtype="float32")
+    tag = "" if dtype == "float32" else f"_{dtype}"
+    return _breakdown(prof, wall_ms, os.path.join(out_dir, f"profile_train{tag}.txt"),
+                      path="train_step", batch=batch, remat="full", dtype=dtype)
 
 
 def profile_dtype(steps: int, out_dir: str, dtype: str) -> None:
@@ -2398,12 +3243,42 @@ def main(argv) -> int:
         train = training_path()
         paths.append(train)
     check_freed("s3_l trainer", before)
-    missing = sorted(set(train["resunit_batch_shapes"]) - set(RESUNIT_CASES))
-    if missing:
-        raise AssertionError(f"ResidualUnit shapes of the training path not in phase 3: {missing}")
+    check_batch_shapes(train, RESUNIT_CASES)
     with phase("25 train step card_vs_cpu"):
         train_step_card_vs_cpu(gen)
     check_freed("train step card_vs_cpu", before)
+    with phase("28 bf16 train"):
+        check_attention_grad_bf16("cuda", gen)
+        train16 = training_path(dtype="bfloat16")
+        paths.append(train16)
+        log("train_f32_vs_bf16 " + json.dumps({
+            k: [train[k], train16[k]] for k in ("step_wall_s", "samples_per_s", "model_tflops",
+                                                "share_of_peak", "peak_mem_gib")}))
+    check_freed("s3_l bf16 trainer", before)
+    check_batch_shapes(train16, RESUNIT_BF16_CASES)
+    with phase("28 bf16 train step card_vs_cpu"):
+        bf16_train_card_vs_cpu(gen)
+    check_freed("bf16 train step card_vs_cpu", before)
+    with phase("26 controlnet train"):
+        paths.append(controlnet_train_path())
+    check_freed("ControlNet trainer", before)
+    with phase("26 controlnet train card_vs_cpu"):
+        controlnet_train_card_vs_cpu(gen)
+    check_freed("ControlNet train step card_vs_cpu", before)
+    ez = build_ezaudio()
+    with phase("27 distill"):
+        paths.append(distill_path(ez))
+    with phase("27 distill card_vs_cpu"):
+        distill_card_vs_cpu(gen)
+    with phase("29 flow and tools"):
+        paths += flow_paths(ez)
+        root = tempfile.mkdtemp(prefix="ezaudio_tools_")
+        try:
+            paths += tool_paths(ez, root)
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+    del ez
+    check_freed("s3_l distill, flow and tools", before)
 
     missing = uncovered_shapes(paths)
     if missing:

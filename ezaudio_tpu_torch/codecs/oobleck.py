@@ -39,7 +39,7 @@ class SnakeBeta(nn.Module):
         self.alpha = nn.Parameter(torch.zeros(channels))
         self.beta = nn.Parameter(torch.zeros(channels))
 
-    def cast_(self, dtype):
+    def cast_(self, dtype, cast=None):
         """alpha and beta stay f32: exp'd in f32, then cast to x's dtype
         (``utils.cast_params_``)."""
 

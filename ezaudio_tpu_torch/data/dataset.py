@@ -8,16 +8,17 @@
   * channel policy: 5.1 -> mean of the front pair; stereo -> mono mean,
     or with ``mono=False`` a random pick of mean, left or right;
   * a random ``seg_length``-second crop, zero padding to the fixed length,
-    peak normalisation;
+    peak normalisation, then ``aug_config``'s waveform augmentations
+    (``wav_aug.py``) drawn from the dataset's generator;
   * offline embeddings: a cached per-clip text embedding and mask
     (``<text_path>/<absolute_index>.npz``), swapped for the cached uncond
     embedding with probability ``cfg_prob``;
   * ``prepare_mode`` yields (text, absolute_index) for precomputing them.
 
 The numpy draws are the JAX package's, in its order, so one manifest and
-one seed give the same batches bit for bit.  ``aug_config`` and
-``use_native=True`` raise until ``wav_aug`` and the native loader are
-ported (ROADMAP queue 1 item 9).
+one seed give the same batches bit for bit, augmentations included.
+``use_native=True`` raises until the native loader is ported (ROADMAP
+queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ from typing import Iterator, Optional
 import numpy as np
 
 from ezaudio_tpu_torch.data.audio_io import load_wav
+from ezaudio_tpu_torch.data.wav_aug import WavAugmentation
 
 _TRUE = ("true", "1", "1.0")
 
@@ -49,9 +51,6 @@ class EACaps:
                  uncond_path: Optional[str] = None, cfg_prob: float = 0.0,
                  prepare_mode: bool = False, seed: int = 0,
                  use_native: bool = False, native_threads: int = 8, **kwargs):
-        if aug_config:
-            raise NotImplementedError("aug_config (wav_aug) is not ported yet "
-                                      "(ROADMAP queue 1 item 9)")
         if use_native:
             raise NotImplementedError("use_native (the native batch loader) is not ported "
                                       "yet (ROADMAP queue 1 item 9)")
@@ -69,6 +68,7 @@ class EACaps:
         self.mono = mono
         self.prepare_mode = prepare_mode
         self.rng = np.random.default_rng(seed)
+        self.augmenter = WavAugmentation(aug_config, sr=sr, rng=self.rng) if aug_config else None
         self.text_path = text_path
         self.cfg_prob = cfg_prob
         self.uncond = None
@@ -99,6 +99,8 @@ class EACaps:
         clip[: end - start] = y[0, start:end]
         if self.norm:
             clip = clip / (np.abs(clip).max() + 1e-9)
+        if self.augmenter is not None:
+            clip = self.augmenter(clip)
         return clip
 
     def __getitem__(self, index: int):
@@ -140,8 +142,9 @@ class EACaps:
 
 class ResumableIterator:
     """Deterministic, resumable epoch iterator: state = (epoch, step); each
-    epoch reseeds the dataset's generator from (seed, epoch), so a restored
-    state replays the same order and skips what was consumed."""
+    epoch reseeds the dataset's generator from (seed, epoch), and rebinds
+    the augmenter to it, so a restored state replays the same order and
+    augmentations and skips what was consumed."""
 
     def __init__(self, dataset: EACaps, batch_size: int, seed: int = 0):
         self.dataset = dataset
@@ -160,6 +163,8 @@ class ResumableIterator:
     def __iter__(self):
         while True:
             self.dataset.rng = np.random.default_rng((self.seed, self.epoch))
+            if self.dataset.augmenter is not None:
+                self.dataset.augmenter.rng = self.dataset.rng
             for i, batch in enumerate(self.dataset.batches(self.batch_size)):
                 if i < self.step:
                     continue

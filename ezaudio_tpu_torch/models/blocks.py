@@ -41,7 +41,7 @@ class RotaryEmbedding(nn.Module):
         self.register_buffer("inv_freq", inv_freq(head_dim))
         self._cache = {}
 
-    def cast_(self, dtype):
+    def cast_(self, dtype, cast=None):
         """``inv_freq`` stays f32: RoPE runs in f32 (``utils.cast_params_``)."""
 
     def tables(self, L: int):

@@ -332,7 +332,7 @@ class FrozenBatchNorm(nn.Module):
         x = (x.float() - self.running_mean) * torch.rsqrt(self.running_var + self.eps)
         return x * self.weight + self.bias
 
-    def cast_(self, dtype):
+    def cast_(self, dtype, cast=None):
         """Everything stays f32 (``utils.cast_params_``)."""
 
 
@@ -552,10 +552,10 @@ class CLAP(nn.Module):
             out["logits_per_text"] = self.logit_scale_t.exp() * sim.T
         return out
 
-    def cast_(self, dtype):
+    def cast_(self, dtype, cast=None):
         """The logit scales stay f32; the towers cast (``utils.cast_params_``)."""
         for child in self.children():
-            cast_params_(child, dtype)
+            cast_params_(child, dtype, cast)
 
 
 @torch.no_grad()

@@ -81,7 +81,7 @@ class ChannelNorm(nn.Module):
         y = F.group_norm(x.float(), x.shape[1], self.weight, self.bias, self.eps)
         return y.to(x.dtype)
 
-    def cast_(self, dtype):
+    def cast_(self, dtype, cast=None):
         """Weight and bias stay f32 (``utils.cast_params_``)."""
 
 

@@ -24,7 +24,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ezaudio_tpu_torch.models.span_mask import span_mask_draws, span_mask_from_draws
+from ezaudio_tpu_torch.models.span_mask import span_mask_from_draws, train_mask_draws
 from ezaudio_tpu_torch.models.udit import UDiT
 
 
@@ -47,13 +47,8 @@ class MaskDiT(nn.Module):
         ``mask_ratio``, the span mask's ``span_round`` (B,) and
         ``span_scores`` (B, n_pos), and the MAE selection uniforms
         ``select`` (B,)."""
-        lo, hi = self.mask_ratio
-        ratio = torch.rand(batch, generator=generator, device=device) * (hi - lo) + lo
-        span_round, span_scores = span_mask_draws(generator, batch, length, self.mask_span,
-                                                  device)
-        select = torch.rand(batch, generator=generator, device=device)
-        return dict(ratio=ratio.clamp(min=lo), span_round=span_round,
-                    span_scores=span_scores, select=select)
+        return train_mask_draws(generator, batch, length, self.mask_ratio, self.mask_span,
+                                device)
 
     def forward(self, x, timesteps, context=None, x_mask=None, context_mask=None,
                 gt=None, mae_mask_infer=None, forward_model=True, controlnet_skips=None,

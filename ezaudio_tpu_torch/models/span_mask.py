@@ -14,7 +14,7 @@ function of them.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -44,3 +44,18 @@ def span_mask_from_draws(u: torch.Tensor, scores: torch.Tensor, length: int,
     s = starts[:, :, None]
     return ((pos >= s) & (pos < s + mask_length)).any(dim=1)
 
+
+
+def train_mask_draws(generator: Optional[torch.Generator], batch: int, length: int,
+                     mask_ratio: Sequence[float], mask_length: int,
+                     device) -> Dict[str, torch.Tensor]:
+    """The draws of a training span mask applied to a share of the batch,
+    in the JAX package's order: ``ratio`` (batch,) uniform in
+    ``mask_ratio``, the span mask's ``span_round`` and ``span_scores``
+    (:func:`span_mask_draws`), the selection uniforms ``select`` (batch,)."""
+    lo, hi = mask_ratio
+    ratio = torch.rand(batch, generator=generator, device=device) * (hi - lo) + lo
+    span_round, span_scores = span_mask_draws(generator, batch, length, mask_length, device)
+    select = torch.rand(batch, generator=generator, device=device)
+    return dict(ratio=ratio.clamp(min=lo), span_round=span_round, span_scores=span_scores,
+                select=select)

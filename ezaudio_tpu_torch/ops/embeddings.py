@@ -65,7 +65,7 @@ class PatchEmbed1D(nn.Module):
         if T % p:
             raise ValueError(f"sequence length {T} not divisible by patch {p}")
         w = self.proj.weight.permute(2, 1, 0).reshape(p * C, -1)
-        return x.reshape(B, T // p, p * C) @ w + self.proj.bias
+        return x.reshape(B, T // p, p * C).to(w.dtype) @ w + self.proj.bias
 
 
 class PEWrapper(nn.Module):

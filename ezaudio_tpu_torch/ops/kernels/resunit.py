@@ -39,14 +39,19 @@ def residual_unit_plain(x, w7, b7, w1, b1, a1, be1, a2, be2, dilation: int):
     in f32; snake2 in f32, rounded; the 1x1 product, ``b1`` and the
     residual add in f32; one final rounding.  In f32 this is the JAX
     package's ``residual_unit_reference``."""
+    g = residual_unit_g(x, w7, b7, a1, be1, a2, be2, dilation)
+    return (x.float() + (g @ w1.float() + b1.float())).to(x.dtype)
+
+
+def residual_unit_g(x, w7, b7, a1, be1, a2, be2, dilation: int):
+    """snake2's output in :func:`residual_unit_plain`, rounded to x's
+    dtype and held in f32: the operand of the 1x1 product."""
     dt = x.dtype
-    xf = x.float()
     a1, be1, a2, be2 = (t.float() for t in (a1, be1, a2, be2))
-    h = snake_beta_vae(xf, a1, be1).to(dt).float()
+    h = snake_beta_vae(x.float(), a1, be1).to(dt).float()
     h = F.conv1d(h.transpose(1, 2), w7.float().permute(2, 1, 0), b7.float(),
                  padding=3 * dilation, dilation=dilation).transpose(1, 2)
-    g = snake_beta_vae(h, a2, be2).to(dt).float()
-    return (xf + (g @ w1.float() + b1.float())).to(dt)
+    return snake_beta_vae(h, a2, be2).to(dt).float()
 
 
 def _lib():

@@ -23,7 +23,7 @@ class LayerNorm(nn.Module):
                          self.bias.float(), self.eps)
         return y.to(x.dtype)
 
-    def cast_(self, dtype):
+    def cast_(self, dtype, cast=None):
         """Weight and bias stay f32 (``utils.cast_params_``)."""
 
 
@@ -42,7 +42,7 @@ class RMSNorm(nn.Module):
         y = xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + self.eps)
         return (y.to(x.dtype) * self.weight).to(x.dtype)
 
-    def cast_(self, dtype):
+    def cast_(self, dtype, cast=None):
         """The weight stays f32 (``utils.cast_params_``)."""
 
 

@@ -133,10 +133,15 @@ class QuantLinear(nn.Linear):
     def _weight_key(self):
         return (self.weight.data_ptr(), self.weight._version, self.weight.device)
 
-    def cast_(self, dtype):
+    def cast_(self, dtype, cast=None):
         """Cast weight and bias to ``dtype`` (``utils.cast_params_``),
         quantizing the int8 weight first from the f32 weight: the JAX
-        package quantizes its f32 parameter, not a bf16 copy."""
+        package quantizes its f32 parameter, not a bf16 copy.  With
+        ``cast``, weight and bias go to it and nothing is quantized."""
+        if cast is not None:
+            for name, _ in self.named_parameters(recurse=False):
+                cast(self, name)
+            return
         if self.weight.dtype == dtype:
             return
         self._wq = quantize_symmetric(self.weight.detach().float(), -1)

@@ -95,10 +95,10 @@ class T5Attention(nn.Module):
             self.relative_attention_bias = nn.Embedding(
                 cfg.relative_attention_num_buckets, cfg.num_heads)
 
-    def cast_(self, dtype):
+    def cast_(self, dtype, cast=None):
         """Cast the projections; the position bias table stays f32."""
         for m in (self.q, self.k, self.v, self.o):
-            cast_params_(m, dtype)
+            cast_params_(m, dtype, cast)
 
     def position_bias(self, L: int, device) -> torch.Tensor:
         c = self.cfg

@@ -25,9 +25,14 @@ optionally ``train_frames``).
     (``convert/checkpoints.py``); a model without one starts from seeded
     random weights, T5 included (as the JAX package's CLI).
 
-The DiT trains in f32 with its parameters in train mode; T5 and the VAE
-stay frozen.  Runs on CUDA unless ``--device cpu``.  ``--dtype bfloat16``
-and ``--mesh-fsdp`` > 1 raise ``NotImplementedError``.
+The DiT trains with f32 parameters in train mode; T5 and the VAE stay
+frozen.  ``--dtype bfloat16`` is the JAX package's bf16 trainer: T5 and
+the VAE cast to bf16 once (as ``EzAudio(dtype=bf16)``; both kernels in
+their bf16 modes), the DiT in mixed precision (``trainer.py``: bf16
+compute, f32 parameters and optimizer state).  The ``opt:`` block's
+``optimizer`` (``adamw`` or ``adafactor``) and ``mu_dtype`` reach
+``optim.make_optimizer``.  Runs on CUDA unless ``--device cpu``.
+``--mesh-fsdp`` > 1 raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -39,9 +44,6 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
-
-_TRAINING_ITEM = "ROADMAP queue 1 item 6"
-
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(prog="python -m ezaudio_tpu_torch.training.train_cli")
@@ -79,9 +81,10 @@ def load_training_config(name: str):
 
 
 def build_models(cfg, device, seed: int, ckpt=None, vae_ckpt=None, t5_config=None,
-                 vae_config=None):
+                 vae_config=None, dtype=torch.float32):
     """(DiT, autoencoder facade, T5 or None, tokenizer or None): seeded
-    random weights by the port's init rules, then the given checkpoints."""
+    random weights by the port's init rules, then the given checkpoints;
+    the frozen T5 and VAE cast to ``dtype``, the DiT kept f32."""
     from ezaudio_tpu_torch.api.ezaudio import _T5_CONFIGS, init_random_
     from ezaudio_tpu_torch.codecs.facade import AutoencoderFacade
     from ezaudio_tpu_torch.codecs.oobleck import vae_from_config
@@ -92,6 +95,7 @@ def build_models(cfg, device, seed: int, ckpt=None, vae_ckpt=None, t5_config=Non
     from ezaudio_tpu_torch.models.maskdit import maskdit_from_config
     from ezaudio_tpu_torch.text.t5 import T5Encoder, T5EncoderConfig
     from ezaudio_tpu_torch.text.tokenizer import get_tokenizer
+    from ezaudio_tpu_torch.utils import cast_params_
 
     context_dim = cfg.model.get("context_dim")
     t5_cfg = None
@@ -117,7 +121,7 @@ def build_models(cfg, device, seed: int, ckpt=None, vae_ckpt=None, t5_config=Non
     dit.train().requires_grad_(True)
     for m in (vae, t5):
         if m is not None:
-            m.eval().requires_grad_(False)
+            cast_params_(m.eval().requires_grad_(False), dtype)
     autoencoder = AutoencoderFacade(vae, quantization_first=cfg.autoencoder.get("q_first", True))
     tokenizer = get_tokenizer(None, t5_cfg.vocab_size) if t5 is not None else None
     return dit, autoencoder, t5, tokenizer
@@ -135,9 +139,7 @@ def main(argv=None, *, t5_config=None, vae_config=None,
     from ezaudio_tpu_torch.utils import resolve_device
 
     args = parse_args(argv)
-    if args.dtype != "float32":
-        raise NotImplementedError(f"--dtype {args.dtype}: bf16 training is not ported yet "
-                                  f"({_TRAINING_ITEM})")
+    dtype = getattr(torch, args.dtype)
     if args.mesh_fsdp > 1:
         raise NotImplementedError("--mesh-fsdp > 1: sharded training is not ported yet "
                                   "(ROADMAP queue 1 item 7)")
@@ -152,7 +154,7 @@ def main(argv=None, *, t5_config=None, vae_config=None,
 
     dit, autoencoder, t5, tokenizer = build_models(
         cfg, device, args.random_seed, args.ckpt, args.vae_ckpt, t5_config=t5_config,
-        vae_config=vae_config)
+        vae_config=vae_config, dtype=dtype)
     train_cfg = cfg.data.train.to_dict()
     # CFG dropout happens once: in the dataset where offline embeddings
     # carry their own cfg_prob, else in the train step at the configured rate
@@ -162,7 +164,7 @@ def main(argv=None, *, t5_config=None, vae_config=None,
                              scale=cfg.autoencoder.get("scale", 1.0),
                              shift=cfg.autoencoder.get("shift", 0.0),
                              train_frames=cfg.data.get("train_frames"),
-                             cfg_dropout=cfg_dropout)
+                             cfg_dropout=cfg_dropout, dtype=dtype)
 
     train_set = EACaps(**train_cfg, seed=args.random_seed)
     batch_size = int(cfg.opt.batch_size)
@@ -201,7 +203,7 @@ def main(argv=None, *, t5_config=None, vae_config=None,
                 latents = autoencoder.encode(audio[:, :, None], generator=gen)
                 text = text_mask = None
                 if audiocaps and "text_mask" in batch:  # offline embeddings
-                    text = torch.from_numpy(batch["text"]).to(device)
+                    text = torch.from_numpy(batch["text"]).to(device, dtype)
                     text_mask = torch.from_numpy(batch["text_mask"]).to(device).bool()
                 elif audiocaps:
                     text, text_mask = embed(batch["text"])

@@ -6,9 +6,19 @@ latents into model space (``scale_shift``), optional crop to
 ``train_frames``, CFG dropout to the uncond embedding, noise and a uniform
 timestep, the epsilon or v target, MaskDiT with span-masked MAE, the masked
 (min-SNR) MSE, the gradients, and the optimizer (``optim.py``: clip,
-warmup AdamW, accumulation).  Quantization is forced off for the step, as
-``quant_context('off')`` does in the JAX package: int8 ``round`` has no
-gradient.
+warmup AdamW or Adafactor, accumulation).  Quantization is forced off for
+the step, as ``quant_context('off')`` does in the JAX package: int8
+``round`` has no gradient.
+
+``dtype=torch.bfloat16`` is the JAX package's bf16 trainer, which is
+mixed precision: flax's ``dtype`` is the compute dtype and the parameters
+stay f32.  The forward and the backward run inside
+``utils.mixed_precision``: each layer computes with a bf16 copy of its
+f32 parameter, gradients reach the f32 parameters through the casts, and
+the optimizer's state is that of f32 parameters.  The latents stay in the
+VAE's dtype (bf16) through ``scale_shift``, the noise is drawn in f32 and
+rounded to it, ``add_noise`` and the target are f32 (the f32 alphas
+promote them), and the loss sums in f32.
 
 Every draw of step ``n`` comes from a ``torch.Generator`` seeded from
 ``(seed, n)`` alone (``jax.random.fold_in``'s role), so a resumed run draws
@@ -38,8 +48,8 @@ from torch import nn
 from ezaudio_tpu_torch.diffusion.ddim import DDIMSchedule
 from ezaudio_tpu_torch.ops.quant import quant_context
 from ezaudio_tpu_torch.training.losses import masked_diffusion_loss
-from ezaudio_tpu_torch.training.optim import AdamW, global_norm, make_optimizer, named_grads
-from ezaudio_tpu_torch.utils import scale_shift
+from ezaudio_tpu_torch.training.optim import Optimizer, global_norm, make_optimizer, named_grads
+from ezaudio_tpu_torch.utils import mixed_precision, scale_shift
 
 MAX_TO_KEEP = 5
 STATE_FILE = "state.pt"
@@ -51,7 +61,57 @@ def step_seed(seed: int, step: int) -> int:
                >> np.uint64(1))
 
 
-class TrainStep:
+def noised(schedule: DDIMSchedule, latents, noise, t):
+    """The latents noised to ``t`` and the epsilon or v target."""
+    noisy = schedule.add_noise(latents, noise, t)
+    target = (noise if schedule.prediction_type == "epsilon"
+              else schedule.get_velocity(latents, noise, t))
+    return noisy, target
+
+
+class StepLoop:
+    """What every train step shares (this module's, the ControlNet's and
+    distillation's): the draws of step ``n`` from a generator seeded from
+    ``(seed, n)`` unless given, quantization off, the loss and the
+    gradients of ``params`` (in ``model``'s compute ``dtype``, see
+    ``utils.mixed_precision``), the optimizer's update, the step counter.
+
+    A step sets ``params`` (name -> tensor) and gives ``draw_for(generator,
+    batch)`` and ``loss(batch, draws)``; ``update(grads)`` applies the
+    optimizer and returns the metrics beside the loss (here the global norm
+    of the gradients before the clip, which the clip reuses).
+    """
+
+    model: Optional[nn.Module] = None
+    dtype: Optional[torch.dtype] = None
+
+    def draw_for(self, generator: torch.Generator, batch: dict) -> dict:
+        return self.draw(generator, batch)
+
+    def update(self, grads: dict) -> dict:
+        gnorm = global_norm(grads.values())
+        self.optimizer.update(grads, gnorm)
+        return {"grad_norm": gnorm}
+
+    def __call__(self, batch: dict, seed: int, draws: Optional[dict] = None,
+                 return_grads: bool = False) -> dict:
+        """The loss and the metrics as device scalars; with
+        ``return_grads`` the gradients too."""
+        if draws is None:
+            gen = torch.Generator(device=batch["latents"].device).manual_seed(
+                step_seed(seed, self.step))
+            draws = self.draw_for(gen, batch)
+        with quant_context("off"), mixed_precision(self.model, self.dtype):
+            loss = self.loss(batch, draws)
+            grads = named_grads(self.params.items(), loss)
+        out = {"loss": loss.detach(), **self.update(grads)}
+        self.step += 1
+        if return_grads:
+            out["grads"] = grads
+        return out
+
+
+class TrainStep(StepLoop):
     """``step(batch, seed, draws=None) -> {"loss", "grad_norm"}``: one train
     step of ``model``, updating its parameters through ``optimizer``.
 
@@ -61,17 +121,21 @@ class TrainStep:
     empty-prompt embedding for CFG dropout, or None.
     draws: ``noise`` (B, L, C), ``t`` (B,) int, ``cfg`` (B,) uniforms, and
     for an MAE model those of :meth:`MaskDiT.draw_mask`.
+    dtype: the compute dtype (None or f32: f32; bf16: mixed precision).
     """
 
-    def __init__(self, model: nn.Module, schedule: DDIMSchedule, optimizer: AdamW,
+    def __init__(self, model: nn.Module, schedule: DDIMSchedule, optimizer: Optimizer,
                  scale: float = 1.0, shift: float = 0.0, snr_gamma: Optional[float] = None,
-                 cfg_dropout: float = 0.1, train_frames: Optional[int] = None):
+                 cfg_dropout: float = 0.1, train_frames: Optional[int] = None,
+                 dtype: Optional[torch.dtype] = None):
         if schedule.prediction_type not in ("epsilon", "v_prediction"):
             raise NotImplementedError(schedule.prediction_type)
         self.model, self.schedule, self.optimizer = model, schedule, optimizer
+        self.params = optimizer.params
         self.scale, self.shift = scale, shift
         self.snr_gamma, self.cfg_dropout = snr_gamma, cfg_dropout
         self.train_frames = train_frames
+        self.dtype = dtype if dtype is not None else torch.float32
         self.step = 0
 
     def draw(self, generator: torch.Generator, B: int, L: int, C: int, device) -> dict:
@@ -83,8 +147,12 @@ class TrainStep:
             d.update(self.model.draw_mask(generator, B, L, device))
         return d
 
+    def draw_for(self, generator: torch.Generator, batch: dict) -> dict:
+        latents = self._latents(batch)
+        return self.draw(generator, *latents.shape, latents.device)
+
     def _latents(self, batch):
-        latents = scale_shift(batch["latents"].float(), self.scale, self.shift)
+        latents = scale_shift(batch["latents"].to(self.dtype), self.scale, self.shift)
         return latents[:, :self.train_frames] if self.train_frames is not None else latents
 
     def loss(self, batch: dict, draws: dict) -> torch.Tensor:
@@ -94,38 +162,17 @@ class TrainStep:
             drop = draws["cfg"] < self.cfg_dropout
             text = torch.where(drop[:, None, None], batch["uncond"], text)
             text_mask = torch.where(drop[:, None], batch["uncond_mask"], text_mask)
-        noise, t = draws["noise"], draws["t"]
-        noisy = self.schedule.add_noise(latents, noise, t)
-        target = (noise if self.schedule.prediction_type == "epsilon"
-                  else self.schedule.get_velocity(latents, noise, t))
+        t = draws["t"]
+        noisy, target = noised(self.schedule, latents, draws["noise"].to(latents.dtype), t)
         pred, mask = self.model(noisy, t, text, context_mask=text_mask, gt=latents,
                                 mask_draws=draws)
         return masked_diffusion_loss(pred, target, mask, self.schedule, t, self.snr_gamma)
 
-    def __call__(self, batch: dict, seed: int, draws: Optional[dict] = None,
-                 return_grads: bool = False) -> dict:
-        """The loss and the global norm of the step's gradients (before the
-        clip) as device scalars; with ``return_grads`` the gradients too."""
-        if draws is None:
-            latents = self._latents(batch)
-            gen = torch.Generator(device=latents.device).manual_seed(step_seed(seed, self.step))
-            draws = self.draw(gen, *latents.shape, latents.device)
-        with quant_context("off"):
-            loss = self.loss(batch, draws)
-            grads = named_grads(self.optimizer.params.items(), loss)
-        gnorm = global_norm(grads.values())
-        self.optimizer.update(grads, gnorm)
-        self.step += 1
-        out = {"loss": loss.detach(), "grad_norm": gnorm}
-        if return_grads:
-            out["grads"] = grads
-        return out
-
 
 def make_train_step(model, schedule, optimizer, scale=1.0, shift=0.0, snr_gamma=None,
-                    cfg_dropout=0.1, train_frames=None) -> TrainStep:
+                    cfg_dropout=0.1, train_frames=None, dtype=None) -> TrainStep:
     return TrainStep(model, schedule, optimizer, scale, shift, snr_gamma, cfg_dropout,
-                     train_frames)
+                     train_frames, dtype)
 
 
 def all_steps(ckpt_dir: str) -> list:
@@ -166,14 +213,14 @@ class Trainer:
 
     model: nn.Module
     schedule: DDIMSchedule
-    optimizer: AdamW
+    optimizer: Optimizer
     step_fn: TrainStep
     _writer: Optional[threading.Thread] = None
     _write_error: Optional[Exception] = None
 
     @classmethod
     def create(cls, model, schedule, opt_cfg: dict, scale=1.0, shift=0.0,
-               train_frames=None, cfg_dropout=0.1) -> "Trainer":
+               train_frames=None, cfg_dropout=0.1, dtype=None) -> "Trainer":
         optimizer = make_optimizer(
             model,
             learning_rate=opt_cfg.get("learning_rate", 5e-5),
@@ -186,10 +233,12 @@ class Trainer:
             accumulation_steps=opt_cfg.get("accumulation_steps", 1),
             optimizer=opt_cfg.get("optimizer", "adamw"),
             mu_dtype=opt_cfg.get("mu_dtype"),
+            factor_min_dim=opt_cfg.get("factor_min_dim", 128),
         )
         step_fn = make_train_step(model, schedule, optimizer, scale=scale, shift=shift,
                                   snr_gamma=opt_cfg.get("snr_gamma"),
-                                  cfg_dropout=cfg_dropout, train_frames=train_frames)
+                                  cfg_dropout=cfg_dropout, train_frames=train_frames,
+                                  dtype=dtype)
         return cls(model=model, schedule=schedule, optimizer=optimizer, step_fn=step_fn)
 
     @property

@@ -2,8 +2,9 @@
 
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Optional, Union
+from typing import Callable, Dict, Iterator, List, Optional, Tuple, Union
 
 import torch
 
@@ -32,30 +33,73 @@ def randn(shape, generator: Optional[torch.Generator], device, dtype=torch.float
     return x.to(dtype)
 
 
+def _cast_in_place(dtype: torch.dtype):
+    def cast(module: torch.nn.Module, name: str) -> None:
+        if name in module._parameters:
+            p = module._parameters[name]
+            p.data = p.data.to(dtype)
+        else:
+            module._buffers[name] = module._buffers[name].to(dtype)
+    return cast
+
+
 @torch.no_grad()
-def cast_params_(module: torch.nn.Module, dtype: torch.dtype) -> torch.nn.Module:
+def cast_params_(module: torch.nn.Module, dtype: torch.dtype,
+                 cast: Optional[Callable[[torch.nn.Module, str], None]] = None
+                 ) -> torch.nn.Module:
     """Cast ``module``'s floating parameters and buffers to ``dtype`` in
     place, once: the bf16 copies the JAX package makes at every use of its
     f32 parameters (``kernel.astype(dtype)``), which round the same way.
 
-    A module with a ``cast_(dtype)`` method casts itself and its children
-    instead: the norms, the VAE snakes, RoPE and T5's position bias keep
-    f32 where the JAX package computes with its f32 parameters, and
-    ``QuantLinear`` quantizes its int8 weight from the f32 weight first.
+    A module with a ``cast_(dtype, cast)`` method casts itself and its
+    children instead: the norms, the VAE snakes, RoPE and T5's position
+    bias keep f32 where the JAX package computes with its f32 parameters,
+    and ``QuantLinear`` quantizes its int8 weight from the f32 weight first.
+
+    With ``cast``, ``cast(module, name)`` is called for each parameter or
+    buffer these rules cast, in place of the cast (:func:`mixed_precision`
+    collects them so).
     """
     own = getattr(module, "cast_", None)
     if own is not None:
-        own(dtype)
+        own(dtype, cast)
         return module
-    for p in module.parameters(recurse=False):
+    visit = cast or _cast_in_place(dtype)
+    for name, p in module.named_parameters(recurse=False):
         if p.is_floating_point():
-            p.data = p.data.to(dtype)
+            visit(module, name)
     for name, b in module.named_buffers(recurse=False):
         if b.is_floating_point():
-            module._buffers[name] = b.to(dtype)
+            visit(module, name)
     for child in module.children():
-        cast_params_(child, dtype)
+        cast_params_(child, dtype, cast)
     return module
+
+
+@contextlib.contextmanager
+def mixed_precision(module: torch.nn.Module, dtype: Optional[torch.dtype]) -> Iterator[None]:
+    """Compute ``module`` in ``dtype`` while its parameters stay f32 masters:
+    inside, each parameter (and buffer) :func:`cast_params_` would cast is
+    replaced by a differentiable ``dtype`` copy of itself, made once on entry, so the
+    layers compute the bf16 model's function (``cast_params_``'s rules:
+    norms and RoPE in f32, convolutions summing in f32) and gradients flow
+    through the casts to the f32 parameters, as flax's ``kernel.astype``
+    at each use does.  The backward (and remat's recompute in it) must
+    run inside too.  ``None`` or f32 changes nothing."""
+    if dtype is None or dtype == torch.float32:
+        yield
+        return
+    plan: List[Tuple[Dict[str, torch.Tensor], str]] = []
+    cast_params_(module, dtype, lambda m, n: plan.append(
+        (m._parameters if n in m._parameters else m._buffers, n)))
+    masters = [slots[n] for slots, n in plan]
+    try:
+        for (slots, n), t in zip(plan, masters):
+            slots[n] = t.to(dtype)
+        yield
+    finally:
+        for (slots, n), t in zip(plan, masters):
+            slots[n] = t
 
 
 @torch.no_grad()

@@ -200,27 +200,28 @@ class TestModules:
 
     @pytest.mark.parametrize("d", [1, 3, 9])
     def test_resunit_twin_is_the_pallas_kernel_function(self, d):
-        """``residual_unit_plain`` in bf16 against the Pallas kernel in
-        interpret mode (C = 128, a ragged last tile) by
-        ``chip_smoke.bf16_agreement`` with ``resunit_bf16_slack``; the JAX
-        package's ``residual_unit_reference`` in bf16 (the old twin) fails
-        that rule; in f32 the twin is the reference's function (atol 1e-5)."""
+        """The Pallas kernel in bf16, interpret mode (C = 128, a ragged last
+        tile), against ``residual_unit_plain`` by
+        ``chip_smoke.resunit_bf16_agreement``; the JAX package's
+        ``residual_unit_reference`` in bf16 (the old twin) fails that rule;
+        in f32 the twin is the reference's function (atol 1e-5)."""
         import chip_smoke as cs
         from ezaudio_tpu.ops.pallas.resunit import _resunit_pallas, residual_unit_reference
         from ezaudio_tpu_torch.ops.kernels.resunit import residual_unit_plain
 
+        def jax_fn(fn, **kw):
+            def run(*a):
+                j = ([jnp.asarray(_np(t), jnp.bfloat16) for t in a[:5]]
+                     + [jnp.asarray(_np(t)) for t in a[5:9]])
+                return torch.from_numpy(_np(fn(*j, a[9], **kw)))
+            return run
+
         args = cs.resunit_args("cpu", torch.Generator().manual_seed(d), 1, 4100, 128)
         b16 = [a.bfloat16() for a in args[:5]] + args[5:]
-        jargs = ([jnp.asarray(_np(a), jnp.bfloat16) for a in b16[:5]]
-                 + [jnp.asarray(_np(a)) for a in b16[5:]])
-        want = torch.from_numpy(_np(_resunit_pallas(*jargs, d, interpret=True)))
-        got = residual_unit_plain(*b16, d)
-        assert got.dtype == torch.bfloat16
-        slack = cs.resunit_bf16_slack(*b16, d)
-        ok, err, share = cs.bf16_agreement(got, want, slack)
-        assert ok, (err, share, slack)
-        old = torch.from_numpy(_np(residual_unit_reference(*jargs, d)))
-        assert not cs.bf16_agreement(old, want, slack)[0]
+        ok, stats = cs.resunit_bf16_agreement(jax_fn(_resunit_pallas, interpret=True), b16, d)
+        assert ok, stats
+        assert residual_unit_plain(*b16, d).dtype == torch.bfloat16
+        assert not cs.resunit_bf16_agreement(jax_fn(residual_unit_reference), b16, d)[0]
         got32 = residual_unit_plain(*args, d)
         want32 = residual_unit_reference(*(jnp.asarray(_np(a)) for a in args), d)
         np.testing.assert_allclose(got32.numpy(), _np(want32), atol=1e-5)

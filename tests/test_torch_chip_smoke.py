@@ -333,6 +333,49 @@ def test_bf16_phases_rehearse_on_cpu(monkeypatch):
     assert row["launches_by_dtype"] == {"attention.bfloat16": 600, "resunit.bfloat16": 12}
 
 
+def _resunit_variant(fault):
+    """``residual_unit_plain`` in bf16, or a variant of it with ``fault``."""
+    import torch.nn.functional as F
+
+    from ezaudio_tpu_torch.ops.activations import snake_beta_vae
+    from ezaudio_tpu_torch.ops.kernels.resunit import residual_unit_plain
+
+    def run(x, w7, b7, w1, b1, a1, be1, a2, be2, d):
+        if fault != "f64_sums":
+            if fault == "dropped_tap":
+                w7 = torch.cat([w7[:6], torch.zeros_like(w7[6:])])
+            if fault == "w1_transposed":
+                w1 = w1.T.contiguous()
+            return residual_unit_plain(x, w7, b7, w1, b1, a1, be1, a2, be2, d)
+        # the same function summed in f64: the plain rounding points, other sums
+        f = [t.double() for t in (x, w7, b7, w1, b1, a1, be1, a2, be2)]
+        h = snake_beta_vae(f[0], f[5], f[6]).to(x.dtype).double()
+        h = F.conv1d(h.transpose(1, 2), f[1].permute(2, 1, 0), f[2],
+                     padding=3 * d, dilation=d).transpose(1, 2)
+        g = snake_beta_vae(h, f[7], f[8]).to(x.dtype).double()
+        return (f[0] + g @ f[3] + f[4]).to(x.dtype)
+    return run
+
+
+@pytest.mark.parametrize("fault, passes", [("none", True), ("f64_sums", True),
+                                           ("dropped_tap", False), ("w1_transposed", False)])
+def test_resunit_bf16_rule_reads_g_from_the_kernel(fault, passes):
+    """``resunit_bf16_agreement``, phase 3's bf16 ResidualUnit rule: the
+    plain version and the same function summed in f64 (its g rounds the
+    other way in some channels) pass; a conv that drops a tap (g moves) or
+    a 1x1 product that takes W1 transposed (only the output moves) fails."""
+    import chip_smoke as cs
+
+    args = cs.resunit_args("cpu", torch.Generator().manual_seed(0), 2, 300, 128)
+    b16 = [a.bfloat16() for a in args[:5]] + args[5:]
+    ok, stats = cs.resunit_bf16_agreement(_resunit_variant(fault), b16, 3)
+    assert ok == passes, stats
+    if fault == "none":
+        assert stats["max_abs_err"] == 0.0 and stats["g_diff_share"] == 0.0
+    if fault == "f64_sums":
+        assert stats["g_diff_share"] > 0 and stats["out_ratio"] <= 1.0
+
+
 def test_rerank_and_vc_phases_rehearse_on_cpu(monkeypatch):
     """Phases 20-22 end to end at a tiny size: the reranked call's launches
     (one batched call, one decode chunk), the CPU re-scoring (here CPU
@@ -557,3 +600,164 @@ def test_train_flops_count_what_each_module_sees():
                  if k.endswith(".mid_block") or (k.count(".") == 3 and "_blocks." in k))
     assert cs.train_flops(model, B, T, L, remat=False) == 3 * fc.get_total_flops()
     assert cs.train_flops(model, B, T, L) == 3 * fc.get_total_flops() + blocks
+
+
+def _tiny_energy():
+    from ezaudio_tpu_torch.config import get_model_config
+
+    cfg = get_model_config("energy").to_dict()
+    cfg["model"].update(embed_dim=32, depth=2, num_heads=4, context_dim=16,
+                        ada_sola_rank=2, ada_sola_alpha=2)
+    cfg["text_encoder"]["model"] = "tiny"
+    return cfg
+
+
+def _counted_kernels(monkeypatch):
+    import ezaudio_tpu_torch.ops.kernels.attention as ka
+    import ezaudio_tpu_torch.ops.kernels.resunit as kr
+
+    monkeypatch.setattr(ka, "attention_plain", counted(ka.attention_plain, ka.fused_attention))
+    monkeypatch.setattr(kr, "residual_unit_plain",
+                        counted(kr.residual_unit_plain, kr.fused_residual_unit))
+
+
+def test_controlnet_train_phase_rehearses_on_cpu(monkeypatch):
+    """Phase 26 at a tiny size: the fine-tune's launches (the base's 3
+    blocks, its 1 out-block recomputed, the ControlNet's 1 block: 10 a
+    step), the frozen bytes, every trainable tensor moved, the zero
+    blocks' gradients; card against CPU (here CPU against CPU: equal).  A
+    trainer that leaves the zero blocks unchanged fails, and so does one
+    that moves a base parameter."""
+    import chip_smoke as cs
+    import ezaudio_tpu_torch.training.controlnet_trainer as ct
+
+    _counted_kernels(monkeypatch)
+    cfg = _tiny_energy()
+    assert cs.controlnet_train_launches(dict(cfg["model"], depth=24)) == 2 * (25 + 12 + 12)
+    row = cs.controlnet_train_path("cpu", cfg=cfg, batch=2, seconds=0.2, steps=2)
+    assert row["launches_per_step"] == [[10, 0]] * 2
+    assert row["zero_block_grad_min"] > 0 and row["trainable_tensors_unmoved"] == 0
+    row = cs.controlnet_train_card_vs_cpu(torch.Generator(), dev="cpu", cfg=cfg, text_len=12)
+    assert row["loss"][0] == row["loss"][1] and row["qkv_grads"] == 6
+
+    real_mask = ct.trainable_mask
+    with monkeypatch.context() as mp:  # the zero blocks left out of the optimizer
+        mp.setattr(ct, "trainable_mask", lambda cn: {
+            n: v and not n.startswith("controlnet_zero_blocks.")
+            for n, v in real_mask(cn).items()})
+        with pytest.raises(AssertionError, match="did not move"):
+            cs.controlnet_train_path("cpu", cfg=cfg, batch=2, seconds=0.2, steps=1)
+    call = ct.ControlNetTrainStep.__call__
+
+    def leaky(self, *a, **k):  # a step that also moves a base parameter
+        out = call(self, *a, **k)
+        with torch.no_grad():
+            next(self.dit.parameters()).add_(1e-3)
+        return out
+
+    monkeypatch.setattr(ct.ControlNetTrainStep, "__call__", leaky)
+    with pytest.raises(AssertionError, match="frozen tensors changed"):
+        cs.controlnet_train_path("cpu", cfg=cfg, batch=2, seconds=0.2, steps=1)
+
+
+def _tiny_ez():
+    import dataclasses
+
+    from ezaudio_tpu_torch.api.ezaudio import EzAudio
+    from ezaudio_tpu_torch.text.t5 import T5EncoderConfig
+    from tests.tiny_config import TINY_CONFIG, TINY_T5, TINY_VAE_CONFIG
+
+    return EzAudio(config=dict(TINY_CONFIG, model=dict(TINY_CONFIG["model"], depth=2,
+                                                       use_checkpoint=True)),
+                   t5_config=T5EncoderConfig(**dataclasses.asdict(TINY_T5)),
+                   vae_config=TINY_VAE_CONFIG, device="cpu")
+
+
+def test_distill_flow_and_tool_phases_rehearse_on_cpu(monkeypatch, tmp_path):
+    """Phases 27 and 29 at a tiny size: the distillation stage (200 launches
+    a step at s3_l: 2 teacher calls and the student's call with remat), the
+    landing check, the student served with ``sampler='distilled'``; card
+    against CPU; the flow step and Heun sample; ``eval_udit`` in MAE mode,
+    ``prepare_embeddings`` and one step from its files.  A student that
+    aliases the teacher fails."""
+    import chip_smoke as cs
+    from ezaudio_tpu_torch.diffusion import distill
+    from tests.tiny_config import TINY_VAE_CONFIG
+
+    _counted_kernels(monkeypatch)
+    assert cs.distill_train_launches(dict(depth=24, use_checkpoint=True)) == 200
+    ez = _tiny_ez()
+    row = cs.distill_path(ez, batch=2, seconds=0.2, steps=2, n_student=2)
+    assert row["launches_per_step"] == [[24, 0]] * 2 and row["land_rel_err"] <= 1e-5
+    assert row["served"]["attention_launches"] == 2 * 6 and row["teacher_tensors_changed"] == 0
+    row = cs.distill_card_vs_cpu(torch.Generator(), dev="cpu", cfg=_tiny_s3_l(), text_len=12)
+    assert row["loss"][0] == row["loss"][1] and row["launches"][0] == 24
+    rows = cs.flow_paths(ez, batch=2, seconds=0.2, steps=2)
+    assert [r["attention_launches"] for r in rows] == [12, 2 * 2 * 6]
+    rows = cs.tool_paths(ez, str(tmp_path), clips=2, seconds=0.5, batch=2,
+                         t5_config=ez.t5_cfg, vae_config=TINY_VAE_CONFIG)
+    assert [(r["path"], r["resunit_launches"]) for r in rows] == [
+        ("eval_udit_mae", 12), ("train_offline_embeddings", 6)]
+    assert rows[0]["attention_launches"] == 50 * 6  # 50 DDIM steps, a CFG pair a call
+
+    monkeypatch.setattr(distill, "student_from_teacher",
+                        lambda t: t.train().requires_grad_(True))  # an alias
+    with pytest.raises(ValueError, match="shares tensors"):
+        cs.distill_path(_tiny_ez(), batch=2, seconds=0.2, steps=1, n_student=2)
+
+
+def test_bf16_train_phase_rehearses_on_cpu(monkeypatch):
+    """Phase 28 at a tiny size: kernel 1's bf16 gradients against SDPA's,
+    ``train_cli --dtype bfloat16`` (every launch bf16, f32 parameters and
+    moments, the restart equal), one bf16 step per optimizer card against
+    CPU (here CPU against CPU).  A step whose parameters are bf16 fails."""
+    import chip_smoke as cs
+    from ezaudio_tpu_torch import utils
+    from ezaudio_tpu_torch.training import trainer as tr
+
+    _counted_kernels(monkeypatch)
+    rows = cs.check_attention_grad_bf16("cpu", torch.Generator().manual_seed(0),
+                                        [(2, 2, 32, 32, 16, False), (2, 2, 32, 9, 16, True)])
+    assert all(s["ok"] for r in rows for s in r["grads"].values())
+    row = cs.training_path("cpu", cfg=_tiny_s3_l(), clips=4, batch=2, seconds=0.1, steps=3,
+                           resume_at=2, dtype="bfloat16")
+    assert row["launches_per_step"] == [[12, 12]] * 3 and row["mixed_precision_faults"] == []
+    assert row["resumed_losses"] == row["losses"][2:]
+    assert all(len(s) == 3 and s[2] == "bfloat16" for s in row["resunit_shapes"])
+    rows = cs.bf16_train_card_vs_cpu(torch.Generator(), dev="cpu", cfg=_tiny_s3_l(), text_len=12)
+    assert [r["optimizer"] for r in rows] == ["adamw", "adamw_mu_bf16", "adafactor"]
+    assert all(r["grad_card_to_cpu"] == 0.0 and r["faults"] == [] for r in rows)
+
+    create = tr.Trainer.create.__func__
+
+    def cast_first(cls, model, *a, **k):  # bf16 parameters instead of f32 masters
+        if k.get("dtype") == torch.bfloat16:
+            utils.cast_params_(model, torch.bfloat16)
+        return create(cls, model, *a, **k)
+
+    monkeypatch.setattr(tr.Trainer, "create", classmethod(cast_first))
+    with pytest.raises(AssertionError, match="mixed precision"):
+        cs.bf16_train_card_vs_cpu(torch.Generator(), dev="cpu", cfg=_tiny_s3_l(), text_len=12,
+                                  optimizers=cs.BF16_TRAIN_OPTIMIZERS[:1])
+
+
+def test_zero_gradient_rule_holds_noise_to_noise():
+    """Phase 26's exact-zero gradients (a key norm's bias): rounding noise
+    that differs beyond the floor passes as noise; a card gradient there
+    that is signal fails."""
+    import chip_smoke as cs
+
+    g = torch.Generator().manual_seed(2)
+    names = [f"in_blocks.0.{a}.to_{x}.weight" for a in ("attn", "cross_attn") for x in "qkv"]
+    grads = {n: torch.randn(8, 8, generator=g) * 5e-3 for n in names}
+    grads["in_blocks.0.cross_attn.norm_k.bias"] = torch.full((8,), 5e-11)
+    params = {n: torch.zeros_like(v) for n, v in grads.items()}
+    cpu = dict(loss=1.0, grad_norm=2.0, grads=grads, params=params, launches=(10, 0))
+    zero = ["in_blocks.0.cross_attn.norm_k.bias"]
+    noisy = dict(grads, **{zero[0]: torch.full((8,), 1e-9)})
+    assert cs.train_step_agreement(dict(cpu, grads=noisy), cpu, 1e-4, 2, 10, n_attn=2)[1] != []
+    assert cs.train_step_agreement(dict(cpu, grads=noisy), cpu, 1e-4, 2, 10, n_attn=2,
+                                   zero_names=zero)[1] == []
+    signal = dict(grads, **{zero[0]: torch.full((8,), 1e-4)})
+    assert cs.train_step_agreement(dict(cpu, grads=signal), cpu, 1e-4, 2, 10, n_attn=2,
+                                   zero_names=zero)[1] == [f"zero gradients {zero}"]

@@ -400,7 +400,7 @@ class TestFacade:
             vc_cn = EzAudioControlNet(config=vc_cfg, t5_config=PORT_T5,
                                       vae_config=TINY_VAE_CONFIG, device="cpu")
         assert vc_cn.conditioner.fn.device == vc_cn.device == torch.device("cpu")
-        with pytest.raises(NotImplementedError, match="training"):
+        with pytest.raises(ValueError, match="mask_draws"):  # training masks from draws
             cn.controlnet.controlnet_pre(torch.zeros(1, 8, 1), train=True)
         with pytest.raises(ValueError, match="sampler"):
             cn.generate_audio("x", burst_clip(0.1), sampler="distilled")

@@ -4,8 +4,8 @@ manifest (mono, stereo picks, offline embeddings with ``cfg_prob``,
 filtering, resume), ``load_wav(mono=False)`` and ``save_wav`` against the
 JAX package's, and ``train_cli.main(["--device", "cpu", ...])`` on the
 tiny config: three steps, a restart from the step-2 checkpoint equal to
-the uninterrupted run, the MAE stage, ``--remat``, and the options that
-are not ported."""
+the uninterrupted run, the MAE stage, ``--remat``, ``--dtype bfloat16``
+(mixed precision, and its restart), and the options that are not ported."""
 
 import csv
 import dataclasses
@@ -132,9 +132,11 @@ def test_batches_bit_equal_to_jax(workspace, kw):
 
 
 def test_unported_data_options_raise(workspace):
-    for kw in (dict(aug_config={"p": 1}), dict(use_native=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 9"):
-            EACaps(**_data_kw(workspace, **kw))
+    """``use_native`` still raises; ``aug_config`` is ported (against the
+    JAX package in test_torch_train_tools.py)."""
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 9"):
+        EACaps(**_data_kw(workspace, use_native=True))
+    assert EACaps(**_data_kw(workspace, aug_config={"phase180": {"p": 1.0}})).augmenter
 
 
 def test_wav_io_matches_jax(workspace, tmp_path):
@@ -199,11 +201,27 @@ def test_mae_stage_and_remat(workspace):
     np.testing.assert_allclose(list(losses.values()), list(plain.values()), rtol=1e-6)
 
 
-@pytest.mark.parametrize("extra,match", [(["--dtype", "bfloat16"], "ROADMAP queue 1 item 6"),
-                                         (["--mesh-fsdp", "2"], "ROADMAP queue 1 item 7")])
+@pytest.mark.parametrize("extra,match", [(["--mesh-fsdp", "2"], "ROADMAP queue 1 item 7")])
 def test_unported_flags_raise(workspace, extra, match):
     with pytest.raises(NotImplementedError, match=match):
         _main(workspace, save="unused", extra=extra)
+
+
+def test_bf16_runs_mixed_precision_and_resumes(workspace):
+    """``--dtype bfloat16``: T5 and the VAE in bf16, the DiT's parameters
+    and AdamW's moments f32 (mixed precision); a restart from the step-2
+    checkpoint takes step 3 as the first run did."""
+    losses = {}
+    trainer = _main(workspace, save="ckpts_bf16", extra=["--dtype", "bfloat16"], losses=losses)
+    assert trainer.step == 3 and all(np.isfinite(v) for v in losses.values())
+    assert trainer.step_fn.dtype == torch.bfloat16
+    assert all(p.dtype == torch.float32 for p in trainer.model.parameters())
+    assert all(v["exp_avg"].dtype == torch.float32
+               for v in trainer.optimizer.rule.adamw.state.values())
+    shutil.rmtree(workspace / "ckpts_bf16" / "EzAudio-Tiny" / "3")
+    again = {}
+    _main(workspace, save="ckpts_bf16", extra=["--dtype", "bfloat16"], losses=again)
+    assert again == {3: losses[3]}
 
 
 def test_config_needs_opt_and_data():
