@@ -101,8 +101,9 @@ Phases, each fatal on failure:
      against the plain twin's, s3_l self-attention and T5-masked
      cross-attention and against SDPA's, with the backward's time (the
      plain recompute), its bound and SDPA's forward and backward; kernel
-     2's nine gradients at one encoder shape; each output's kernel
-     ``grad_fn``;
+     2's nine gradients at the DiT step's third encoder block and the
+     codec step's first, with the backward's time and bound; each
+     output's kernel ``grad_fn``;
  24. training s3_l at full width: ``train_cli.main`` on 16 seeded 10 s,
      24 kHz clips and a CSV in a temporary directory, batch 8, 6 steps,
      warmup 2, CFG dropout 0.1, ``use_checkpoint`` (full remat); every
@@ -123,7 +124,8 @@ Phases, each fatal on failure:
  28. (after phase 25) bf16 mixed-precision training: kernel 1's bf16
      autograd gradients at the train shapes against SDPA's bf16 ones (no
      farther from the f32 gradients than BF16_REF_FACTOR times SDPA's,
-     correlated above BF16_ATTN_GRAD_CORR); ``train_cli.main --dtype
+     correlated above BF16_ATTN_GRAD_CORR), the bf16 backward timed beside
+     SDPA's bf16 forward and backward; ``train_cli.main --dtype
      bfloat16`` on phase 24's data and recipe (every step 100 attention and
      12 ResidualUnit launches, all bf16; f32 parameters and moments; the
      restart from step 4 equal), its step wall, samples/s, model TFLOP/s
@@ -151,12 +153,30 @@ Phases, each fatal on failure:
      ``eval_udit`` in MAE mode on one seeded clip (50 DDIM steps, the
      encode and the decode); ``prepare_embeddings`` on phase 24's
      manifest, then one ``train_cli`` step from those files;
- 30. the launches of each path, a ``{"kernels": [...]}`` line (launches
-     summed over the paths of phases 4-8, 10-13, 15, 16, 19-21, 24 and
-     26-29), the card's name and power limit, and last ``{"ok": true,
+ 30. the codecs, each model on seeded weights (``codec_trainer.init_codec_``):
+     (a) the VAE codec trainer at ``vae.json``'s widths with live weight
+     norm, the discriminator at its defaults (24 kHz), batch 8 x 12 000
+     samples, 4 steps: exactly 24 f32 kernel-2 launches a step at shapes
+     phase 3 holds, every generator and discriminator tensor moved, a
+     non-zero gradient on every ``weight_g`` and ``weight_v``; step wall
+     (median of steps 2-4), samples/s, peak, the losses; then one step at
+     cut widths (c_mults 1/2, strides 2/4), card against CPU and the CPU's
+     float64 step (``codec_step_agreement``); (b) DAC at the JAX ``DAC()``
+     defaults (descript's 44.1 kHz model): a 10 s clip card against CPU by
+     the near-tie rule (``near_tie_codes``), the ``.dac`` round trip on the
+     card (codes equal to the forward's, loudness restored), three train
+     steps at batch 4 x 0.5 s with quantizer dropout 0.5; (c) EnCodec at
+     the JAX ``Encodec()`` defaults, 10 s card against CPU by the same
+     rule; (d) the facade: ``'stable_vae'``, ``'dac'`` and ``'encodec'``
+     with ``quantization_first`` True and False (equal waveforms), DAC's
+     chunked path on 10 s; (e) PQMF (16 bands) and db4 wavelet round trips
+     card against CPU;
+ 31. the launches of each path, a ``{"kernels": [...]}`` line (launches
+     summed over the paths of phases 4-8, 10-13, 15, 16, 19-21, 24, 26-29
+     and 30), the card's name and power limit, and last ``{"ok": true,
      "device": {...}}``.
 
-Every path of phases 4, 6-8, 11-13, 15, 16, 19-21, 24 and 26-29 is driven with the launch
+Every path of phases 4, 6-8, 11-13, 15, 16, 19-21, 24, 26-29 and 30 is driven with the launch
 counters set to 0 just before it and read just after, and must launch each
 kernel exactly as often as its model calls and decodes imply; the bf16
 paths count every launch by dtype (``launches_by_dtype``), so a path that
@@ -319,6 +339,15 @@ RESUNIT_TRAIN_CASES = [(8, L, C, d)
                        for L, C in ((240000, 128), (120000, 128), (30000, 256), (5000, 512))
                        for d in (1, 3, 9)]
 RESUNIT_CASES += RESUNIT_TRAIN_CASES
+# the VAE codec step of phase 30: batch 8 of 12 000 samples (vae.json's
+# sample_size) through the encoder's four blocks and back through the
+# decoder's, which share these (L, C), each at dilations 1, 3 and 9
+CODEC_BATCH = 8
+CODEC_SAMPLES = 12000
+RESUNIT_CODEC_CASES = [(CODEC_BATCH, L, C, d)
+                       for L, C in ((12000, 128), (6000, 128), (1500, 256), (250, 512))
+                       for d in (1, 3, 9)]
+RESUNIT_CASES += RESUNIT_CODEC_CASES
 # bf16: the decoder blocks of one 10 s clip, the shapes of phases 16 and
 # 19, and phase 28's bf16 encode of a training batch
 RESUNIT_BF16_CASES = ([(1, 5000, 512, d) for d in (1, 3, 9)]
@@ -1804,7 +1833,9 @@ def vc_path(dev="cuda", cfg=None, sr=24000, seconds=10.0, reps=5, latent_sr=50):
 TRAIN_BATCH = 8
 ATTN_GRAD_CASES = [(TRAIN_BATCH, 16, 500, 500, 64, False),
                    (TRAIN_BATCH, 16, 500, 100, 64, True)]
-RESUNIT_GRAD_CASE = (TRAIN_BATCH, 30000, 256, 3)  # the encoder's third block
+# the DiT train step's encoder third block, and the VAE codec step's first
+# (its largest: batch 8 of 12 000 samples at C = 128)
+RESUNIT_GRAD_CASES = [(TRAIN_BATCH, 30000, 256, 3), (CODEC_BATCH, 12000, 128, 9)]
 # A kernel wrapper's gradients against the plain twin's on the same inputs:
 # the backward is the plain twin's vjp in both, so they agree to rounding.
 # Each gradient within KERNEL_GRAD_TOL of its largest entry, and none zero
@@ -1935,30 +1966,40 @@ def check_attention_grad(dev, gen, cases=ATTN_GRAD_CASES):
     return rows
 
 
-def check_resunit_grad(dev, gen, case=RESUNIT_GRAD_CASE):
+def check_resunit_grad(dev, gen, case=RESUNIT_GRAD_CASES[0]):
     """Phase 23, kernel 2: the nine autograd gradients through the kernel's
-    wrapper against those through the plain twin at one encoder shape."""
+    wrapper against those through the plain twin at ``case``, and the
+    backward's time (``FusedResidualUnit.backward``: the plain twin's
+    recompute and vjp, 24 a VAE codec step, one per forward launch of phase
+    30's step) beside its bound: the bytes of x, dy, dx and the weights and
+    their gradients, and 48 B L C^2 flops (the recompute's conv7 and 1x1,
+    16; their weight and input gradients, 32).  No library call computes it."""
     import torch
 
     from ezaudio_tpu_torch.ops.kernels.resunit import fused_residual_unit, residual_unit_plain
 
     B, L, C, d = case
+    names = ["x", "w7", "b7", "w1", "b1", "a1", "be1", "a2", "be2"]
     args = [a.requires_grad_() for a in resunit_args(dev, gen, B, L, C)]
     g = torch.randn(B, L, C, device=dev, generator=gen)
     y = fused_residual_unit(*args, d)
     if y.grad_fn is None or type(y.grad_fn).__name__ != "FusedResidualUnitBackward":
         raise AssertionError("resunit: output has no kernel grad_fn")
-    names = ["x", "w7", "b7", "w1", "b1", "a1", "be1", "a2", "be2"]
-    got = dict(zip(names, torch.autograd.grad(y, args, g)))
+    got = dict(zip(names, torch.autograd.grad(y, args, g, retain_graph=True)))
     want = dict(zip(names, torch.autograd.grad(residual_unit_plain(*args, d), args, g)))
     sync(dev)
     ok, grads = grad_agreement(got, want, KERNEL_GRAD_TOL)
+    del got, want
+    bwd_ms = time_ms(lambda: torch.autograd.grad(y, args, g, retain_graph=True), reps=3, iters=3)
+    nbytes = (3 * B * L * C + 2 * (8 * C * C + 2 * C) + 2 * 4 * C) * 4
+    bms, by = bound_ms(nbytes, 48.0 * B * L * C * C, "float32")
     row = dict(kind="resunit_backward", shape=[B, L, C], dilation=d,
                grads={n: r["rel_err"] for n, r in grads.items()},
-               grad_fn=type(y.grad_fn).__name__)
+               backward_ms=bwd_ms, bound_ms=bms, bound_by=by, library_ms=None,
+               per_codec_step=24, grad_fn=type(y.grad_fn).__name__)
     log("resunit_grad " + json.dumps(row))
     if not ok:
-        raise AssertionError(f"resunit gradients: {_grad_failures(grads)}")
+        raise AssertionError(f"resunit gradients {row['shape']}: {_grad_failures(grads)}")
     return row
 
 
@@ -2750,14 +2791,27 @@ def check_attention_grad_bf16(dev, gen, cases=ATTN_GRAD_CASES):
         def grads(fn, dtype):
             ins = [t.to(dtype).requires_grad_() for t in (q, k, v)]
             out = fn(*ins)
-            return out, dict(zip("qkv", torch.autograd.grad(out, ins, g.to(dtype))))
+            return out, ins, dict(zip("qkv", torch.autograd.grad(out, ins, g.to(dtype),
+                                                                 retain_graph=True)))
 
-        o, got = grads(lambda *a: fused_attention(*a, key_mask=mask), torch.bfloat16)
+        o, ins, got = grads(lambda *a: fused_attention(*a, key_mask=mask), torch.bfloat16)
         if o.grad_fn is None or type(o.grad_fn).__name__ != "FusedAttentionBackward":
             raise AssertionError(f"bf16 attention {B, H, Lq, Lk, D}: no kernel grad_fn")
-        _, sdpa = grads(lambda *a: F.scaled_dot_product_attention(*a, attn_mask=sdpa_mask),
-                        torch.bfloat16)
-        _, ref = grads(lambda *a: attention_plain(*a, key_mask=mask), torch.float32)
+        sdpa_fn = lambda *a: F.scaled_dot_product_attention(*a, attn_mask=sdpa_mask)  # noqa
+        _, _, sdpa = grads(sdpa_fn, torch.bfloat16)
+        g16 = g.to(torch.bfloat16)
+        # the bf16 backward (the plain twin's recompute and vjp) and SDPA's
+        # bf16 forward + backward, timed on the card; the bound as phase
+        # 23's at bf16's rate
+        bwd_ms = lib_ms = None
+        if torch.device(dev).type == "cuda":
+            bwd_ms = time_ms(lambda: torch.autograd.grad(o, ins, g16, retain_graph=True),
+                             reps=3, iters=3)
+            lib_ms = time_ms(lambda: torch.autograd.grad(sdpa_fn(*ins), ins, g16),
+                             reps=3, iters=3)
+        nbytes = 2 * (2 * Lq + 2 * Lk) * B * H * D * 2 + (B * Lk if masked else 0)
+        bms, by = bound_ms(nbytes, 10.0 * B * H * Lq * Lk * D, "bfloat16")
+        _, _, ref = grads(lambda *a: attention_plain(*a, key_mask=mask), torch.float32)
         sync(dev)
         stats = {}
         for n in "qkv":
@@ -2768,7 +2822,8 @@ def check_attention_grad_bf16(dev, gen, cases=ATTN_GRAD_CASES):
                             ok=d_kernel <= BF16_REF_FACTOR * d_sdpa
                             and corr > BF16_ATTN_GRAD_CORR)
         row = dict(kind="attention_backward_bf16", shape=[B, H, Lq, Lk, D], masked=masked,
-                   grads=stats, grad_fn=type(o.grad_fn).__name__)
+                   grads=stats, backward_ms=bwd_ms, bound_ms=bms, bound_by=by,
+                   library_fwd_bwd_ms=lib_ms, grad_fn=type(o.grad_fn).__name__)
         log("attention_grad_bf16 " + json.dumps(row))
         if not all(s["ok"] for s in stats.values()):
             raise AssertionError(f"bf16 attention gradients {row['shape']}: {stats}")
@@ -3016,6 +3071,667 @@ def tool_paths(ez, root, clips=16, seconds=10.0, batch=TRAIN_BATCH, t5_config=No
 
 
 
+# ---------------------------------------------------------------------------
+# Codecs (phase 30): vae.json's widths, and the cut widths of the codec
+# step's card-against-CPU run.
+VAE_WIDTHS = dict(channels=128, latent_dim=128, c_mults=(1, 2, 4, 8), strides=(2, 4, 6, 10))
+VAE_CUT = dict(channels=128, latent_dim=128, c_mults=(1, 2), strides=(2, 4))
+# The codec step, card against CPU (the cut widths).  At random weights
+# the generator's gradient is ill-conditioned in f32 (log10 STFT
+# magnitudes, snake alphas summed over time): tests/test_torch_codec_training.py
+# reads the JAX package's own f32 gradients up to 2.8e-2 of a tensor's
+# scale from its float64 ones.  So each card step is held against the
+# CPU's f32 step, with the CPU's float64 step (which that test holds
+# against JAX's float64 step within 1e-8 of scale) as the witness:
+#   * every loss term within CODEC_LOSS_REL of the CPU's;
+#   * each gradient within TRAIN_GRAD_TOL of its scale (its largest entry,
+#     or CODEC_GRAD_FLOOR times its network's largest where that is more)
+#     from the CPU's, or no farther from float64 than the factor times the
+#     CPU's gradient plus TRAIN_GRAD_TOL of its scale; each network's
+#     gradient as one vector no farther from float64 (L2) than the factor
+#     times the CPU's;
+#   * the factor: CODEC_CUDNN_FACTOR for the card's step with the plain
+#     twin in the kernel's place (cuDNN's f32 convolutions, TF32 off, sum
+#     in other orders than the CPU's), CODEC_CUDNN_FACTOR times
+#     CODEC_KERNEL_FACTOR for the step as it runs (kernel 2's forward is
+#     3xTF32, within RESUNIT_TOL of the plain twin, not at f32's
+#     rounding).  Each is twice the worst reading (H100, PERF.md section
+#     6, PR 10): the plain step needed 2.99 in a tensor and 2.08 in L2,
+#     the step as it runs 13.3 and 7.30 (4.45 times the plain step's);
+#   * a LeakyReLU input of the discriminator whose sign differs between
+#     the card and the CPU (``leaky_flips``) moves the gradients of its
+#     chain of convs and of the sub-discriminator's ``conv_post`` by the
+#     slope's jump, 0.9 times what passes through it: there the floor is
+#     CODEC_KINK_FLOOR, where such a flip is shown in the run;
+#   * the updated parameters: within 2 lr everywhere, and within 1e-3 lr
+#     where the float64 gradient exceeds 1e-4 and four times each f32
+#     gradient's distance from it.
+CODEC_LOSS_REL = 1e-5
+CODEC_CUDNN_FACTOR = 6.0
+CODEC_KERNEL_FACTOR = 4.5
+CODEC_GRAD_FLOOR = 1e-4
+CODEC_KINK_FLOOR = 1e-3
+# DAC and EnCodec, card against CPU: the codes may differ only at near
+# ties.  At a frame's first differing codebook the CPU's scores of its own
+# code and the card's (DAC: cosine similarity; EnCodec: minus the squared
+# distance over the residual's squared norm) are within CODEC_TIE; that
+# frame's later codebooks are not compared.  z on the frames whose codes all
+# agree, and the audio each side decodes from the CPU's codes, within
+# CODEC_REL_TOL of the CPU output's largest magnitude (f32 sums in another
+# order, TF32 off).
+CODEC_TIE = 1e-4
+CODEC_REL_TOL = 1e-4
+
+
+def codec_clip(sr: int, seconds: float, batch: int = 1, seed: int = 0):
+    """Seeded clips (B, T, 1): two tones, a slow tremolo and noise, each
+    clip its own pitch."""
+    import numpy as np
+
+    t = np.arange(int(seconds * sr)) / sr
+    rng = np.random.default_rng(seed)
+    clips = [(0.3 * np.sin(2 * np.pi * (220 + 37 * i) * t) * (1 + 0.3 * np.sin(2 * np.pi * 3 * t))
+              + 0.1 * np.sin(2 * np.pi * 1375 * t) + 0.03 * rng.standard_normal(t.shape))
+             for i in range(batch)]
+    return np.stack(clips)[..., None].astype(np.float32)
+
+
+def build_codec(kind: str, dev, seed: int = 0, **kw):
+    """A seeded codec or discriminator (``codec_trainer.init_codec_``) on
+    ``dev``: drawn on the CPU, then copied, so every device holds the same
+    weights for a seed."""
+    import torch
+
+    from ezaudio_tpu_torch.codecs.dac import DAC
+    from ezaudio_tpu_torch.codecs.discriminator import Discriminator
+    from ezaudio_tpu_torch.codecs.encodec import Encodec
+    from ezaudio_tpu_torch.codecs.oobleck import AudioVAE
+    from ezaudio_tpu_torch.training.codec_trainer import init_codec_
+
+    cls = dict(vae=AudioVAE, dac=DAC, encodec=Encodec, disc=Discriminator)[kind]
+    model = init_codec_(cls(**kw), torch.Generator().manual_seed(seed))
+    return model.to(dev)
+
+
+def weight_norm_grads(grads: dict):
+    """The largest |gradient| of each ``weight_g`` and ``weight_v``."""
+    return {n: g.abs().max().item() for n, g in grads.items()
+            if n.endswith(("weight_g", "weight_v"))}
+
+
+def codec_train_path(dev="cuda", widths=VAE_WIDTHS, batch=CODEC_BATCH, samples=CODEC_SAMPLES,
+                     steps=4, sr=24000, disc_kw=None, step_kw=None):
+    """Phase 30 (a): the VAE codec trainer at ``widths`` with live weight
+    norm, the discriminator at its defaults (``sample_rate=sr``),
+    ``make_codec_train_steps`` at its defaults, ``batch`` seeded clips of
+    ``samples``, ``steps`` steps.  Every step exactly 24 kernel-2 launches
+    (all f32, 2 per ResidualUnit of the model: the encode and the decode);
+    every generator and discriminator tensor moved; a non-zero gradient on
+    every ``weight_g`` and ``weight_v`` (the last step's)."""
+    import numpy as np
+    import torch
+
+    from ezaudio_tpu_torch.codecs.oobleck import ResidualUnit
+    from ezaudio_tpu_torch.training.codec_trainer import make_codec_train_steps
+
+    cuda = torch.device(dev).type == "cuda"
+    vae = build_codec("vae", dev, 0, use_weight_norm=True, **widths)
+    disc = build_codec("disc", dev, 1, sample_rate=sr, **(disc_kw or {}))
+    step = make_codec_train_steps(vae, disc, "vae", sample_rate=sr, **(step_kw or {}))
+    want_res = 2 * sum(isinstance(m, ResidualUnit) for m in vae.encoder.modules())
+    audio = torch.from_numpy(codec_clip(sr, samples / sr, batch)).to(dev)
+    before = {"gen": snapshot(vae), "disc": snapshot(disc)}
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    shapes = set()
+    with resunit_shapes(shapes, full=True):
+        rows = timed_steps(dev, steps, lambda i: step(audio, seed=0, return_grads=i == steps - 1))
+    peak = mem_gib(torch.cuda.max_memory_allocated) if cuda else None
+    last = rows[-1]["out"]
+    gv = weight_norm_grads(last.pop("gen_grads"))
+    last.pop("disc_grads")
+    wall = statistics.median([r["wall_s"] for r in rows[1:]]) if steps > 1 else rows[0]["wall_s"]
+    losses = [{k: v.item() for k, v in r["out"].items()} for r in rows]
+    # ``unchanged`` names the tensors whose bytes changed
+    moved = {side: sorted(set(before[side]) - set(unchanged(m, before[side])))
+             for side, m in (("gen", vae), ("disc", disc))}
+    row = dict(path="codec_train_vae", card=card_line() if cuda else "cpu", batch=batch,
+               samples=samples, sr=sr, steps=steps,
+               gen_params=sum(p.numel() for p in vae.parameters()),
+               disc_params=sum(p.numel() for p in disc.parameters()),
+               step_wall_s=wall, step_wall_s_all=[r["wall_s"] for r in rows],
+               samples_per_s=batch / wall, audio_s_per_s=batch * samples / sr / wall,
+               peak_mem_gib=peak, losses=losses,
+               launches_per_step=[r["launches"] for r in rows],
+               by_dtype_per_step=[r["by_dtype"] for r in rows],
+               weight_norm_tensors=len(gv), weight_norm_min_grad=min(gv.values(), default=0.0),
+               unmoved=moved, resunit_batch_shapes=sorted(shapes))
+    log("codec_train " + json.dumps(row))
+    bad = []
+    for i, r in enumerate(rows):
+        if r["launches"] != [0, want_res] or r["by_dtype"] != want_by_dtype(0, want_res,
+                                                                           "float32"):
+            bad.append(f"step {i}: launches {r['launches']} {r['by_dtype']}, want {want_res} f32")
+    if not all(np.isfinite(list(d.values())).all() for d in losses):
+        bad.append(f"losses {losses}")
+    if moved["gen"] or moved["disc"]:
+        bad.append(f"tensors that did not move: {moved['gen'][:4]}, {moved['disc'][:4]}")
+    if not gv or min(gv.values()) <= 0:
+        bad.append(f"zero weight-norm gradients: {[n for n, v in gv.items() if v <= 0][:4]}")
+    if bad:
+        raise AssertionError("codec train: " + "; ".join(bad))
+    row.update(attention_launches=0, resunit_launches=sum(r["launches"][1] for r in rows),
+               resunit_shapes=sorted({s[1:3] for s in shapes}, reverse=True))
+    return row
+
+
+def codec_step_agreement(g: dict, c: dict, r: dict, lr: dict, factor: float,
+                         kinks=()):
+    """A codec step ``g`` against the CPU's ``c`` and the float64 step ``r``
+    (each: the metrics, ``gen_grads``, ``disc_grads`` and the updated
+    ``gen_params``/``disc_params``), by the limits above with ``factor``;
+    a tensor whose name starts with one of ``kinks`` gets the floor
+    CODEC_KINK_FLOOR: ``(row, failures)``.  ``lr``: each network's first
+    lr.  The row keeps, for each network, the least factor its tensors and
+    its L2 distance would pass with (``needed_factor``), and the tensors
+    that pass only by the kink floor."""
+    bad, worst, dist, largest, needed, kink_only = [], {}, {}, {}, {}, []
+    for k, v in c["metrics"].items():
+        if not abs(g["metrics"][k] - v) <= CODEC_LOSS_REL * abs(v):
+            bad.append(f"{k} {g['metrics'][k]} against {v}")
+    for side in ("gen", "disc"):
+        gg, cg, rg = g[f"{side}_grads"], c[f"{side}_grads"], r[f"{side}_grads"]
+        largest[side] = max(v.abs().max().item() for v in cg.values())
+        l2 = {"got": 0.0, "yardstick": 0.0}
+        need = 0.0
+        for n, w in cg.items():
+            got, w, ref = gg[n].double().cpu(), w.double(), rg[n]
+            base = max(w.abs().max().item(), CODEC_GRAD_FLOOR * largest[side])
+            kink = n.startswith(tuple(kinks))
+            scale = max(base, CODEC_KINK_FLOOR * largest[side]) if kink else base
+            err = (got - w).abs().max().item()
+            off, c_off = (got - ref).abs().max().item(), (w - ref).abs().max().item()
+            l2["got"] += (got - ref).square().sum().item()
+            l2["yardstick"] += (w - ref).square().sum().item()
+            if err / scale > worst.get(side, (0.0, ""))[0]:
+                worst[side] = (err / scale, n)
+            if err > TRAIN_GRAD_TOL * scale:
+                need = max(need, (off - TRAIN_GRAD_TOL * scale) / max(c_off, 1e-300))
+            passes = [err <= TRAIN_GRAD_TOL * t or off <= factor * c_off + TRAIN_GRAD_TOL * t
+                      for t in (scale, base)]
+            if not passes[0]:
+                bad.append(f"{side} gradient {n}: {err} from the CPU's, {off} from "
+                           f"float64 (the CPU's {c_off}), scale {scale}, the "
+                           f"network's largest {largest[side]}")
+            elif not passes[1]:
+                kink_only.append(n)
+        dist[side] = {k: v ** 0.5 for k, v in l2.items()}
+        needed[side] = dict(tensors=need,
+                            l2=dist[side]["got"] / max(dist[side]["yardstick"], 1e-300))
+        if not dist[side]["got"] <= factor * dist[side]["yardstick"]:
+            bad.append(f"{side} gradients: {dist[side]['got']} from float64 in L2, the "
+                       f"CPU's {dist[side]['yardstick']}")
+        for n, p in g[f"{side}_params"].items():
+            d = (p.double().cpu() - c[f"{side}_params"][n].double()).abs()
+            noise = (gg[n].double().cpu() - rg[n]).abs().maximum((cg[n].double() - rg[n]).abs())
+            stable = rg[n].abs() > (4 * noise).clamp_min(1e-4)
+            if not (d.max().item() <= 2 * lr[side]
+                    and (not stable.any() or d[stable].max().item() <= 1e-3 * lr[side])):
+                bad.append(f"{side} parameter {n}: moved {d.max().item()} apart")
+    row = dict(metrics={k: [g["metrics"][k], v] for k, v in c["metrics"].items()},
+               worst_grad={s: dict(rel_err=w[0], name=w[1]) for s, w in worst.items()},
+               l2_from_f64=dist, factor=factor, needed_factor=needed, largest_grad=largest,
+               passed_by_the_kink_floor=kink_only,
+               n_grads={s: len(c[f"{s}_grads"]) for s in ("gen", "disc")})
+    return row, bad
+
+
+@contextlib.contextmanager
+def plain_resunits():
+    """The VAE's ResidualUnits on the plain twin (autograd through it) in
+    place of kernel 2, on any device."""
+    from ezaudio_tpu_torch.codecs import oobleck_fast
+    from ezaudio_tpu_torch.ops.kernels.resunit import residual_unit_plain
+
+    orig = oobleck_fast.fused_residual_unit
+    oobleck_fast.fused_residual_unit = residual_unit_plain
+    try:
+        yield
+    finally:
+        oobleck_fast.fused_residual_unit = orig
+
+
+@contextlib.contextmanager
+def leaky_inputs(disc, record: list):
+    """Appends every input of ``disc``'s LeakyReLUs to ``record`` in call
+    order, as ``(chain, tensor on the CPU)``: ``chain`` names the list of
+    convs that holds the activation (``discriminators.0.convs``,
+    ``discriminators.5.band_convs.2``)."""
+    import torch
+
+    hooks = [m.register_forward_pre_hook(
+        lambda mod, inp, c=name.rsplit(".", 2)[0]: record.append((c, inp[0].detach().cpu())))
+        for name, m in disc.named_modules() if isinstance(m, torch.nn.LeakyReLU)]
+    try:
+        yield
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+def leaky_flips(got: list, want: list):
+    """The LeakyReLU inputs (two :func:`leaky_inputs` records of one step)
+    whose sign differs between ``got`` and ``want``, by chain: how many,
+    and the largest |input| among them on each side.  ``(rows, prefixes)``:
+    the prefixes name the parameters a flip moves, the chain's and its
+    sub-discriminator's ``conv_post``."""
+    rows = {}
+    for (chain, a), (chain_w, b) in zip(got, want, strict=True):
+        assert chain == chain_w and a.shape == b.shape, (chain, chain_w)
+        flip = (a > 0) != (b > 0)
+        if flip.any():
+            r = rows.setdefault(chain, dict(n=0, largest_abs_got=0.0, largest_abs_want=0.0))
+            r["n"] += int(flip.sum())
+            r["largest_abs_got"] = max(r["largest_abs_got"], a[flip].abs().max().item())
+            r["largest_abs_want"] = max(r["largest_abs_want"], b[flip].abs().max().item())
+    prefixes = sorted({f"{c}." for c in rows}
+                      | {".".join(c.split(".")[:2]) + ".conv_post." for c in rows})
+    return rows, prefixes
+
+
+def _codec_step(step, audio, draws):
+    out = step(audio, seed=0, draws=draws, return_grads=True)
+    return dict(metrics={k: v.item() for k, v in out.items() if "/" in k},
+                gen_grads={n: v.detach().cpu() for n, v in out["gen_grads"].items()},
+                disc_grads={n: v.detach().cpu() for n, v in out["disc_grads"].items()},
+                gen_params=snapshot(step.codec), disc_params=snapshot(step.disc))
+
+
+def codec_step_card_vs_cpu(dev="cuda", widths=VAE_CUT, batch=2, samples=4800, sr=24000,
+                           disc_kw=None, step_kw=None, lr=1e-3):
+    """Phase 30 (a), second part: one VAE codec step at cut widths on the
+    card as it runs (kernel 2) and with the plain twin in the kernel's
+    place, each against the CPU's f32 step with the CPU's float64 step as
+    the witness, the same weights and injected posterior noise, by
+    :func:`codec_step_agreement` (the limits above); ``lr`` for both
+    networks, warmup off (the default warmup's first lr, 1.5e-7, moves
+    nothing the limits could read)."""
+    import copy
+
+    import torch
+
+    from ezaudio_tpu_torch.training.codec_trainer import make_codec_train_steps
+
+    kw = dict(dict(gen_lr=lr, disc_lr=lr, warmup=0.0), **(step_kw or {}))
+    vae = build_codec("vae", "cpu", 2, use_weight_norm=True, **widths)
+    disc = build_codec("disc", "cpu", 3, sample_rate=sr, **(disc_kw or {}))
+    audio = torch.from_numpy(codec_clip(sr, samples / sr, batch, seed=1))
+    frames = samples // vae.downsampling_ratio
+    noise = torch.randn(batch, frames, widths["latent_dim"], generator=torch.Generator()
+                        .manual_seed(4))
+    runs, leaky = {}, {}
+    for name, d, dt, ctx in (("card", dev, torch.float32, contextlib.nullcontext),
+                             ("card_plain", dev, torch.float32, plain_resunits),
+                             ("cpu", "cpu", torch.float32, contextlib.nullcontext),
+                             ("f64", "cpu", torch.float64, contextlib.nullcontext)):
+        step = make_codec_train_steps(copy.deepcopy(vae).to(d, dt), copy.deepcopy(disc).to(d, dt),
+                                      "vae", sample_rate=sr, **kw)
+        leaky[name] = []
+        reset_counters()
+        t0 = time.perf_counter()
+        with ctx(), leaky_inputs(step.disc, leaky[name]):
+            runs[name] = _codec_step(step, audio.to(d, dt), {"noise": noise.to(d, dt)})
+        runs[name]["wall_s"] = time.perf_counter() - t0
+        runs[name]["launches"] = list(read_counters())
+        del step
+    lrs = {"gen": lr, "disc": lr}
+    rows, bad = {}, []
+    for name, factor in (("card", CODEC_CUDNN_FACTOR * CODEC_KERNEL_FACTOR),
+                         ("card_plain", CODEC_CUDNN_FACTOR)):
+        flips, kinks = leaky_flips(leaky[name], leaky["cpu"])
+        rows[name], b = codec_step_agreement(runs[name], runs["cpu"], runs["f64"], lrs, factor,
+                                             kinks)
+        rows[name]["leaky_flips"] = flips
+        bad += [f"{name}: {x}" for x in b]
+    want_res = 6 * len(widths["strides"])  # 3 units a block, encode and decode
+    cuda = torch.device(dev).type == "cuda"  # (a CPU rehearsal counts the plain twin)
+    if runs["card"]["launches"][1] != want_res or (cuda and runs["card_plain"]["launches"][1]):
+        bad.append(f"card launches {runs['card']['launches']} and plain "
+                   f"{runs['card_plain']['launches']}, want {want_res} and 0 ResidualUnits")
+    row = dict(path="codec_train_vae_card_vs_cpu", widths=widths, batch=batch, samples=samples,
+               card_vs_cpu=rows["card"], card_plain_vs_cpu=rows["card_plain"],
+               walls_s={k: v["wall_s"] for k, v in runs.items()},
+               card_launches=runs["card"]["launches"])
+    log("codec_train_card_vs_cpu " + json.dumps(row))
+    if bad:
+        raise AssertionError("codec step, card against CPU: " + "; ".join(bad[:8]))
+    return row
+
+
+def rvq_scores(model, z, kind: str):
+    """The CPU model's score matrix (B*T, codebook size) at each stage of its
+    residual quantizer, replayed on the encoder output ``z`` (B, T, D): DAC's
+    cosine similarities, EnCodec's minus squared distances over the
+    residual's squared norm (higher is better in both)."""
+    import torch
+
+    scores = []
+    with torch.no_grad():
+        if kind == "dac":
+            residual = z.transpose(1, 2)
+            for q in model.quantizer.quantizers:
+                z_q, _, _, _, z_e = q(residual)
+                scores.append(q.similarity(z_e))
+                residual = residual - z_q
+        else:
+            residual = z
+            for layer in model.quantizer.layers:
+                norm = residual.reshape(-1, residual.shape[-1]).square().sum(1, keepdim=True)
+                scores.append(-layer.distances(residual) / (norm + 1e-12))
+                residual = residual - layer(residual)[0]
+    return scores
+
+
+def near_tie_codes(card, cpu, scores, tie=CODEC_TIE):
+    """Card codes against the CPU's (B, N, T) by the near-tie rule:
+    ``(row, frames whose codes all agree (B, T) bool, failures)``."""
+    import torch
+
+    card, cpu = card.cpu(), cpu.cpu()
+    B, N, T = cpu.shape
+    differ = card != cpu
+    first = torch.where(differ.any(1), differ.float().argmax(1), torch.full((B, T), N))
+    gaps, bad = [], []
+    for b in range(B):
+        for t in range(T):
+            i = int(first[b, t])
+            if i == N:
+                continue
+            s = scores[i][b * T + t]
+            gap = (s[cpu[b, i, t]] - s[card[b, i, t]]).item()
+            gaps.append(gap)
+            if not gap <= tie:
+                bad.append(f"frame {b},{t} codebook {i}: code {int(card[b, i, t])} against "
+                           f"{int(cpu[b, i, t])}, score gap {gap}")
+    row = dict(frames=B * T, codebooks=N, frames_differing=len(gaps),
+               max_gap=max(gaps, default=0.0), tie=tie)
+    return row, first == N, bad
+
+
+def rel_err(got, want):
+    return ((got.float().cpu() - want.float().cpu()).abs().max() /
+            want.float().abs().max().clamp_min(1e-12)).item()
+
+
+def dac_paths(dev="cuda", seconds=10.0, dac_kw=None, train_batch=4, train_samples=22050,
+              train_steps=3, disc_kw=None, step_kw=None, tmp=None):
+    """Phase 30 (b): DAC at the JAX package's ``DAC()`` defaults (descript's
+    44.1 kHz model) on seeded weights: the forward of a seeded ``seconds``
+    clip, card against CPU by :func:`near_tie_codes`; ``DACCodec.compress``
+    (one window, no normalization) -> a ``.dac`` file -> ``decompress`` on
+    the card: codes equal to the forward's and the loudness restored; then
+    ``train_steps`` codec steps at ``train_batch`` x ``train_samples``,
+    ``quantizer_dropout=0.5``, live weight norm."""
+    import numpy as np
+    import torch
+
+    from ezaudio_tpu_torch.audio.loudness import integrated_loudness
+    from ezaudio_tpu_torch.codecs.dacfile import DACCodec, DACFile
+    from ezaudio_tpu_torch.training.codec_trainer import make_codec_train_steps
+
+    kw = dac_kw or {}
+    cpu_model = build_codec("dac", "cpu", 5, **kw).eval()
+    sr = cpu_model.sample_rate
+    clip = torch.from_numpy(codec_clip(sr, seconds, seed=2))
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        want = cpu_model(clip)
+    cpu_s = time.perf_counter() - t0
+    model = build_codec("dac", dev, 5, **kw).eval()
+    sync(dev)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        got = model(clip.to(dev))
+    sync(dev)
+    card_s = time.perf_counter() - t0
+    with torch.no_grad():
+        z_cpu = cpu_model.encode_latent(cpu_model.preprocess(clip))
+        ties, agree, bad = near_tie_codes(got["codes"], want["codes"],
+                                          rvq_scores(cpu_model, z_cpu, "dac"))
+        z_err = rel_err(got["z"].cpu()[agree], want["z"][agree]) if agree.any() else 0.0
+        from_cpu_codes = model.decode(model.quantizer.from_codes(
+            want["codes"].to(dev))[0])[:, :clip.shape[1]]
+        audio_err = rel_err(from_cpu_codes, want["audio"])
+    if z_err > CODEC_REL_TOL or audio_err > CODEC_REL_TOL:
+        bad.append(f"z {z_err}, audio from the CPU's codes {audio_err} (limit {CODEC_REL_TOL})")
+
+    # the .dac round trip on the card: one window holding the whole clip
+    wav = clip[0, :, 0].numpy()
+    codec = DACCodec(model)
+    win = got["codes"].shape[-1] * model.hop_length / sr  # the forward's padded length
+    t0 = time.perf_counter()
+    f = codec.compress(wav, sr, win_duration=win, normalize_db=None)
+    tmp = tmp or tempfile.mkdtemp(prefix="ezaudio_dac_")
+    try:
+        path = f.save(os.path.join(tmp, "clip"))
+        loaded = DACFile.load(path)
+        rec = codec.decompress(loaded)
+        file_bytes = os.path.getsize(path)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    round_trip_s = time.perf_counter() - t0
+    in_db, out_db = integrated_loudness(wav, sr), integrated_loudness(rec, sr)
+    codes_equal = bool(np.array_equal(loaded.codes, got["codes"].cpu().numpy()))
+    if not codes_equal or rec.shape != wav.shape or not abs(out_db - in_db) <= 0.01:
+        bad.append(f".dac round trip: codes equal {codes_equal}, {rec.shape}, "
+                   f"{out_db} dB against {in_db}")
+    row = dict(path="dac", sr=sr, seconds=seconds, params=sum(p.numel() for p in model.parameters()),
+               codes_shape=list(got["codes"].shape), near_tie=ties, z_rel_err=z_err,
+               audio_from_cpu_codes_rel_err=audio_err, card_forward_s=card_s, cpu_forward_s=cpu_s,
+               dacfile=dict(codes_equal=codes_equal, bytes=file_bytes, input_db=in_db,
+                            output_db=out_db, round_trip_s=round_trip_s))
+    del model, cpu_model, codec
+    if bad:
+        log("dac " + json.dumps(row))
+        raise AssertionError("dac: " + "; ".join(bad[:8]))
+
+    # training steps
+    cuda = torch.device(dev).type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    dac = build_codec("dac", dev, 6, quantizer_dropout=0.5, use_weight_norm=True, **kw)
+    disc = build_codec("disc", dev, 7, sample_rate=sr, **(disc_kw or {}))
+    step = make_codec_train_steps(dac, disc, "dac", sample_rate=sr, **(step_kw or {}))
+    audio = torch.from_numpy(codec_clip(sr, train_samples / sr, train_batch, seed=3)).to(dev)
+    rows = timed_steps(dev, train_steps, lambda i: step(audio, seed=0))
+    losses = [{k: v.item() for k, v in r["out"].items()} for r in rows]
+    wall = statistics.median([r["wall_s"] for r in rows[1:]]) if train_steps > 1 else rows[0]["wall_s"]
+    row["train"] = dict(batch=train_batch, samples=train_samples, steps=train_steps,
+                        step_wall_s=wall, step_wall_s_all=[r["wall_s"] for r in rows],
+                        samples_per_s=train_batch / wall,
+                        peak_mem_gib=mem_gib(torch.cuda.max_memory_allocated) if cuda else None,
+                        losses=losses, launches=[r["launches"] for r in rows])
+    log("dac " + json.dumps(row))
+    if not all(np.isfinite(list(d.values())).all() for d in losses):
+        raise AssertionError(f"dac: train losses {losses}")
+    if any(r["launches"] != [0, 0] for r in rows):
+        raise AssertionError("dac: its train step launched a kernel")
+    return row
+
+
+def encodec_path(dev="cuda", seconds=10.0, kw=None):
+    """Phase 30 (c): EnCodec at the JAX package's ``Encodec()`` defaults
+    (24 kHz, dimension 128, n_filters 32, ratios 8/5/4/2, 8 x 1024
+    codebooks, LSTM) on seeded weights: encode and decode of a seeded
+    ``seconds`` clip, card against CPU by :func:`near_tie_codes`."""
+    import torch
+
+    kw = kw or {}
+    cpu_model = build_codec("encodec", "cpu", 8, **kw).eval()
+    sr = cpu_model.sample_rate
+    clip = torch.from_numpy(codec_clip(sr, seconds, seed=4))
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        z_cpu = cpu_model.encoder(clip)
+        codes_cpu = cpu_model.quantizer.encode(z_cpu)
+        audio_cpu = cpu_model.decode(codes_cpu)
+        cpu_s = time.perf_counter() - t0
+        model = build_codec("encodec", dev, 8, **kw).eval()
+        sync(dev)
+        t0 = time.perf_counter()
+        z = model.encoder(clip.to(dev))
+        codes = model.quantizer.encode(z)
+        audio = model.decode(codes)
+        sync(dev)
+        card_s = time.perf_counter() - t0
+        ties, agree, bad = near_tie_codes(codes, codes_cpu, rvq_scores(cpu_model, z_cpu, "encodec"))
+        z_err = rel_err(z, z_cpu)
+        from_cpu_codes = model.decode(codes_cpu.to(dev))
+        audio_err = rel_err(from_cpu_codes, audio_cpu)
+    if z_err > CODEC_REL_TOL or audio_err > CODEC_REL_TOL:
+        bad.append(f"z {z_err}, audio from the CPU's codes {audio_err} (limit {CODEC_REL_TOL})")
+    if audio.shape != clip.shape:
+        bad.append(f"audio {tuple(audio.shape)}, want {tuple(clip.shape)}")
+    row = dict(path="encodec", sr=sr, seconds=seconds,
+               params=sum(p.numel() for p in model.parameters()),
+               codes_shape=list(codes.shape), near_tie=ties, z_rel_err=z_err,
+               audio_from_cpu_codes_rel_err=audio_err, card_s=card_s, cpu_s=cpu_s,
+               codes_equal_share=float((codes.cpu() == codes_cpu).float().mean()))
+    log("encodec " + json.dumps(row))
+    del model, cpu_model
+    if bad:
+        raise AssertionError("encodec: " + "; ".join(bad[:8]))
+    return row
+
+
+def facade_paths(dev="cuda", seconds=10.0, vae_kw=None, dac_kw=None, encodec_kw=None,
+                 chunk=None):
+    """Phase 30 (d): the facade over ``'stable_vae'`` (kernel 2), ``'dac'``
+    and ``'encodec'``, each with ``quantization_first`` True and False, on a
+    seeded clip: the round trip's shape, the same waveform both ways (the
+    bottleneck at encode or at decode, on the same draws), kernel 2's
+    launches (12 an encode, 12 a decode, for the VAE only); DAC's chunked
+    ``encode_audio`` / ``decode_audio`` (``chunk``: (chunk_size, overlap)
+    in frames)."""
+    import torch
+
+    from ezaudio_tpu_torch.codecs.facade import AutoencoderFacade
+    from ezaudio_tpu_torch.codecs.oobleck import ResidualUnit
+
+    models = [("stable_vae", build_codec("vae", dev, 9, **(vae_kw or VAE_WIDTHS)), 24000),
+              ("dac", build_codec("dac", dev, 10, **(dac_kw or {})), None),
+              ("encodec", build_codec("encodec", dev, 11, **(encodec_kw or {})), None)]
+    rows, bad = [], []
+    for kind, model, sr in models:
+        model.eval()
+        sr = sr or model.sample_rate
+        clip = torch.from_numpy(codec_clip(sr, seconds, seed=5)).to(dev)
+        n_res = sum(isinstance(m, ResidualUnit) for m in model.modules())  # enc + dec
+        outs = {}
+        for q_first in (True, False):
+            facade = AutoencoderFacade(model, quantization_first=q_first, model_type=kind)
+            gen = torch.Generator(device=dev).manual_seed(12)
+            seen = set()
+            sync(dev)
+            reset_counters()
+            with resunit_shapes(seen):
+                t0 = time.perf_counter()
+                z = facade.encode(clip, generator=gen) if q_first else facade.encode(clip)
+                wav = facade.decode(z) if q_first else facade.decode(z, generator=gen)
+                sync(dev)
+                wall = time.perf_counter() - t0
+            launches = list(read_counters())
+            outs[q_first] = wav
+            r = dict(path=f"facade_{kind}_{'q_first' if q_first else 'q_last'}",
+                     latent_shape=list(z.shape), wav_shape=list(wav.shape), wall_s=wall,
+                     attention_launches=launches[0], resunit_launches=launches[1],
+                     launches_by_dtype=read_dtype_counters(),
+                     resunit_shapes=sorted(seen, reverse=True))
+            log("facade " + json.dumps(r))
+            want_n = n_res if kind == "stable_vae" else 0
+            if launches != [0, want_n] or not torch.isfinite(wav).all():
+                bad.append(f"{r['path']}: launches {launches} (want {want_n}), finite "
+                           f"{bool(torch.isfinite(wav).all())}")
+            rows.append(r)
+        # the same ops on the same draws, so equal (FUSED_TOL's room for a
+        # library routine choosing another algorithm)
+        diff = (outs[True] - outs[False]).abs().max().item()
+        rows[-1]["q_first_vs_q_last_max_abs"] = diff
+        if outs[True].shape != outs[False].shape or not diff <= FUSED_TOL:
+            bad.append(f"{kind}: quantization first and last differ by {diff}")
+        if kind == "dac":
+            size, overlap = chunk or (128, 32)
+            facade = AutoencoderFacade(model, model_type="dac")
+            sync(dev)
+            t0 = time.perf_counter()
+            z = facade.encode_audio(clip, chunked=True, chunk_size=size, overlap=overlap)
+            wav = facade.decode_audio(z, chunked=True, chunk_size=size, overlap=overlap)
+            sync(dev)
+            r = dict(path="facade_dac_chunked", chunk=[size, overlap], latent_shape=list(z.shape),
+                     wav_shape=list(wav.shape), wall_s=time.perf_counter() - t0,
+                     latent_rel_to_unchunked=rel_err(z, facade.encode(clip)),
+                     attention_launches=0, resunit_launches=0, resunit_shapes=[])
+            log("facade " + json.dumps(r))
+            frames = clip.shape[1] // model.hop_length
+            if (list(z.shape) != [1, frames, model.latent_dim]
+                    or list(wav.shape) != [1, frames * model.hop_length, 1]
+                    or not torch.isfinite(wav).all()):
+                bad.append(f"chunked DAC: latent {list(z.shape)}, wav {list(wav.shape)}")
+            rows.append(r)
+    del models, model
+    if bad:
+        raise AssertionError("facade: " + "; ".join(bad))
+    return rows
+
+
+def delayed_rel_rms(rec, x):
+    """The RMS of ``rec`` - ``x`` over ``x``'s, over half the clip, after
+    the delay that best aligns them (the PQMF bank's group delay, as
+    ``tests/test_pretransforms.py`` measures it)."""
+    import numpy as np
+    from scipy.signal import correlate
+
+    n = len(x) // 4
+    d = int(np.argmax(correlate(rec, x[:n], mode="valid")))
+    seg = x[: len(x) // 2]
+    r = rec[d: d + len(seg)]
+    return float(np.sqrt(np.mean((r - seg) ** 2) / np.mean(seg ** 2)))
+
+
+def pretransform_paths(dev="cuda", seconds=10.0, sr=24000, bands=16, levels=4):
+    """Phase 30 (e): PQMF (``bands``) and the db4 wavelet (``levels``) round
+    trips of a seeded clip, card against CPU within CODEC_REL_TOL of the
+    CPU output's range; the PQMF's reconstruction error printed."""
+    import torch
+
+    from ezaudio_tpu_torch.codecs.pretransforms import PQMFPretransform, WaveletPretransform
+
+    clip = torch.from_numpy(codec_clip(sr, seconds, seed=6))
+    rows, bad = [], []
+    for name, pre in (("pqmf", PQMFPretransform(num_bands=bands)),
+                      ("wavelet_db4", WaveletPretransform(levels=levels))):
+        out = {}
+        for d in (dev, "cpu"):
+            sync(d)
+            t0 = time.perf_counter()
+            z = pre.encode(clip.to(d))
+            y = pre.decode(z)
+            sync(d)
+            out[str(d)] = (z.cpu(), y.cpu(), time.perf_counter() - t0)
+        (zc, yc, tc), (zp, yp, tp) = out[str(dev)], out["cpu"]
+        r = dict(path=name, latent_shape=list(zc.shape), z_rel_err=rel_err(zc, zp),
+                 y_rel_err=rel_err(yc, yp), card_s=tc, cpu_s=tp,
+                 reconstruction_rel_rms=delayed_rel_rms(yc.numpy().ravel(),
+                                                        clip.numpy().ravel()))
+        log("pretransform " + json.dumps(r))
+        if r["z_rel_err"] > CODEC_REL_TOL or r["y_rel_err"] > CODEC_REL_TOL or yc.shape != clip.shape:
+            bad.append(f"{name}: {r}")
+        rows.append(r)
+    if bad:
+        raise AssertionError("pretransforms: " + "; ".join(bad))
+    return rows
+
+
 def _kernel_class(name: str) -> str:
     n = name.lower()
     if "attn_fwd" in n:
@@ -3177,7 +3893,8 @@ def main(argv) -> int:
         res_rows += check_resunit("cuda", gen, RESUNIT_BF16_CASES, "bfloat16")
     with phase("23 kernel gradients"):
         check_attention_grad("cuda", gen)
-        check_resunit_grad("cuda", gen)
+        for case in RESUNIT_GRAD_CASES:
+            check_resunit_grad("cuda", gen, case)
     before = mem_gib(torch.cuda.memory_allocated)
     ez = build_ezaudio()
     with phase("4 main"):
@@ -3279,6 +3996,25 @@ def main(argv) -> int:
             shutil.rmtree(root, ignore_errors=True)
     del ez
     check_freed("s3_l distill, flow and tools", before)
+    with phase("30a codec train"):
+        codec = codec_train_path()
+        paths.append(codec)
+    check_freed("VAE codec trainer", before)
+    check_batch_shapes(codec, RESUNIT_CASES)
+    with phase("30a codec step card_vs_cpu"):
+        codec_step_card_vs_cpu()
+    check_freed("codec step card_vs_cpu", before)
+    with phase("30b dac"):
+        dac_paths()
+    check_freed("DAC", before)
+    with phase("30c encodec"):
+        encodec_path()
+    check_freed("EnCodec", before)
+    with phase("30d facade"):
+        paths += facade_paths()
+    check_freed("facade codecs", before)
+    with phase("30e pretransforms"):
+        pretransform_paths()
 
     missing = uncovered_shapes(paths)
     if missing:

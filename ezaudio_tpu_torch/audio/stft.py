@@ -82,3 +82,13 @@ def mel_filterbank_htk(sr: int, n_fft: int, n_mels: int, fmin: float,
     mel_pts = 700.0 * (10.0 ** (np.linspace(to_mel(fmin), to_mel(fmax), n_mels + 2)
                                 / 2595.0) - 1.0)
     return _triangles(fft_freqs, mel_pts).astype(np.float32)
+
+
+def mel_spectrogram(x: torch.Tensor, sr: int, n_fft: int, hop_length: int, n_mels: int,
+                    fmin: float = 0.0, fmax: Optional[float] = None,
+                    power: float = 1.0) -> torch.Tensor:
+    """(B, T) -> (B, n_mels, frames): the slaney mel filterbank over the STFT
+    magnitude to ``power`` (``ezaudio_tpu/audio/stft.py::mel_spectrogram``)."""
+    spec = stft(x, n_fft, hop_length).abs() ** power
+    fb = torch.from_numpy(mel_filterbank(sr, n_fft, n_mels, fmin, fmax)).to(spec.device)
+    return torch.einsum("mf,bft->bmt", fb, spec)

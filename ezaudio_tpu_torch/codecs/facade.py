@@ -1,13 +1,18 @@
 """Autoencoder facade (counterpart of
-``ezaudio_tpu/codecs/facade.py::AutoencoderFacade``).
+``ezaudio_tpu/codecs/facade.py::AutoencoderFacade``): one interface over the
+latent codecs, ``encode(audio (B, T, 1)) -> latent (B, L, C)`` and
+``decode(latent) -> audio (B, T, 1)``.
 
-``encode(audio (B, T, 1)) -> latent (B, L, C)`` and ``decode(latent) ->
-audio (B, T, 1)`` through the kernel-routed encoder and decoder
-(``oobleck_fast.encode_fused`` / ``decode_fused``), as the JAX facade
-routes them.  With ``quantization_first`` (the EzAudio setting) the VAE
-posterior is sampled at encode, so decode takes the latent as is.  Also
-carries the chunked overlap-discard ``encode_audio`` / ``decode_audio`` of
-the reference (``autoencoders.py:428-559``), index arithmetic on the host.
+``model_type`` is the reference's switch (``autoencoder_wrapper.py``):
+``'stable_vae'`` (the Oobleck VAE, EzAudio's codec; encoder and decoder
+through ``oobleck_fast``, every ResidualUnit on kernel 2), ``'dac'`` or
+``'encodec'`` (residual-VQ codecs, plain torch).  ``quantization_first``
+decides where the bottleneck runs: at encode (EzAudio's ``q_first: true``:
+the VAE posterior sampled, or the RVQ round trip), or at decode (encode
+returns the encoder's raw output: the VAE's mean || scale, DAC's and
+EnCodec's continuous latent).  Also carries the chunked overlap-discard
+``encode_audio`` / ``decode_audio`` of the reference
+(``autoencoders.py:428-559``), index arithmetic on the host.
 """
 
 from __future__ import annotations
@@ -16,34 +21,64 @@ from typing import Optional
 
 import torch
 
-from ezaudio_tpu_torch.codecs.oobleck import AudioVAE, vae_sample
+from ezaudio_tpu_torch.codecs.oobleck import vae_sample
 from ezaudio_tpu_torch.codecs.oobleck_fast import decode_fused, encode_fused
+
+MODEL_TYPES = ("stable_vae", "dac", "encodec")
 
 
 class AutoencoderFacade:
-    def __init__(self, model: AudioVAE, quantization_first: bool = True):
-        if not quantization_first:
-            raise NotImplementedError("quantization_first=False is not ported yet")
+    def __init__(self, model, quantization_first: bool = True,
+                 model_type: str = "stable_vae"):
+        if model_type not in MODEL_TYPES:
+            raise ValueError(f"model_type {model_type!r}: one of {MODEL_TYPES}")
         self.model = model
         self.quantization_first = quantization_first
-        self.downsampling_ratio = model.downsampling_ratio
+        self.model_type = model_type
+        if model_type == "stable_vae":
+            self.latent_channels = model.latent_dim
+            self.downsampling_ratio = model.downsampling_ratio
+        else:
+            self.latent_channels = (model.latent_dim if model_type == "dac"
+                                    else model.dimension)
+            self.downsampling_ratio = model.hop_length
 
     @torch.no_grad()
     def encode(self, audio, generator: Optional[torch.Generator] = None,
                sample: bool = True) -> torch.Tensor:
-        """audio (B, T, 1) -> latent (B, L, C): a posterior sample drawn
-        from ``generator``, or the posterior mean with ``sample=False``."""
-        ms = encode_fused(self.model.encoder, self._tensor(audio))
-        return vae_sample(ms, sample, generator)
+        """audio (B, T, 1) -> latent (B, L, C).  The VAE with
+        ``quantization_first`` draws its posterior sample from ``generator``
+        (``sample=False``: the mean); without, it returns mean || scale."""
+        a, m = self._tensor(audio), self.model
+        if self.model_type == "encodec":
+            z = m.encoder(a)
+            return m.quantizer.decode(m.quantizer.encode(z)) if self.quantization_first else z
+        if self.model_type == "dac":
+            return m.encode(a)[0] if self.quantization_first else m.encode_latent(a)
+        ms = encode_fused(m.encoder, a)
+        return vae_sample(ms, sample, generator) if self.quantization_first else ms
 
     @torch.no_grad()
-    def decode(self, embedding) -> torch.Tensor:
-        """latent (B, L, C) -> audio (B, T, 1)."""
-        return decode_fused(self.model.decoder, self._tensor(embedding))
+    def decode(self, embedding, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """latent (B, L, C) -> audio (B, T, 1).  Without
+        ``quantization_first`` the bottleneck runs here first (the VAE's
+        posterior sample drawn from ``generator``)."""
+        z, m = self._tensor(embedding), self.model
+        if self.model_type == "encodec":
+            if not self.quantization_first:
+                z = m.quantizer.decode(m.quantizer.encode(z))
+            return m.decoder(z)
+        if self.model_type == "dac":
+            if not self.quantization_first:
+                z = m.quantizer(z)[0]
+            return m.decode(z)
+        if not self.quantization_first:
+            z = vae_sample(z, True, generator)
+        return decode_fused(m.decoder, z)
 
     def _tensor(self, x) -> torch.Tensor:
         """``x`` (array or tensor) in the codec's dtype on its device."""
-        w = self.model.decoder.layers[0].weight
+        w = next(self.model.parameters())
         return torch.as_tensor(x, dtype=w.dtype, device=w.device)
 
     def __call__(self, audio=None, embedding=None, **kw):

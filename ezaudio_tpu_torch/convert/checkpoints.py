@@ -1,13 +1,16 @@
 """Read the published EzAudio checkpoints from local files (counterpart of
 ``load_torch_checkpoint`` and ``strip_prefix`` in
-``ezaudio_tpu/convert/torch_to_jax.py`` and of ``_load_t5_state_dict`` in
-``ezaudio_tpu/api/ezaudio.py``).
+``ezaudio_tpu/convert/torch_to_jax.py``, of ``_load_t5_state_dict`` in
+``ezaudio_tpu/api/ezaudio.py`` and of the DAC CLI's ``.pth`` read in
+``ezaudio_tpu/codecs/dacfile.py``).
 
 The port keeps the reference torch names, so a state dict read here loads
 into its module by name: the DiT and the ControlNet from key ``model``,
 the VAE from key ``state_dict`` with its ``autoencoder.`` prefix stripped
 and its weight norm folded (``from_jax.fold_weight_norm``), T5 through
-``text/t5.py::t5_state_dict_from_hf``.  Everything is read on the host;
+``text/t5.py::t5_state_dict_from_hf``, a descript DAC ``.pth``
+(``{"state_dict": ...}`` or bare) with its weight norm folded or live as
+the model is built (:func:`load_dac`).  Everything is read on the host;
 :func:`load_state_dict_strict` copies it into a module's own tensors,
 wherever they live.  No download: every path is a local file.
 """
@@ -69,3 +72,18 @@ def load_state_dict_strict(module: nn.Module, sd: Dict[str, torch.Tensor], path:
         module.load_state_dict(sd, strict=True)
     except RuntimeError as e:
         raise RuntimeError(f"{path}: {e}") from e
+
+
+def load_dac(model: nn.Module, path: str) -> nn.Module:
+    """A reference DAC ``.pth`` into ``model`` (``codecs/dac.py::DAC``),
+    strictly: its ``state_dict`` entry or the whole file, ``weight_g`` and
+    ``weight_v`` kept for a model built with ``use_weight_norm=True``,
+    folded into ``weight`` otherwise."""
+    from ezaudio_tpu_torch.convert.from_jax import fold_weight_norm
+
+    obj = torch.load(path, map_location="cpu", weights_only=True)
+    sd = dict(obj.get("state_dict", obj))
+    if not getattr(model, "use_weight_norm", False):
+        sd = fold_weight_norm(sd)
+    load_state_dict_strict(model, sd, path)
+    return model

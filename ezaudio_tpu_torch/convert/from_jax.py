@@ -11,7 +11,11 @@ package's torch -> jax converters:
   * :func:`controlnet_state_dict_from_jax` — ``cn_params["params"]`` ->
     :class:`~ezaudio_tpu_torch.models.controlnet.DiTControlNet` state dict;
   * :func:`vae_state_dict_from_jax` — AudioVAE params (``encoder`` and
-    ``decoder`` subtrees) -> :class:`~ezaudio_tpu_torch.codecs.oobleck.AudioVAE`;
+    ``decoder`` subtrees; folded kernels or live weight norm, kept) ->
+    :class:`~ezaudio_tpu_torch.codecs.oobleck.AudioVAE`;
+  * :func:`dac_state_dict_from_jax`, :func:`encodec_state_dict_from_jax`,
+    :func:`discriminator_state_dict_from_jax` — the codecs and the GAN
+    discriminator (``codecs/{dac,encodec,discriminator}.py``);
   * :func:`t5_state_dict_from_jax` — T5 params ->
     :class:`~ezaudio_tpu_torch.text.t5.T5Encoder`;
   * :func:`clap_params_to_torch` — CLAP params ->
@@ -49,16 +53,32 @@ def _norm(dst, prefix, p):
         dst[f"{prefix}.bias"] = _t(p["bias"])
 
 
-def _conv(dst, prefix, p):
-    dst[f"{prefix}.weight"] = _t(np.asarray(p["kernel"]).transpose(2, 1, 0))
+def _weight(dst, prefix, p, to_torch):
+    """A conv's ``kernel``, or its live weight norm ``v``/``g`` (kept, with
+    ``g`` shaped (C, 1, ...) as torch's ``weight_g``)."""
+    if "v" in p:
+        v = to_torch(np.asarray(p["v"]))
+        dst[f"{prefix}.weight_v"] = _t(v)
+        dst[f"{prefix}.weight_g"] = _t(np.asarray(p["g"]).reshape(-1, *[1] * (v.ndim - 1)))
+    else:
+        dst[f"{prefix}.weight"] = _t(to_torch(np.asarray(p["kernel"])))
     if "bias" in p:
         dst[f"{prefix}.bias"] = _t(p["bias"])
 
 
+def _conv(dst, prefix, p):
+    # (k, in, out) -> torch (out, in, k)
+    _weight(dst, prefix, p, lambda k: k.transpose(2, 1, 0))
+
+
 def _conv_t(dst, prefix, p):
     # (k, in, out) correlation orientation -> torch (in, out, k)
-    dst[f"{prefix}.weight"] = _t(np.asarray(p["kernel"])[::-1].transpose(1, 2, 0))
-    dst[f"{prefix}.bias"] = _t(p["bias"])
+    _weight(dst, prefix, p, lambda k: k[::-1].transpose(1, 2, 0))
+
+
+def _conv2d(dst, prefix, p):
+    # (kh, kw, in, out) -> torch (out, in, kh, kw)
+    _weight(dst, prefix, p, lambda k: k.transpose(3, 2, 0, 1))
 
 
 def _attention(dst, prefix, p):
@@ -192,6 +212,139 @@ def vae_state_dict_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
             _resunit(sd, f"{pre}.{2 + r}", bp[f"res{r}"])
     _snake(sd, f"decoder.layers.{1 + n}", dec["act"])
     _conv(sd, f"decoder.layers.{2 + n}", dec["head"])
+    return sd
+
+
+def _dac_snake(dst, prefix, p):
+    dst[f"{prefix}.alpha"] = _t(np.asarray(p["alpha"]).reshape(1, -1, 1))
+
+
+def _dac_resunit(dst, prefix, p):
+    _dac_snake(dst, f"{prefix}.block.0", p["act1"])
+    _conv(dst, f"{prefix}.block.1", p["conv1"])
+    _dac_snake(dst, f"{prefix}.block.2", p["act2"])
+    _conv(dst, f"{prefix}.block.3", p["conv2"])
+
+
+def rvq_state_dict_from_jax(params: Dict[str, Any], prefix: str = "") -> Dict[str, torch.Tensor]:
+    """A JAX ``ResidualVectorQuantize`` (``q{i}`` subtrees) -> the port's,
+    under ``prefix``."""
+    sd: Dict[str, torch.Tensor] = {}
+    for q, qp in params.items():
+        pre = f"{prefix}quantizers.{int(q[1:])}"
+        _conv(sd, f"{pre}.in_proj", qp["in_proj"])
+        _conv(sd, f"{pre}.out_proj", qp["out_proj"])
+        sd[f"{pre}.codebook.weight"] = _t(qp["codebook"])
+    return sd
+
+
+def dac_state_dict_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX DAC params -> port DAC state dict (descript's names)."""
+    sd: Dict[str, torch.Tensor] = {}
+    enc = params["encoder"]
+    n = sum(1 for k in enc if k.startswith("block"))
+    _conv(sd, "encoder.block.0", enc["stem"])
+    for i in range(n):
+        bp, pre = enc[f"block{i}"], f"encoder.block.{1 + i}.block"
+        for r in range(3):
+            _dac_resunit(sd, f"{pre}.{r}", bp[f"res{r}"])
+        _dac_snake(sd, f"{pre}.3", bp["act"])
+        _conv(sd, f"{pre}.4", bp["down"])
+    _dac_snake(sd, f"encoder.block.{1 + n}", enc["act"])
+    _conv(sd, f"encoder.block.{2 + n}", enc["head"])
+    sd.update(rvq_state_dict_from_jax(params["quantizer"], "quantizer."))
+    dec = params["decoder"]
+    n = sum(1 for k in dec if k.startswith("block"))
+    _conv(sd, "decoder.model.0", dec["stem"])
+    for i in range(n):
+        bp, pre = dec[f"block{i}"], f"decoder.model.{1 + i}.block"
+        _dac_snake(sd, f"{pre}.0", bp["act"])
+        _conv_t(sd, f"{pre}.1", bp["up"])
+        for r in range(3):
+            _dac_resunit(sd, f"{pre}.{2 + r}", bp[f"res{r}"])
+    _dac_snake(sd, f"decoder.model.{1 + n}", dec["act"])
+    _conv(sd, f"decoder.model.{2 + n}", dec["head"])
+    return sd
+
+
+def _lstm(dst, prefix, p):
+    """flax ``OptimizedLSTMCell`` layers ``lstm{i}`` -> ``torch.nn.LSTM``:
+    the input kernels ``ii/if/ig/io`` (no bias) stacked in torch's gate
+    order i, f, g, o into ``weight_ih_l{i}``, the hidden ones ``h*`` into
+    ``weight_hh_l{i}`` with their biases in ``bias_hh_l{i}``; ``bias_ih``
+    is 0."""
+    for i in range(sum(1 for k in p if k.startswith("lstm"))):
+        c = p[f"lstm{i}"]
+        wi = np.concatenate([np.asarray(c[f"i{g}"]["kernel"]).T for g in "ifgo"])
+        dst[f"{prefix}.weight_ih_l{i}"] = _t(wi)
+        dst[f"{prefix}.weight_hh_l{i}"] = _t(np.concatenate(
+            [np.asarray(c[f"h{g}"]["kernel"]).T for g in "ifgo"]))
+        dst[f"{prefix}.bias_ih_l{i}"] = torch.zeros(wi.shape[0])
+        dst[f"{prefix}.bias_hh_l{i}"] = _t(np.concatenate(
+            [np.asarray(c[f"h{g}"]["bias"]) for g in "ifgo"]))
+
+
+def _seanet_res(dst, prefix, p):
+    _conv(dst, f"{prefix}.block.1", p["conv1"])
+    _conv(dst, f"{prefix}.block.3", p["conv2"])
+
+
+def encodec_state_dict_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX Encodec params -> port Encodec state dict (its ``model``
+    Sequentials' indices: ELUs and the transposed convs' trims take
+    slots)."""
+    sd: Dict[str, torch.Tensor] = {}
+    enc = params["encoder"]
+    n_res = sum(1 for k in enc if k.startswith("res0_"))
+    _conv(sd, "encoder.model.0", enc["stem"])
+    idx = 1
+    for i in range(sum(1 for k in enc if k.startswith("down"))):
+        for j in range(n_res):
+            _seanet_res(sd, f"encoder.model.{idx}", enc[f"res{i}_{j}"])
+            idx += 1
+        _conv(sd, f"encoder.model.{idx + 1}", enc[f"down{i}"])  # after its ELU
+        idx += 2
+    if "lstm" in enc:
+        _lstm(sd, f"encoder.model.{idx}.lstm", enc["lstm"])
+        idx += 1
+    _conv(sd, f"encoder.model.{idx + 1}", enc["head"])
+    dec = params["decoder"]
+    _conv(sd, "decoder.model.0", dec["stem"])
+    idx = 1
+    if "lstm" in dec:
+        _lstm(sd, "decoder.model.1.lstm", dec["lstm"])
+        idx = 2
+    for i in range(sum(1 for k in dec if k.startswith("up"))):
+        _conv_t(sd, f"decoder.model.{idx + 1}.convtr", dec[f"up{i}"])  # after its ELU
+        idx += 2
+        for j in range(n_res):
+            _seanet_res(sd, f"decoder.model.{idx}", dec[f"res{i}_{j}"])
+            idx += 1
+    _conv(sd, f"decoder.model.{idx + 1}", dec["head"])
+    for q, qp in params["quantizer"].items():
+        sd[f"quantizer.layers.{int(q[2:])}.codebook"] = _t(qp["codebook"])
+    return sd
+
+
+def discriminator_state_dict_from_jax(params: Dict[str, Any], periods, rates,
+                                      fft_sizes) -> Dict[str, torch.Tensor]:
+    """JAX Discriminator params -> port Discriminator state dict, the
+    sub-discriminators in its order: MPDs, MSDs, MRDs."""
+    sd: Dict[str, torch.Tensor] = {}
+    subs = ([f"mpd_{p}" for p in periods] + [f"msd_{r}" for r in rates]
+            + [f"mrd_{f}" for f in fft_sizes])
+    for k, name in enumerate(subs):
+        p, pre = params[name], f"discriminators.{k}"
+        conv = _conv2d if name.startswith(("mpd", "mrd")) else _conv
+        if name.startswith("mrd"):
+            for key in p:
+                if key.startswith("band"):
+                    b, li = key[4:].split("_conv")
+                    conv(sd, f"{pre}.band_convs.{b}.{li}.0", p[key])
+        else:
+            for i in range(sum(1 for key in p if key[4:].isdigit())):
+                conv(sd, f"{pre}.convs.{i}.0", p[f"conv{i}"])
+        conv(sd, f"{pre}.conv_post", p["conv_post"])
     return sd
 
 

@@ -38,20 +38,23 @@ def residual_unit_plain(x, w7, b7, w1, b1, a1, be1, a2, be2, dilation: int):
     snake1 in f32, rounded to x's dtype; the conv7 taps and ``b7`` summed
     in f32; snake2 in f32, rounded; the 1x1 product, ``b1`` and the
     residual add in f32; one final rounding.  In f32 this is the JAX
-    package's ``residual_unit_reference``."""
+    package's ``residual_unit_reference``; a float64 ``x`` is computed in
+    float64 throughout."""
+    acc = torch.promote_types(x.dtype, torch.float32)
     g = residual_unit_g(x, w7, b7, a1, be1, a2, be2, dilation)
-    return (x.float() + (g @ w1.float() + b1.float())).to(x.dtype)
+    return (x.to(acc) + (g @ w1.to(acc) + b1.to(acc))).to(x.dtype)
 
 
 def residual_unit_g(x, w7, b7, a1, be1, a2, be2, dilation: int):
     """snake2's output in :func:`residual_unit_plain`, rounded to x's
-    dtype and held in f32: the operand of the 1x1 product."""
-    dt = x.dtype
-    a1, be1, a2, be2 = (t.float() for t in (a1, be1, a2, be2))
-    h = snake_beta_vae(x.float(), a1, be1).to(dt).float()
-    h = F.conv1d(h.transpose(1, 2), w7.float().permute(2, 1, 0), b7.float(),
+    dtype and held in f32 (float64 for a float64 ``x``): the operand of the
+    1x1 product."""
+    dt, acc = x.dtype, torch.promote_types(x.dtype, torch.float32)
+    a1, be1, a2, be2 = (t.to(acc) for t in (a1, be1, a2, be2))
+    h = snake_beta_vae(x.to(acc), a1, be1).to(dt).to(acc)
+    h = F.conv1d(h.transpose(1, 2), w7.to(acc).permute(2, 1, 0), b7.to(acc),
                  padding=3 * dilation, dilation=dilation).transpose(1, 2)
-    return snake_beta_vae(h, a2, be2).to(dt).float()
+    return snake_beta_vae(h, a2, be2).to(dt).to(acc)
 
 
 def _lib():

@@ -9,8 +9,8 @@ parameter names and marks the bundle ``"format": "torch"``; a bundle the
 JAX package wrote holds the flax tree flattened with ``/`` and loads
 through the weight map (``convert/from_jax.py``), so it computes what the
 JAX model computed.  Builders: ``maskdit`` (kwargs ``model=``, a model
-config block) and ``audio_vae`` (``AudioVAE``'s arguments); ``dac`` raises
-until the DAC codec is ported (ROADMAP queue 1 item 8).
+config block), ``audio_vae`` (``AudioVAE``'s arguments, ``use_weight_norm``
+among them: live ``weight_g``/``weight_v``) and ``dac`` (``DAC``'s).
 """
 
 from __future__ import annotations
@@ -40,14 +40,18 @@ def register_model(name: str):
 def _audio_vae(**kw) -> nn.Module:
     from ezaudio_tpu_torch.codecs.oobleck import AudioVAE
 
-    if kw.pop("use_weight_norm", False):
-        raise NotImplementedError("audio_vae bundles with use_weight_norm=True")
     kw.pop("dtype", None)
     return AudioVAE(**kw)
 
 
 def _dac(**kw) -> nn.Module:
-    raise NotImplementedError("the DAC codec is not ported yet (ROADMAP queue 1 item 8)")
+    from ezaudio_tpu_torch.codecs.dac import DAC
+
+    kw.pop("dtype", None)
+    for key in ("encoder_rates", "decoder_rates"):  # JSON keeps tuples as lists
+        if key in kw:
+            kw[key] = tuple(kw[key])
+    return DAC(**kw)
 
 
 def _register_builtins() -> None:
@@ -59,7 +63,8 @@ def _register_builtins() -> None:
 
 
 def _from_jax(kind: str, kwargs: dict, tree: dict) -> Dict[str, torch.Tensor]:
-    from ezaudio_tpu_torch.convert.from_jax import (maskdit_state_dict_from_jax,
+    from ezaudio_tpu_torch.convert.from_jax import (dac_state_dict_from_jax,
+                                                    maskdit_state_dict_from_jax,
                                                     vae_state_dict_from_jax)
 
     tree = tree.get("params", tree)
@@ -67,6 +72,8 @@ def _from_jax(kind: str, kwargs: dict, tree: dict) -> Dict[str, torch.Tensor]:
         return maskdit_state_dict_from_jax(tree, kwargs["model"])
     if kind == "audio_vae":
         return vae_state_dict_from_jax(tree)
+    if kind == "dac":
+        return dac_state_dict_from_jax(tree)
     raise NotImplementedError(f"no weight map for a JAX bundle of kind {kind!r}")
 
 

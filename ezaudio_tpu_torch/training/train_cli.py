@@ -20,7 +20,9 @@ optionally ``train_frames``).
   * a line in ``<log-dir>/<model_name>/log.txt`` every ``--log-step``
     steps; a checkpoint every ``--save-every-step`` steps (written from a
     thread) and at the end; a restart resumes from the latest checkpoint
-    in ``<save-dir>/<model_name>``, data order included;
+    in ``<save-dir>/<model_name>``, data order included, and cuDNN runs
+    its deterministic algorithms (:func:`deterministic_cudnn`) so the
+    steps after the checkpoint come out as they did;
   * ``--ckpt`` and ``--vae-ckpt`` load reference-format files
     (``convert/checkpoints.py``); a model without one starts from seeded
     random weights, T5 included (as the JAX package's CLI).
@@ -38,6 +40,7 @@ compute, f32 parameters and optimizer state).  The ``opt:`` block's
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import time
 from typing import Callable, Optional
@@ -127,6 +130,22 @@ def build_models(cfg, device, seed: int, ckpt=None, vae_ckpt=None, t5_config=Non
     return dit, autoencoder, t5, tokenizer
 
 
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN restricted to its deterministic algorithms, as the JAX
+    package's steps are on the TPU: the same inputs give the same
+    gradients in every run, so a restart retakes the steps after its
+    checkpoint exactly.  (cuDNN's default algorithms may sum a conv's
+    gradient in a run-dependent order: on the H100 a bf16 run and its
+    restart parted at the fifth or sixth step.)"""
+    before = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = before
+
+
 def main(argv=None, *, t5_config=None, vae_config=None,
          on_step: Optional[Callable[[int, dict], None]] = None):
     """Train; returns the :class:`~ezaudio_tpu_torch.training.trainer.Trainer`.
@@ -194,7 +213,7 @@ def main(argv=None, *, t5_config=None, vae_config=None,
     it.load_state_dict({"epoch": global_step // steps_per_epoch,
                         "step": global_step % steps_per_epoch})
     losses, t0 = [], time.time()
-    with PreemptionGuard() as guard:
+    with PreemptionGuard() as guard, deterministic_cudnn():
         try:
             for batch in (it if global_step < total else ()):
                 gen = torch.Generator(device=device).manual_seed(

@@ -761,3 +761,165 @@ def test_zero_gradient_rule_holds_noise_to_noise():
     signal = dict(grads, **{zero[0]: torch.full((8,), 1e-4)})
     assert cs.train_step_agreement(dict(cpu, grads=signal), cpu, 1e-4, 2, 10, n_attn=2,
                                    zero_names=zero)[1] == [f"zero gradients {zero}"]
+
+
+TINY_VAE = dict(channels=4, latent_dim=4, c_mults=(1, 2), strides=(2, 4))
+TINY_DAC = dict(encoder_dim=4, encoder_rates=(2, 4), latent_dim=8, decoder_dim=16,
+                decoder_rates=(4, 2), n_codebooks=3, codebook_size=16, codebook_dim=4,
+                sample_rate=8000)
+TINY_ENCODEC = dict(dimension=8, n_filters=4, ratios=(4, 2), n_q=3, codebook_size=16,
+                    sample_rate=8000)
+TINY_DISC = dict(periods=(2,), fft_sizes=(128,))
+TINY_STEP = dict(stft_windows=(128, 64))
+
+
+def test_codec_phase_rehearses_on_cpu(monkeypatch):
+    """Phase 30 end to end at a tiny size: the VAE codec trainer (12
+    kernel-2 launches a step at these widths, every tensor moved, every
+    weight-norm gradient non-zero), its step card against CPU (here CPU
+    against CPU: equal) and float64, DAC (near ties, the ``.dac`` round
+    trip, train steps), EnCodec, the facade both ways and the
+    pretransforms."""
+    import chip_smoke as cs
+
+    _counted_kernels(monkeypatch)
+    monkeypatch.setattr(cs, "card_line", lambda: "cpu")
+    row = cs.codec_train_path("cpu", TINY_VAE, batch=2, samples=1024, steps=2, sr=8000,
+                              disc_kw=TINY_DISC, step_kw=TINY_STEP)
+    assert row["launches_per_step"] == [[0, 12]] * 2 and row["resunit_launches"] == 24
+    assert row["unmoved"] == {"gen": [], "disc": []} and row["weight_norm_min_grad"] > 0
+    assert row["weight_norm_tensors"] == 2 * 32  # g and v of 16 convs a side
+    assert row["resunit_batch_shapes"] == sorted(
+        (2, L, C, d) for L, C in ((1024, 4), (512, 4)) for d in (1, 3, 9))
+    row = cs.codec_step_card_vs_cpu("cpu", TINY_VAE, batch=2, samples=1024, sr=8000,
+                                    disc_kw=TINY_DISC, step_kw=TINY_STEP)
+    assert row["card_launches"] == [0, 12]
+    for k in ("card_vs_cpu", "card_plain_vs_cpu"):  # the CPU "kernel" is the plain twin
+        assert all(a == b for a, b in row[k]["metrics"].values()), k
+        assert row[k]["leaky_flips"] == {} and row[k]["needed_factor"]["gen"]["l2"] == 1.0, k
+    row = cs.dac_paths("cpu", seconds=0.5, dac_kw=TINY_DAC, train_batch=2, train_samples=1024,
+                       train_steps=2, disc_kw=TINY_DISC, step_kw=TINY_STEP)
+    assert row["near_tie"]["frames_differing"] == 0 and row["dacfile"]["codes_equal"]
+    assert row["codes_shape"] == [1, 3, 500] and row["train"]["launches"] == [[0, 0]] * 2
+    row = cs.encodec_path("cpu", seconds=0.5, kw=TINY_ENCODEC)
+    assert row["codes_equal_share"] == 1.0 and row["codes_shape"] == [1, 3, 500]
+    rows = cs.facade_paths("cpu", seconds=0.25, vae_kw=TINY_VAE, dac_kw=TINY_DAC,
+                           encodec_kw=TINY_ENCODEC, chunk=(64, 16))
+    counts = {r["path"]: r["resunit_launches"] for r in rows}
+    assert counts == {"facade_stable_vae_q_first": 12, "facade_stable_vae_q_last": 12,
+                      "facade_dac_q_first": 0, "facade_dac_q_last": 0,
+                      "facade_dac_chunked": 0, "facade_encodec_q_first": 0,
+                      "facade_encodec_q_last": 0}
+    rows = cs.pretransform_paths("cpu", seconds=0.5, sr=8000, bands=4, levels=2)
+    assert [r["latent_shape"] for r in rows] == [[1, 1000, 4], [1, 1000, 4]]
+    # the orthogonal wavelet reconstructs exactly; the PQMF bank's error is
+    # printed, not checked: the JAX package's bank is near-perfect at 8
+    # bands only (ROADMAP F12), and the port computes the same function
+    assert rows[1]["reconstruction_rel_rms"] < 1e-5
+
+
+def test_codec_limits_catch_a_shifted_code_and_a_transposed_codebook(monkeypatch):
+    """Phase 30's near-tie rule: a code shifted by one fails, a true near
+    tie passes; a card codec whose codebooks are transposed (read as
+    (dim, size) and reshaped back) fails DAC's and EnCodec's checks."""
+    import chip_smoke as cs
+
+    model = cs.build_codec("dac", "cpu", 5, **TINY_DAC).eval()
+    clip = torch.from_numpy(cs.codec_clip(8000, 0.5, seed=2))
+    with torch.no_grad():
+        z = model.encode_latent(model.preprocess(clip))
+        codes = model.quantizer(z)[1]
+    scores = cs.rvq_scores(model, z, "dac")
+    row, agree, bad = cs.near_tie_codes(codes, codes, scores)
+    assert bad == [] and agree.all() and row["frames_differing"] == 0
+    shifted = codes.clone()
+    shifted[0, 1, 7] = (shifted[0, 1, 7] + 1) % 16
+    row, agree, bad = cs.near_tie_codes(shifted, codes, scores)
+    assert len(bad) == 1 and "frame 0,7 codebook 1" in bad[0] and not agree[0, 7]
+    # a near tie: the card's code within CODEC_TIE of the CPU's best
+    tied = [s.clone() for s in scores]
+    tied[1][7, shifted[0, 1, 7]] = tied[1][7, codes[0, 1, 7]] - cs.CODEC_TIE / 2
+    assert cs.near_tie_codes(shifted, codes, tied)[2] == []
+
+    build = cs.build_codec
+    calls = {"n": 0}
+
+    def transposed_on_card(kind, dev, seed=0, **kw):
+        m = build(kind, dev, seed, **kw)
+        calls["n"] += 1
+        if calls["n"] == 2:  # the second model built is the card's
+            with torch.no_grad():
+                books = ([q.codebook.weight for q in m.quantizer.quantizers] if kind == "dac"
+                         else [v.codebook for v in m.quantizer.layers])
+                for w in books:
+                    w.copy_(w.t().reshape(w.shape))
+        return m
+
+    monkeypatch.setattr(cs, "build_codec", transposed_on_card)
+    with pytest.raises(AssertionError, match="dac: frame"):
+        cs.dac_paths("cpu", seconds=0.5, dac_kw=TINY_DAC)
+    calls["n"] = 0
+    with pytest.raises(AssertionError, match="encodec: frame"):
+        cs.encodec_path("cpu", seconds=0.5, kw=TINY_ENCODEC)
+
+
+def test_codec_kink_floor_applies_only_where_a_flip_is_shown():
+    """A LeakyReLU input whose sign differs between the card and the CPU
+    names its chain of convs and its sub-discriminator's ``conv_post``; only
+    there does a gradient get CODEC_KINK_FLOOR.  The same gradient error on
+    a tensor of another chain fails."""
+    import chip_smoke as cs
+
+    chain = "discriminators.5.band_convs.2"
+    got = [("discriminators.0.convs", torch.tensor([0.5, -2.0])),
+           (chain, torch.tensor([3e-9, 1.0, -4.0]))]
+    want = [("discriminators.0.convs", torch.tensor([0.5, -2.0])),
+            (chain, torch.tensor([-2e-9, 1.0, -4.0]))]
+    rows, kinks = cs.leaky_flips(got, want)
+    assert rows == {chain: dict(n=1, largest_abs_got=pytest.approx(3e-9),
+                                largest_abs_want=pytest.approx(2e-9))}
+    assert kinks == [f"{chain}.", "discriminators.5.conv_post."]
+    assert cs.leaky_flips(want, want) == ({}, [])
+
+    names = [f"{chain}.0.0.weight_v", "discriminators.5.conv_post.weight_g",
+             "discriminators.0.convs.0.0.weight_v"]
+    cpu = {n: torch.full((4,), 1e-5) for n in names}  # below both floors
+    cpu["big"] = torch.full((4,), 1.0)  # the network's largest gradient: 1
+    # float64 1e-8 from the CPU on "big" only: an L2 yardstick of 2e-8
+    ref = dict({n: v.double() for n, v in cpu.items()}, big=cpu["big"].double() + 1e-8)
+    gen = {"w": torch.ones(2)}
+
+    def step(grads):
+        return dict(metrics={"disc/loss": 1.0}, gen_grads=gen, disc_grads=grads,
+                    gen_params={}, disc_params={})
+
+    lr = {"gen": 1e-3, "disc": 1e-3}
+    for name in names:
+        # 5e-8 off: past TRAIN_GRAD_TOL of the 1e-4 floor (1e-8), inside the
+        # kink floor's (1e-7); the CPU sits on float64, so no factor helps
+        moved = dict(cpu, **{name: cpu[name] + 5e-8})
+        row, bad = cs.codec_step_agreement(step(moved), step(cpu), step(ref), lr, 8.0, kinks)
+        assert (bad == []) == name.startswith(tuple(kinks)), (name, bad)
+        assert row["passed_by_the_kink_floor"] == ([name] if bad == [] else []), name
+        assert cs.codec_step_agreement(step(moved), step(cpu), step(ref), lr, 8.0)[1], name
+
+
+def test_codec_limits_catch_a_detached_residual_unit(monkeypatch):
+    """A ResidualUnit routed through the kernel with its weights detached
+    trains nothing in its convs: no gradient reaches their ``weight_g`` /
+    ``weight_v``, and phase 30 (a) fails."""
+    import chip_smoke as cs
+    from ezaudio_tpu_torch.codecs import oobleck_fast
+
+    real = oobleck_fast.resunit_fused
+
+    def detached(x, unit):
+        with torch.no_grad():
+            y = real(x, unit)
+        return x + (y - x)  # the residual path only
+
+    monkeypatch.setattr(oobleck_fast, "resunit_fused", detached)
+    monkeypatch.setattr(cs, "card_line", lambda: "cpu")
+    with pytest.raises(AssertionError, match="zero weight-norm gradients"):
+        cs.codec_train_path("cpu", TINY_VAE, batch=2, samples=1024, steps=1, sr=8000,
+                            disc_kw=TINY_DISC, step_kw=TINY_STEP)

@@ -113,8 +113,14 @@ def test_eval_udit_matches_jax(pair, val_set, tmp_path, monkeypatch, mae):
     if mae:
         np.testing.assert_array_equal(load_wav(str(tmp_path / "port" / "0" / "0_gt.wav")),
                                       load_wav(str(tmp_path / "jax" / "0" / "0_gt.wav")))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        evaluate.codec_fidelity_report(ez.autoencoder, np.zeros((1, 800), np.float32), TINY_SR)
+    from ezaudio_tpu.training.evaluate import codec_fidelity_report as jax_fidelity
+
+    wavs = (0.3 * np.random.default_rng(SEED).standard_normal((2, 1920))).astype(np.float32)
+    got = evaluate.codec_fidelity_report(ez.autoencoder, wavs, TINY_SR)
+    want = jax_fidelity(jez.autoencoder, wavs, TINY_SR)
+    assert sorted(got) == sorted(want) == ["mel_distance", "si_sdr_db"]
+    for k in got:
+        assert np.isfinite(got[k]) and got[k] == pytest.approx(want[k], rel=1e-4, abs=1e-4), k
 
 
 def test_prepare_embeddings_matches_jax_and_feeds_eacaps(pair, val_set, tmp_path):

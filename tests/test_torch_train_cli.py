@@ -224,6 +224,20 @@ def test_bf16_runs_mixed_precision_and_resumes(workspace):
     assert again == {3: losses[3]}
 
 
+def test_steps_run_with_deterministic_cudnn(workspace):
+    """Every step runs with cuDNN held to its deterministic algorithms (so
+    a restart retakes the steps exactly on the card too); the setting is
+    put back when training returns."""
+    seen = []
+    before = torch.backends.cudnn.deterministic
+    train_cli.main(
+        ["--config-name", str(workspace / "tiny.json"), "--max-steps", "1",
+         "--log-dir", str(workspace / "logs"), "--save-dir", str(workspace / "ckpts_det"),
+         "--device", "cpu"], t5_config=PORT_T5, vae_config=TINY_VAE_CONFIG,
+        on_step=lambda step, m: seen.append(torch.backends.cudnn.deterministic))
+    assert seen == [True] and torch.backends.cudnn.deterministic == before
+
+
 def test_config_needs_opt_and_data():
     with pytest.raises(ValueError, match="opt"):
         train_cli.load_training_config("s3_l")

@@ -185,11 +185,35 @@ class TestModelBundles:
 
         model_io.save_model(str(tmp_path / "c"), "custom", {"width": 3}, _custom(3))
         assert model_io.load_model(str(tmp_path / "c"))[0].in_features == 3
-        with open(tmp_path / "v" / "metadata.json") as f:
-            meta = json.load(f)
-        meta["kind"] = "dac"
-        os.makedirs(tmp_path / "d")
-        with open(tmp_path / "d" / "metadata.json", "w") as f:
-            json.dump(meta, f)
-        with pytest.raises(NotImplementedError, match="item 8"):
-            model_io.load_model(str(tmp_path / "d"))
+        # a JAX bundle of a kind without a weight map is refused
+        jio.save_model(str(tmp_path / "j"), "custom", {"width": 3},
+                       {"kernel": np.zeros((3, 2), np.float32)})
+        with pytest.raises(NotImplementedError, match="no weight map"):
+            model_io.load_model(str(tmp_path / "j"))
+
+        # live weight norm (kept: weight_g / weight_v) and a DAC bundle
+        from ezaudio_tpu.codecs.dac import DAC as JaxDAC
+
+        for kind, jmodel, kwargs, x in (
+                ("audio_vae", JaxVAE(**kw, use_weight_norm=True), dict(kw, use_weight_norm=True),
+                 rng.standard_normal((1, 32, 1))),
+                ("dac", JaxDAC(encoder_dim=4, encoder_rates=(2, 4), latent_dim=8,
+                               decoder_dim=16, decoder_rates=(4, 2), n_codebooks=2,
+                               codebook_size=16, codebook_dim=4, use_weight_norm=True),
+                 dict(encoder_dim=4, encoder_rates=[2, 4], latent_dim=8, decoder_dim=16,
+                      decoder_rates=[4, 2], n_codebooks=2, codebook_size=16, codebook_dim=4,
+                      use_weight_norm=True), rng.standard_normal((1, 64, 1)))):
+            x = x.astype(np.float32)
+            params = jax.device_get(jax.jit(lambda k, m=jmodel: m.init(
+                {"params": k, "sample": k}, jnp.zeros((1, 64, 1))))(jax.random.PRNGKey(1)))
+            jio.save_model(str(tmp_path / kind), kind, kwargs, params["params"])
+            model, _ = model_io.load_model(str(tmp_path / kind))
+            assert any(n.endswith("weight_g") for n in model.state_dict())
+            fwd = ((lambda m, a: m.encoder(a)) if kind == "audio_vae"
+                   else (lambda m, a: m(a)["audio"]))
+            want = jax.jit(lambda p, a, m=jmodel, f=fwd: m.apply(p, a, method=f))(
+                params, jnp.asarray(x))
+            with torch.no_grad():
+                got = (model.encoder(torch.from_numpy(x)) if kind == "audio_vae"
+                       else model(torch.from_numpy(x))["audio"])
+            np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
