@@ -171,12 +171,30 @@ Phases, each fatal on failure:
      with ``quantization_first`` True and False (equal waveforms), DAC's
      chunked path on 10 s; (e) PQMF (16 bands) and db4 wavelet round trips
      card against CPU;
- 31. the launches of each path, a ``{"kernels": [...]}`` line (launches
-     summed over the paths of phases 4-8, 10-13, 15, 16, 19-21, 24, 26-29
-     and 30), the card's name and power limit, and last ``{"ok": true,
+ 31. the UDiT architecture switches at s3_l width (``VARIANT_SWITCHES``:
+     the reference golden's switch set, concat context of 100 T5 tokens,
+     so every block runs one masked self-attention over 600 tokens): (a)
+     ``EzAudio(config=variant_config())`` in f32 at the reference recipe,
+     1 prompt (3 times, the median wall) and 4, then ``fused=True`` (equal
+     to staged within FUSED_TOL); (b) the same in bf16, every launch bf16;
+     (c) ``TOKEN_SWITCHES`` (a time token: 601 tokens, dual RoPE, gated
+     snake); kernel 1 25 x 100 launches a call, kernel 2 12 a decode, every
+     attention shape among phase 3's; (d) card against CPU at depth 2:
+     config (a)'s ``generate_audio``, each ``SWITCH_CASES`` UDiT (2-D
+     input, ``cls_dim``, the conv PE, every time fusion, RoPE mode and
+     activation), ``DiTControlNet`` with concat context, ``CFGModel`` and
+     ``ConcatModel``, and one span-masked train step of config (a) (kernel
+     1's masked self-attention backward);
+ 32. the launches of each path, a ``{"kernels": [...]}`` line (launches
+     summed over the paths of phases 4-8, 10-13, 15, 16, 19-21, 24, 26-31),
+     the card's name and power limit, and last ``{"ok": true,
      "device": {...}}``.
 
-Every path of phases 4, 6-8, 11-13, 15, 16, 19-21, 24, 26-29 and 30 is driven with the launch
+Phase 3 also holds kernel 1 at phase 31's masked self-attention shapes,
+phase 23 its backward there (batch 8); phase 30 (a) also restarts the
+codec step from a checkpoint, bit-equal to the straight run (ROADMAP F14).
+
+Every path of phases 4, 6-8, 11-13, 15, 16, 19-21, 24, 26-31 is driven with the launch
 counters set to 0 just before it and read just after, and must launch each
 kernel exactly as often as its model calls and decodes imply; the bf16
 paths count every launch by dtype (``launches_by_dtype``), so a path that
@@ -315,10 +333,18 @@ def bound_ms(nbytes: float, flops: float, dtype: str):
 
 # ---------------------------------------------------------------------------
 # (B, H, Lq, Lk, head_dim, key mask); B = 2 is one prompt's CFG pair.
+# The key mask: False (none), True (T5 padding: 23 valid keys in even
+# rows, all in odd ones) or "concat" (the self-attention of a UDiT with
+# concat context: Lk - 600 time/class tokens, the 100 context tokens with
+# 23 valid in even rows and 1 in odd ones (CFG's empty prompt), 500
+# latent frames).
 ATTN_CASES = [(2, 16, 500, 500, 64, False),   # s3_l self-attention
               (2, 16, 500, 100, 64, True),    # s3_l cross-attention, T5 padding
               (2, 16, 500, 500, 72, False),   # s3_xl self-attention (head_dim 72)
-              (2, 16, 500, 100, 72, True)]    # s3_xl cross-attention
+              (2, 16, 500, 100, 72, True),    # s3_xl cross-attention
+              (2, 16, 600, 600, 64, "concat"),   # s3_l width, concat context (phase 31)
+              (2, 16, 601, 601, 64, "concat")]   # the same with a time token
+CONCAT_CONTEXT = 100
 # (B, L, C, dilation): the four decoder blocks of one 10 s clip, which are
 # also the encoder's blocks of a 10 s window in reverse order.
 RESUNIT_CASES = ([(1, 5000, 512, d) for d in (1, 3, 9)]
@@ -437,6 +463,21 @@ def sync(dev) -> None:
         torch.cuda.synchronize()
 
 
+def key_mask(B: int, Lk: int, masked, dev):
+    """The (B, Lk) key mask of an ATTN_CASES row, or None."""
+    import torch
+
+    if not masked:
+        return None
+    pos = torch.arange(Lk, device=dev)[None, :]
+    if masked == "concat":
+        lead = Lk - 500 - CONCAT_CONTEXT
+        valid = torch.tensor([23 if i % 2 == 0 else 1 for i in range(B)], device=dev)
+        return (pos < lead) | (pos >= lead + CONCAT_CONTEXT) | (pos < lead + valid[:, None])
+    lens = torch.tensor([23 if i % 2 == 0 else Lk for i in range(B)], device=dev)
+    return pos < lens[:, None]
+
+
 def check_attention(dev, gen, cases=ATTN_CASES):
     import torch
     import torch.nn.functional as F
@@ -449,10 +490,7 @@ def check_attention(dev, gen, cases=ATTN_CASES):
             dname = str(dtype).split(".")[-1]
             q, k, v = (torch.randn(B, H, L, D, device=dev, generator=gen).to(dtype)
                        for L in (Lq, Lk, Lk))
-            mask = None
-            if masked:  # T5-style padding: 23 and 100 valid keys
-                lens = torch.tensor([23, Lk], device=dev)
-                mask = torch.arange(Lk, device=dev)[None, :] < lens[:, None]
+            mask = key_mask(B, Lk, masked, dev)
             got = fused_attention(q, k, v, key_mask=mask)
             want = attention_plain(q, k, v, key_mask=mask)
             sync(dev)
@@ -1832,7 +1870,8 @@ def vc_path(dev="cuda", cfg=None, sr=24000, seconds=10.0, reps=5, latent_sr=50):
 # step at batch 8: s3_l self-attention and T5-masked cross-attention.
 TRAIN_BATCH = 8
 ATTN_GRAD_CASES = [(TRAIN_BATCH, 16, 500, 500, 64, False),
-                   (TRAIN_BATCH, 16, 500, 100, 64, True)]
+                   (TRAIN_BATCH, 16, 500, 100, 64, True),
+                   (TRAIN_BATCH, 16, 600, 600, 64, "concat")]   # concat context (phase 31)
 # the DiT train step's encoder third block, and the VAE codec step's first
 # (its largest: batch 8 of 12 000 samples at C = 128)
 RESUNIT_GRAD_CASES = [(TRAIN_BATCH, 30000, 256, 3), (CODEC_BATCH, 12000, 128, 9)]
@@ -1924,10 +1963,7 @@ def check_attention_grad(dev, gen, cases=ATTN_GRAD_CASES):
         q, k, v = (torch.randn(B, H, L, D, device=dev, generator=gen).requires_grad_()
                    for L in (Lq, Lk, Lk))
         g = torch.randn(B, H, Lq, D, device=dev, generator=gen)
-        mask = None
-        if masked:  # T5-style padding
-            lens = torch.tensor([23 if i % 2 == 0 else Lk for i in range(B)], device=dev)
-            mask = torch.arange(Lk, device=dev)[None, :] < lens[:, None]
+        mask = key_mask(B, Lk, masked, dev)
         o = fused_attention(q, k, v, key_mask=mask)
         if o.grad_fn is None or type(o.grad_fn).__name__ != "FusedAttentionBackward":
             raise AssertionError(f"attention {B, H, Lq, Lk, D}: output has no kernel grad_fn")
@@ -2044,11 +2080,20 @@ def training_config(root, cfg, meta, batch, seconds, sr, warmup=2):
     return path
 
 
+def attention_modules(model_cfg: dict) -> int:
+    """The attentions of a MaskDiT: self-attention in each of the depth + 1
+    blocks, and cross-attention unless the context is concatenated (or
+    there is none)."""
+    cross = (model_cfg.get("context_dim") is not None
+             and model_cfg.get("context_fusion", "cross") == "cross")
+    return (model_cfg["depth"] + 1) * (2 if cross else 1)
+
+
 def train_attention_launches(model_cfg: dict) -> int:
-    """Attention launches of one train step: self- and cross-attention in
-    each of the depth + 1 blocks, twice with remat (forward and the
-    backward's recompute); the backward itself launches none."""
-    return 2 * (model_cfg["depth"] + 1) * (2 if model_cfg.get("use_checkpoint") else 1)
+    """Attention launches of one train step: each attention once, twice
+    with remat (forward and the backward's recompute); the backward itself
+    launches none."""
+    return attention_modules(model_cfg) * (2 if model_cfg.get("use_checkpoint") else 1)
 
 
 # The linears that see the text tokens, and those that see one token per
@@ -2264,7 +2309,8 @@ def train_step_card_vs_cpu(gen, dev="cuda", cfg=None, batch=2, text_len=100,
     rows, bad = [], []
     for policy in policies:
         row, failed = train_step_agreement(step(policy, dev), cpu, lr, m["depth"],
-                                           train_attention_launches(remat(policy)))
+                                           train_attention_launches(remat(policy)),
+                                           n_attn=attention_modules(m))
         row.update(path="train_step_card_vs_cpu", remat=policy, depth=m["depth"], batch=batch)
         log("train_card_vs_cpu " + json.dumps(row))
         rows.append(row)
@@ -2782,10 +2828,7 @@ def check_attention_grad_bf16(dev, gen, cases=ATTN_GRAD_CASES):
     for (B, H, Lq, Lk, D, masked) in cases:
         q, k, v = (torch.randn(B, H, L, D, device=dev, generator=gen) for L in (Lq, Lk, Lk))
         g = torch.randn(B, H, Lq, D, device=dev, generator=gen)
-        mask = None
-        if masked:
-            lens = torch.tensor([23 if i % 2 == 0 else Lk for i in range(B)], device=dev)
-            mask = torch.arange(Lk, device=dev)[None, :] < lens[:, None]
+        mask = key_mask(B, Lk, masked, dev)
         sdpa_mask = None if mask is None else mask[:, None, None, :]
 
         def grads(fn, dtype):
@@ -3732,6 +3775,338 @@ def pretransform_paths(dev="cuda", seconds=10.0, sr=24000, bands=16, levels=4):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# Phase 31: the UDiT architecture switches at s3_l width.  Config (a) is
+# the reference-torch golden's switch set (tests/fixtures/maskdit_tiny2.npz)
+# on s3_l's widths: the 100 T5 tokens, embedded and sinusoidally encoded,
+# precede the 500 latent frames, so every block's one attention is a
+# self-attention over 600 tokens with a key mask (no cross-attention).
+VARIANT_SWITCHES = dict(norm_layer="rmsnorm", qk_norm="rmsnorm", time_fusion="ada_single",
+                        ada_sola_rank=None, ada_sola_alpha=None, context_fusion="concat",
+                        context_pe_method="sinu", pe_method="abs", rope_mode="x_only",
+                        qkv_bias=True, act_layer="gelu", use_conv=False, skip_norm=False)
+# (c): a time token before the context (601 tokens), dual RoPE, gated snake
+TOKEN_SWITCHES = dict(time_fusion="token", rope_mode="dual", act_layer="gesnake")
+# (d): the switch combinations of the CPU tests (tests/test_torch_udit_variants.py),
+# each a bare UDiT at s3_l width and depth 2, card against CPU
+SWITCH_CASES = {
+    "token_concat_abs_sinu": dict(time_fusion="token", rope_mode="none"),
+    "rope_x_only": dict(time_fusion="token", context_pe_method="none", pe_method="none",
+                        act_layer="geglu", skip=False, use_conv=True),
+    "rope_dual": dict(time_fusion="token", context_pe_method="none", pe_method="none",
+                      rope_mode="dual"),
+    "ada_single_cross": dict(context_fusion="cross", context_pe_method="none"),
+    "snake_ff": dict(act_layer="gesnake", time_fusion="token"),
+    "2d": dict(input_type="2d", img_size=(16, 100), patch_size=4, in_chans=8, out_chans=8,
+               context_fusion="cross", act_layer="geglu", use_conv=True),
+    "ada": dict(time_fusion="ada"),
+    "cls_ada_sola_bias_joint": dict(time_fusion="ada_sola_bias", ada_sola_rank=32,
+                                    ada_sola_alpha=32, context_fusion="joint", cls_dim=64,
+                                    rope_mode="shared"),
+    "cls_token_dual": dict(time_fusion="token", cls_dim=64, rope_mode="dual"),
+    "conv_pe": dict(pe_method="conv", context_pe_method="abs"),
+    "gelu_approximate": dict(act_layer="gelu-approximate"),
+    "geglu_approximate": dict(act_layer="geglu-approximate", context_fusion="cross"),
+    "snake": dict(act_layer="snake"),
+}
+SWITCH_FRAMES = 100  # latent frames of (d)'s module checks
+VARIANT_STEPS = 100  # DDIM steps of (a)-(c): the reference recipe
+
+
+def variant_config(depth=None, **switches):
+    """s3_l's config with config (a)'s switches (and ``switches``) in its
+    model block; the context length is the tokenizer's."""
+    from ezaudio_tpu_torch.config import get_model_config
+
+    cfg = get_model_config("s3_l").to_dict()
+    cfg["model"].update(VARIANT_SWITCHES, context_max_length=cfg["text_encoder"]["max_length"])
+    cfg["model"].update(switches)
+    if depth is not None:
+        cfg["model"]["depth"] = depth
+    return cfg
+
+
+@contextlib.contextmanager
+def attention_shapes(seen: set):
+    """Add the (Lq, Lk, head_dim, masked) of every kernel-1 call of the
+    DiT's blocks to ``seen``."""
+    from ezaudio_tpu_torch.models import blocks
+
+    orig = blocks.fused_attention
+
+    def record(q, k, v, key_mask=None, scale=None):
+        seen.add((q.shape[2], k.shape[2], q.shape[3], key_mask is not None))
+        return orig(q, k, v, key_mask=key_mask, scale=scale)
+
+    blocks.fused_attention = record
+    try:
+        yield
+    finally:
+        blocks.fused_attention = orig
+
+
+def uncovered_attention(seen, cases=ATTN_CASES):
+    """The attention shapes of ``seen`` that phase 3 does not hold against
+    the plain version (in f32 and bf16)."""
+    held = {(Lq, Lk, D, bool(m)) for _, _, Lq, Lk, D, m in cases}
+    return sorted(s for s in seen if s not in held)
+
+
+def variant_run(name, ez, n, reps=1, dtype=None, length=10.0):
+    """``generate_audio`` at the reference recipe for ``n`` prompts,
+    ``reps`` times, each through :func:`run_path`: one self-attention a
+    block per model call (no cross-attention), 12 ResidualUnits a decode."""
+    from ezaudio_tpu_torch.codecs.oobleck import ResidualUnit
+
+    depth = ez.params_cfg.model.depth
+    want_res = sum(isinstance(m, ResidualUnit) for m in ez.autoencoder.model.decoder.modules())
+    n_samples = int(length * ez.latent_sr) * ez.autoencoder.downsampling_ratio
+    return [run_path(f"{name}[{n}]", ez.device,
+                     lambda: ez.generate_audio(PROMPTS[:n], length=length, random_seed=1234,
+                                               ddim_steps=VARIANT_STEPS)[1],
+                     attention_modules(ez.params_cfg.model.to_dict()) * VARIANT_STEPS,
+                     want_res, n * length, n_samples, dtype=dtype)
+            for _ in range(reps)]
+
+
+def variant_paths(dev="cuda", before=None, reps=3, length=10.0, attn_cases=ATTN_CASES):
+    """Phase 31 (a)-(c): config (a) in f32 for 1 prompt (``reps`` times)
+    and 4, then ``fused=True`` for 1 (equal to staged within FUSED_TOL);
+    (b) config (a) in bf16, 1 prompt, every launch bf16; (c) config (a)
+    with TOKEN_SWITCHES, 1 prompt.  Kernel 1 launches 25 x 100 a call,
+    kernel 2 12 a decode; every attention shape among phase 3's."""
+    import numpy as np
+    import torch
+
+    from ezaudio_tpu_torch.codecs.oobleck import ResidualUnit
+
+    seen, rows = set(), []
+    with attention_shapes(seen):
+        ez = build_ezaudio(dev, config=variant_config(), model="variant")
+        one = variant_run("variant", ez, 1, reps, length=length)
+        four = variant_run("variant", ez, 4, length=length)
+        want_res = sum(isinstance(m, ResidualUnit)
+                       for m in ez.autoencoder.model.decoder.modules())
+        fused = fused_run("variant_fused[1]", ez,
+                          lambda: ez.generate_audio(PROMPTS[:1], length=length,
+                                                    random_seed=1234, fused=True,
+                                                    ddim_steps=VARIANT_STEPS)[1],
+                          attention_modules(ez.params_cfg.model.to_dict()) * VARIANT_STEPS,
+                          want_res, length, 2, one[0]["wav"])
+        rows += one + four + [fused]
+        summary = dict(card=card_line() if torch.device(dev).type == "cuda" else "cpu",
+                       wall_s_1=statistics.median(r["wall_s"] for r in one),
+                       wall_s_1_all=[r["wall_s"] for r in one], wall_s_4=four[0]["wall_s"],
+                       audio_s_per_s_1=length / statistics.median(r["wall_s"] for r in one),
+                       audio_s_per_s_4=four[0]["audio_s_per_s"],
+                       fused_replay_s=fused["replay_s"], peak_mem_gib_1=one[0]["peak_mem_gib"],
+                       peak_mem_gib_4=four[0]["peak_mem_gib"],
+                       dit_params=sum(p.numel() for p in ez.dit.parameters()))
+        log("variant_f32 " + json.dumps(summary))
+        f32_wav = one[0]["wav"]
+        del ez
+        if before is not None:
+            check_freed("variant f32", before)
+        ez = build_ezaudio(dev, config=variant_config(), model="variant", dtype="bfloat16")
+        bf16 = variant_run("variant_bf16", ez, 1, dtype="bfloat16", length=length)[0]
+        log("variant_bf16_vs_f32 " + json.dumps(dict(
+            corr=float(np.corrcoef(bf16["wav"].ravel(), f32_wav.ravel())[0, 1]),
+            max_abs_diff=float(np.abs(bf16["wav"] - f32_wav).max()))))
+        rows.append(bf16)
+        del ez
+        if before is not None:
+            check_freed("variant bf16", before)
+        ez = build_ezaudio(dev, config=variant_config(**TOKEN_SWITCHES), model="variant_token")
+        rows += variant_run("variant_token", ez, 1, length=length)
+        del ez
+        if before is not None:
+            check_freed("variant token", before)
+    missing = uncovered_attention(seen, attn_cases)
+    log("variant_attention_shapes " + json.dumps(sorted(seen)))
+    if missing:
+        raise AssertionError(f"attention shapes of phase 31 not held in phase 3: {missing}")
+    return rows
+
+
+def _switch_udit(case: dict):
+    """A bare UDiT's keyword arguments: config (a)'s model block at depth
+    2 with ``case``'s switches, SWITCH_FRAMES latent frames."""
+    m = variant_config(depth=2)["model"]
+    for k in ("mae", "mae_prob", "mask_ratio", "mask_span"):
+        m.pop(k)
+    m.update(img_size=SWITCH_FRAMES, use_checkpoint=False)
+    m.update(case)
+    return m
+
+
+def _switch_inputs(kw, gen, B=2):
+    """Seeded inputs of a UDiT (CPU tensors): x, timesteps, context, its
+    mask (23 and 100 valid tokens), the class token."""
+    import torch
+
+    if kw.get("input_type") == "2d":
+        x = torch.randn(B, *kw["img_size"], kw["in_chans"], generator=gen)
+    else:
+        x = torch.randn(B, kw["img_size"], kw["in_chans"], generator=gen)
+    ctx = torch.randn(B, kw["context_max_length"], kw["context_dim"], generator=gen)
+    cmask = torch.ones(B, kw["context_max_length"], dtype=torch.bool)
+    cmask[0, 23:] = False
+    cls = torch.randn(B, kw["cls_dim"], generator=gen) if kw.get("cls_dim") else None
+    return x, torch.tensor([37, 871]), ctx, cmask, cls
+
+
+def _both(name, model, args, kwargs, dev, want_attn, extra=None):
+    """``model`` (on the CPU, seeded) and its copy on ``dev`` on the same
+    inputs: :func:`agreement` of the outputs (a tensor or a list, which
+    are concatenated) and the card's attention launches."""
+    import copy
+
+    import torch
+
+    card = copy.deepcopy(model).to(dev)
+    to = lambda a, d: a.to(d) if isinstance(a, torch.Tensor) else a  # noqa: E731
+    with torch.no_grad():
+        want = model(*args, **kwargs)
+        reset_counters()
+        got = card(*(to(a, dev) for a in args), **{k: to(v, dev) for k, v in kwargs.items()})
+        sync(dev)
+        attn = read_counters()[0]
+    if isinstance(got, list):
+        got, want = torch.cat(got, dim=1), torch.cat(want, dim=1)
+    row = agreement(f"variant_card_vs_cpu {name}", got.cpu().numpy(), want.numpy(),
+                    dict(extra or {}, attention_launches=attn, want_attention=want_attn))
+    if attn != want_attn:
+        raise AssertionError(f"{name}: {attn} attention launches, want {want_attn}")
+    return row
+
+
+def variant_card_vs_cpu(gen, dev="cuda"):
+    """Phase 31 (d), card against CPU on the same weights and inputs at
+    s3_l width, depth 2, phase 5's tolerance: config (a)'s
+    ``generate_audio`` (1 s, 3 DDIM steps, eta 0, the same initial
+    latents); each SWITCH_CASES UDiT; ``DiTControlNet`` with concat context
+    (the energy ControlNet's blocks); ``CFGModel`` and ``ConcatModel`` with
+    the same drop decisions; one span-masked train step of config (a)
+    (kernel 1's masked self-attention backward)."""
+    import torch
+
+    from ezaudio_tpu_torch.api.ezaudio import init_random_
+    from ezaudio_tpu_torch.config import get_model_config
+    from ezaudio_tpu_torch.models.cfg_wrappers import CFGModel, ConcatModel
+    from ezaudio_tpu_torch.models.controlnet import controlnet_from_config
+    from ezaudio_tpu_torch.models.udit import UDiT
+
+    rows = [card_vs_cpu(gen, dev, cfg=variant_config(depth=2))]
+    cpu_gen = torch.Generator().manual_seed(31)
+
+    def seeded(model):
+        return init_random_(model, cpu_gen).eval()
+
+    for name, case in SWITCH_CASES.items():
+        kw = _switch_udit(case)
+        x, t, ctx, cmask, cls = _switch_inputs(kw, cpu_gen)
+        rows.append(_both(name, seeded(UDiT(**kw)), (x, t, ctx),
+                          dict(context_mask=cmask, cls_token=cls), dev,
+                          attention_modules(kw), dict(switches=case)))
+    kw = _switch_udit({})
+    cn = seeded(controlnet_from_config(kw, get_model_config("energy").to_dict()["controlnet"]))
+    x, t, ctx, cmask, _ = _switch_inputs(kw, cpu_gen)
+    cond = torch.rand(2, SWITCH_FRAMES * 2 ** (len(cn.controlnet_pre.blocks)), 1,
+                      generator=cpu_gen)
+    rows.append(_both("controlnet_concat", cn, (x, t, ctx),
+                      dict(context_mask=cmask, condition=cond, conditioning_scale=0.7), dev,
+                      kw["depth"] // 2))
+    drop = torch.tensor([True, False])
+    kw = _switch_udit(dict(context_fusion="cross", context_pe_method="none"))
+    x, t, ctx, cmask, _ = _switch_inputs(kw, cpu_gen)
+    rows.append(_both("cfg_model", seeded(CFGModel(kw["context_dim"], UDiT(**kw))), (x, t, ctx),
+                      dict(context_mask=cmask, cfg_prob=0.5, drop=drop), dev,
+                      attention_modules(kw)))
+    kw = _switch_udit(dict(context_dim=None, in_chans=257 + 64))
+    cond = torch.randn(2, 4 * SWITCH_FRAMES, 16, generator=cpu_gen)
+    rows.append(_both("concat_model",
+                      seeded(ConcatModel(UDiT(**kw), 16, strides=(2, 2))),
+                      (x, t, cond), dict(cfg_prob=0.5, drop=drop), dev, attention_modules(kw)))
+    cfg = variant_config(depth=2)
+    rows += train_step_card_vs_cpu(gen, dev, cfg=cfg, policies=("full",),
+                                   text_len=cfg["text_encoder"]["max_length"])
+    return rows
+
+
+def codec_restart(dev="cuda", widths=VAE_WIDTHS, batch=CODEC_BATCH, samples=CODEC_SAMPLES,
+                  steps=4, sr=24000, disc_kw=None, step_kw=None):
+    """Phase 30 (a), ROADMAP F14: the VAE codec step run ``steps`` steps
+    straight, against ``steps // 2`` steps, a checkpoint (both networks,
+    both optimizers, the step count), a fresh step object on freshly built
+    networks restored from it, and the other steps: every loss of those
+    steps and every tensor after them bit-equal.  Then the straight run's
+    step wall beside the same run with cuDNN's default algorithms (the
+    cost of ``deterministic_cudnn``)."""
+    import io
+
+    import torch
+
+    from ezaudio_tpu_torch.training import codec_trainer
+
+    audio = torch.from_numpy(codec_clip(sr, samples / sr, batch)).to(dev)
+
+    def fresh(seed=0):
+        vae = build_codec("vae", dev, seed, use_weight_norm=True, **widths)
+        disc = build_codec("disc", dev, seed + 1, sample_rate=sr, **(disc_kw or {}))
+        return codec_trainer.make_codec_train_steps(vae, disc, "vae", sample_rate=sr,
+                                                    **(step_kw or {}))
+
+    def run(step, n):
+        rows = timed_steps(dev, n, lambda i: step(audio, seed=0))
+        return [{k: v.item() for k, v in r["out"].items()} for r in rows], [
+            r["wall_s"] for r in rows]
+
+    def state(step):
+        return {f"{side}.{k}": v.detach().clone() for side, m in
+                (("gen", step.codec), ("disc", step.disc)) for k, v in m.state_dict().items()}
+
+    straight = fresh()
+    losses, walls = run(straight, steps)
+    want = state(straight)
+    del straight
+    first = fresh()
+    run(first, steps // 2)
+    buf = io.BytesIO()
+    torch.save({"gen": first.codec.state_dict(), "disc": first.disc.state_dict(),
+                "gen_opt": first.gen_opt.state_dict(), "disc_opt": first.disc_opt.state_dict(),
+                "step": first.step}, buf)
+    del first
+    buf.seek(0)
+    ckpt = torch.load(buf, map_location=dev, weights_only=False)
+    again = fresh(seed=7)  # other weights: the checkpoint must replace them all
+    again.codec.load_state_dict(ckpt["gen"])
+    again.disc.load_state_dict(ckpt["disc"])
+    again.gen_opt.load_state_dict(ckpt["gen_opt"])
+    again.disc_opt.load_state_dict(ckpt["disc_opt"])
+    again.step = ckpt["step"]
+    resumed, _ = run(again, steps - steps // 2)
+    got = state(again)
+    del again, ckpt
+    differ = sorted(k for k in want if not torch.equal(want[k], got[k]))
+    orig = codec_trainer.deterministic_cudnn
+    codec_trainer.deterministic_cudnn = contextlib.nullcontext
+    try:
+        default_walls = run(fresh(), steps)[1]
+    finally:
+        codec_trainer.deterministic_cudnn = orig
+    row = dict(path="codec_restart", steps=steps, restart_at=steps // 2,
+               losses_straight=losses[steps // 2:], losses_resumed=resumed,
+               tensors=len(want), tensors_differ=differ[:8],
+               step_wall_s_deterministic=statistics.median(walls[1:]),
+               step_wall_s_default=statistics.median(default_walls[1:]),
+               walls_deterministic=walls, walls_default=default_walls)
+    log("codec_restart " + json.dumps(row))
+    if resumed != losses[steps // 2:] or differ:
+        raise AssertionError(f"codec restart is not bit-equal: losses {resumed} against "
+                             f"{losses[steps // 2:]}, tensors {differ[:8]}")
+    return row
+
+
 def _kernel_class(name: str) -> str:
     n = name.lower()
     if "attn_fwd" in n:
@@ -4000,6 +4375,9 @@ def main(argv) -> int:
         codec = codec_train_path()
         paths.append(codec)
     check_freed("VAE codec trainer", before)
+    with phase("30a codec restart"):
+        codec_restart()
+    check_freed("codec restart", before)
     check_batch_shapes(codec, RESUNIT_CASES)
     with phase("30a codec step card_vs_cpu"):
         codec_step_card_vs_cpu()
@@ -4015,6 +4393,11 @@ def main(argv) -> int:
     check_freed("facade codecs", before)
     with phase("30e pretransforms"):
         pretransform_paths()
+    with phase("31 UDiT variants"):
+        paths += variant_paths(before=before)
+    with phase("31 variants card_vs_cpu"):
+        variant_card_vs_cpu(gen)
+    check_freed("variants card_vs_cpu", before)
 
     missing = uncovered_shapes(paths)
     if missing:

@@ -26,6 +26,9 @@ replayed after (``api/graphs.py``), the same function eagerly on the CPU.
 it; ``'bf16'`` and ``'chunked_bf16'`` run the JAX package's bf16-logit
 einsum formulation in plain torch; ``'ring'`` raises ``NotImplementedError``.
 
+``config=`` builds any MaskDiT architecture the JAX package builds (its
+``model:`` block's switches; concat/joint context needs
+``context_max_length`` equal to ``text_encoder.max_length``).
 Runs on CUDA unless ``device="cpu"`` is passed; with no GPU and no device
 it raises.  ``ckpt_path``, ``vae_path`` and ``t5_path`` load the published
 checkpoints from local files (``convert/checkpoints.py``); a component
@@ -65,6 +68,8 @@ from ezaudio_tpu_torch.diffusion.dpm import dpm_solver_sample
 from ezaudio_tpu_torch.diffusion.sampling import sample_latents, sample_latents_layer_cached
 from ezaudio_tpu_torch.models.maskdit import maskdit_from_config
 from ezaudio_tpu_torch.ops.attention import BF16_IMPLS, attention_impl_context
+from ezaudio_tpu_torch.ops.embeddings import PEWrapper
+from ezaudio_tpu_torch.ops.mlp import ActProj
 from ezaudio_tpu_torch.ops.norms import LayerNorm, RMSNorm
 from ezaudio_tpu_torch.ops.quant import current_quant_mode, quant_context
 from ezaudio_tpu_torch.text.t5 import (T5Encoder, T5EncoderConfig, T5LayerNorm,
@@ -99,19 +104,45 @@ def check_attn_impl(attn_impl: Optional[str]) -> None:
     raise ValueError(f"unknown attn_impl {attn_impl!r}")
 
 
+def check_context_length(model_cfg: dict, max_length: int) -> None:
+    """``concat``/``joint`` fusion prefixes exactly ``context_max_length``
+    text tokens, and the tokenizer pads to ``max_length``: they must agree
+    (the JAX package asserts it at the first call)."""
+    if (model_cfg.get("context_dim") is not None
+            and model_cfg.get("context_fusion", "cross") in ("concat", "joint")
+            and model_cfg.get("context_max_length") != max_length):
+        raise ValueError(f"context_fusion={model_cfg['context_fusion']!r} needs "
+                         f"context_max_length ({model_cfg.get('context_max_length')}) equal "
+                         f"to the tokenizer's max_length ({max_length})")
+
+
 @torch.no_grad()
 def init_random_(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """Seeded random weights, by the JAX package's init rules: convs take
-    torch's default U(+-1/sqrt(fan_in)) (weight and bias), every other
-    matrix xavier-uniform, every other vector N(0, 0.02); norms stay (1, 0)."""
+    torch's default U(+-1/sqrt(fan_in)) (weight and bias; with weight norm
+    ``weight_v`` so and ``weight_g`` its norm), learned positional tables
+    N(0, 0.02), the feed-forward snakes' alpha and beta 1 + N(0, 0.1),
+    every other matrix xavier-uniform, every other vector N(0, 0.02); norms
+    stay (1, 0).  Nothing JAX zero-initialises is left zero (ROADMAP F6)."""
     done = set()
     for m in module.modules():
         if isinstance(m, _NORMS):
             done.update(id(p) for p in m.parameters())
-        elif isinstance(m, (nn.Conv1d, nn.ConvTranspose1d)):
-            bound = 1.0 / math.sqrt(m.weight.shape[1] * m.weight.shape[2])  # torch fan_in
+        elif isinstance(m, nn.modules.conv._ConvNd):
+            bound = 1.0 / math.sqrt(m.weight[0].numel())  # torch fan_in
             for p in m.parameters():
                 p.uniform_(-bound, bound, generator=generator)
+                done.add(id(p))
+            if "weight_g" in m._parameters:
+                v = m.weight_v
+                m.weight_g.copy_(v.square().sum(dim=tuple(range(1, v.ndim)),
+                                                keepdim=True).sqrt())
+        elif isinstance(m, PEWrapper) and m.method == "abs":
+            m.abs_pe.normal_(0.0, 0.02, generator=generator)
+            done.add(id(m.abs_pe))
+        elif isinstance(m, ActProj) and m.fn is None:
+            for p in (m.alpha, m.beta):
+                p.normal_(1.0, 0.1, generator=generator)
                 done.add(id(p))
     for p in module.parameters():
         if id(p) in done:
@@ -167,6 +198,7 @@ class EzAudio:
             self.t5_cfg = T5EncoderConfig(d_model=cfg.model.context_dim)
         if self.t5_cfg.d_model != cfg.model.context_dim:
             raise ValueError("text encoder width must match model context_dim")
+        check_context_length(cfg.model.to_dict(), cfg.text_encoder.max_length)
         vae_cfg = vae_config if vae_config is not None else load_config(
             MODEL_REGISTRY["vae"]["config"]).to_dict()
 

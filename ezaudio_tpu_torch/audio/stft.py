@@ -1,9 +1,10 @@
 """STFT and mel filterbanks (counterpart of ``ezaudio_tpu/audio/stft.py``
 and of ``_mel_filterbank_htk`` in ``ezaudio_tpu/audio/clap.py``).
 
-The filterbanks are host constants (numpy).  The STFT is ``torch.stft``
-with the JAX package's conventions (periodic hann window, centre reflect
-padding, one-sided, unnormalized) and runs on the tensor's device.
+The filterbanks are host constants (numpy).  The STFT has the JAX
+package's conventions (periodic hann window, centre reflect padding,
+one-sided, unnormalized), runs on the tensor's device, and its gradient is
+the same in every run.
 """
 
 from __future__ import annotations
@@ -19,18 +20,36 @@ def hann_window(n: int) -> np.ndarray:
     return (0.5 - 0.5 * np.cos(2 * np.pi * np.arange(n) / n)).astype(np.float32)
 
 
+def reflect_pad(x: torch.Tensor, left: int, right: int) -> torch.Tensor:
+    """``F.pad(x, (left, right), mode="reflect")`` on the last axis, as
+    flipped slices concatenated: its gradient is a sum of slices, the same
+    in every run, where the CUDA reflection pad's backward adds with
+    atomics in a run-dependent order (a codec step restarted from a
+    checkpoint parts from the straight run)."""
+    parts = [x]
+    if left:
+        parts.insert(0, x[..., 1:left + 1].flip(-1))
+    if right:
+        parts.append(x[..., -right - 1:-1].flip(-1))
+    return torch.cat(parts, dim=-1) if len(parts) > 1 else x
+
+
 def stft(x: torch.Tensor, n_fft: int, hop_length: Optional[int] = None,
          win_length: Optional[int] = None, center: bool = True) -> torch.Tensor:
-    """(B, T) -> complex (B, 1 + n_fft // 2, frames)."""
+    """(B, T) -> complex (B, 1 + n_fft // 2, frames): ``torch.stft`` with
+    these conventions, framed by ``unfold`` and transformed by ``rfft``, so
+    that its gradient sums the same way in every run (torch.stft's
+    overlapping ``as_strided`` frames and reflection pad do not on CUDA)."""
     hop_length = hop_length or n_fft // 4
     win_length = win_length or n_fft
     win = hann_window(win_length)
     if win_length < n_fft:
         lp = (n_fft - win_length) // 2
         win = np.pad(win, (lp, n_fft - win_length - lp))
-    return torch.stft(x, n_fft, hop_length, n_fft, torch.from_numpy(win).to(x.device),
-                      center=center, pad_mode="reflect", normalized=False, onesided=True,
-                      return_complex=True)
+    if center:
+        x = reflect_pad(x, n_fft // 2, n_fft // 2)
+    frames = x.unfold(-1, n_fft, hop_length) * torch.from_numpy(win).to(x.device)
+    return torch.fft.rfft(frames, dim=-1).transpose(-1, -2)
 
 
 def _hz_to_mel(f):

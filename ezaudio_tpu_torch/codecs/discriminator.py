@@ -24,10 +24,9 @@ from __future__ import annotations
 from typing import List, Sequence, Tuple
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
-from ezaudio_tpu_torch.audio.stft import stft
+from ezaudio_tpu_torch.audio.stft import reflect_pad, stft
 from ezaudio_tpu_torch.ops.convs import Conv1d, Conv2d
 
 BANDS = [(0.0, 0.1), (0.1, 0.25), (0.25, 0.5), (0.5, 0.75), (0.75, 1.0)]
@@ -62,7 +61,7 @@ class MPD(nn.Module):
         x = x.transpose(1, 2)
         pad = (self.period - x.shape[-1] % self.period) % self.period
         if pad:
-            x = F.pad(x, (0, pad), mode="reflect")
+            x = reflect_pad(x, 0, pad)
         h = x.reshape(x.shape[0], 1, x.shape[-1] // self.period, self.period)
         return _run(self.convs, self.conv_post, h)
 

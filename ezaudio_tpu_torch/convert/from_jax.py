@@ -10,6 +10,9 @@ package's torch -> jax converters:
     :class:`~ezaudio_tpu_torch.models.maskdit.MaskDiT` state dict;
   * :func:`controlnet_state_dict_from_jax` — ``cn_params["params"]`` ->
     :class:`~ezaudio_tpu_torch.models.controlnet.DiTControlNet` state dict;
+  * :func:`udit_state_dict_from_jax` — a bare UDiT's params, every
+    architecture switch (PEs, time and context fusion, cls, 2-D input);
+  * :func:`cfg_wrapper_state_dict_from_jax` — ``models/cfg_wrappers.py``;
   * :func:`vae_state_dict_from_jax` — AudioVAE params (``encoder`` and
     ``decoder`` subtrees; folded kernels or live weight norm, kept) ->
     :class:`~ezaudio_tpu_torch.codecs.oobleck.AudioVAE`;
@@ -89,24 +92,35 @@ def _attention(dst, prefix, p):
             _norm(dst, f"{prefix}.{name}", p[name])
 
 
+def _inv_freq(head_dim: int) -> torch.Tensor:
+    return 1.0 / (10000.0 ** (torch.arange(0, head_dim, 2, dtype=torch.float32) / head_dim))
+
+
+ROTARY_BUFFERS = {"none": (), "shared": ("rotary",), "x_only": ("rotary",),
+                  "dual": ("rotary_x", "rotary_c")}
+
+
 def _block(dst, prefix, p, cfg):
     _norm(dst, f"{prefix}.norm1", p["norm1"])
     _norm(dst, f"{prefix}.norm3", p["norm3"])
     _attention(dst, f"{prefix}.attn", p["attn"])
-    if cfg.get("rope_mode", "none") == "shared":
-        head_dim = cfg["embed_dim"] // cfg["num_heads"]
-        dst[f"{prefix}.attn.rotary.inv_freq"] = 1.0 / (
-            10000.0 ** (torch.arange(0, head_dim, 2, dtype=torch.float32) / head_dim))
-    _lin(dst, f"{prefix}.mlp.net.0.proj", p["mlp"]["proj_in"])
-    _lin(dst, f"{prefix}.mlp.net.2", p["mlp"]["proj_out"])
+    for name in ROTARY_BUFFERS[cfg.get("rope_mode", "none")]:
+        dst[f"{prefix}.attn.{name}.inv_freq"] = _inv_freq(cfg["embed_dim"] // cfg["num_heads"])
+    mlp = p["mlp"]
+    _lin(dst, f"{prefix}.mlp.net.0.proj", mlp["proj_in"])
+    _lin(dst, f"{prefix}.mlp.net.2", mlp["proj_out"])
+    for name in ("alpha", "beta"):  # the snake activations'
+        if name in mlp:
+            dst[f"{prefix}.mlp.net.0.{name}"] = _t(mlp[name])
     if "cross_attn" in p:
         _norm(dst, f"{prefix}.norm2", p["norm2"])
         _attention(dst, f"{prefix}.cross_attn", p["cross_attn"])
     if "norm_context" in p:
         _norm(dst, f"{prefix}.norm_context", p["norm_context"])
-    a = p["adaln"]
-    _lin(dst, f"{prefix}.adaln.lora_a", a["lora_a"])
-    _lin(dst, f"{prefix}.adaln.lora_b", a["lora_b"])
+    a = p.get("adaln", {})  # none under time_fusion='token'
+    for name in ("time_ada", "lora_a", "lora_b"):
+        if name in a:
+            _lin(dst, f"{prefix}.adaln.{name}", a[name])
     if "scale_shift_table" in a:
         dst[f"{prefix}.adaln.scale_shift_table"] = _t(a["scale_shift_table"])
     if "skip_fusion" in p:
@@ -116,19 +130,43 @@ def _block(dst, prefix, p, cfg):
             _norm(dst, f"{prefix}.skip_norm", sf["skip_norm"])
 
 
+def _pe(dst, prefix, p, method, dim, length):
+    """A ``PEWrapper``: ``abs_pe``, the conv PE's weight norm, or the
+    sinusoidal table (a buffer the JAX package computes, made here)."""
+    from ezaudio_tpu_torch.ops.embeddings import sinusoidal_table
+
+    if method == "abs":
+        dst[f"{prefix}.abs_pe"] = _t(p["abs_pe"])
+    elif method == "conv":
+        _conv(dst, f"{prefix}.conv_pe.conv", p["conv_pe"]["conv"])
+    elif method == "sinu":
+        dst[f"{prefix}.sinu_pe.pe"] = sinusoidal_table(length, dim)
+
+
 def _embedders(dst, prefix, m, cfg):
-    """Patch embed, time and context embedders and ``time_ada``: the
-    modules a UDiT and its ControlNet share."""
-    p_size, in_ch = cfg.get("patch_size", 1), cfg["in_chans"]
-    k = np.asarray(m["patch_embed"]["kernel"]).reshape(p_size, in_ch, -1)
-    dst[f"{prefix}patch_embed.proj.weight"] = _t(k.transpose(2, 1, 0))
+    """Patch embed, positional embeddings, time and context embedders and
+    ``time_ada``: the modules a UDiT and its ControlNet share."""
+    p_size, in_ch, dim = cfg.get("patch_size", 1), cfg["in_chans"], cfg["embed_dim"]
+    if cfg.get("input_type", "1d") == "2d":
+        k = np.asarray(m["patch_embed"]["kernel"]).reshape(p_size, p_size, in_ch, -1)
+        dst[f"{prefix}patch_embed.proj.weight"] = _t(k.transpose(3, 2, 0, 1))
+        H, W = cfg["img_size"]
+        num_patches = (H // p_size) * (W // p_size)
+    else:
+        k = np.asarray(m["patch_embed"]["kernel"]).reshape(p_size, in_ch, -1)
+        dst[f"{prefix}patch_embed.proj.weight"] = _t(k.transpose(2, 1, 0))
+        num_patches = cfg["img_size"] // p_size
     dst[f"{prefix}patch_embed.proj.bias"] = _t(m["patch_embed"]["bias"])
+    _pe(dst, f"{prefix}x_pe", m.get("x_pe"), cfg.get("pe_method", "none"), dim, num_patches)
     _lin(dst, f"{prefix}time_embed.mlp.0", m["time_embed"]["fc1"])
     _lin(dst, f"{prefix}time_embed.mlp.2", m["time_embed"]["fc2"])
     if "context_embed" in m:  # none in the MAE pretraining stage
         _lin(dst, f"{prefix}context_embed.0", m["context_embed"]["fc1"])
         _lin(dst, f"{prefix}context_embed.2", m["context_embed"]["fc2"])
-    _lin(dst, f"{prefix}time_ada", m["time_ada"])
+        _pe(dst, f"{prefix}context_pe", m.get("context_pe"),
+            cfg.get("context_pe_method", "none"), dim, cfg.get("context_max_length"))
+    if "time_ada" in m:  # none under time_fusion 'token' and 'ada'
+        _lin(dst, f"{prefix}time_ada", m["time_ada"])
 
 
 def maskdit_state_dict_from_jax(params: Dict[str, Any], cfg: dict) -> Dict[str, torch.Tensor]:
@@ -137,19 +175,35 @@ def maskdit_state_dict_from_jax(params: Dict[str, Any], cfg: dict) -> Dict[str, 
     sd: Dict[str, torch.Tensor] = {}
     if "mask_embed" in params:
         sd["mask_embed"] = _t(params["mask_embed"])
-    m = params["model"]
-    _embedders(sd, "model.", m, cfg)
-    _lin(sd, "model.time_ada_final", m["time_ada_final"])
+    sd.update({f"model.{k}": v for k, v in udit_state_dict_from_jax(params["model"],
+                                                                    cfg).items()})
+    return sd
+
+
+def udit_state_dict_from_jax(m: Dict[str, Any], cfg: dict) -> Dict[str, torch.Tensor]:
+    """JAX UDiT params -> port :class:`~ezaudio_tpu_torch.models.udit.UDiT`
+    state dict; ``cfg`` holds the UDiT's keyword arguments (a ``model:``
+    block)."""
+    sd: Dict[str, torch.Tensor] = {}
+    _embedders(sd, "", m, cfg)
+    if "time_ada_final" in m:
+        _lin(sd, "time_ada_final", m["time_ada_final"])
+    if "cls_embed" in m:
+        _lin(sd, "cls_embed.0", m["cls_embed"]["fc1"])
+        _lin(sd, "cls_embed.2", m["cls_embed"]["fc2"])
+    if "time_pe" in m:
+        sd["time_pe.abs_pe"] = _t(m["time_pe"]["abs_pe"])
     half = cfg["depth"] // 2
     for i in range(half):
-        _block(sd, f"model.in_blocks.{i}", m[f"in_blocks_{i}"], cfg)
-        _block(sd, f"model.out_blocks.{i}", m[f"out_blocks_{i}"], cfg)
-    _block(sd, "model.mid_block", m["mid_block"], cfg)
+        _block(sd, f"in_blocks.{i}", m[f"in_blocks_{i}"], cfg)
+        _block(sd, f"out_blocks.{i}", m[f"out_blocks_{i}"], cfg)
+    _block(sd, "mid_block", m["mid_block"], cfg)
     fb = m["final_block"]
-    _norm(sd, "model.final_block.norm", fb["norm"])
-    _lin(sd, "model.final_block.linear", fb["linear"])
+    _norm(sd, "final_block.norm", fb["norm"])
+    _lin(sd, "final_block.linear", fb["linear"])
     if "final_conv" in fb:
-        _conv(sd, "model.final_block.final_layer", fb["final_conv"])
+        conv = _conv2d if cfg.get("input_type", "1d") == "2d" else _conv
+        conv(sd, "final_block.final_layer", fb["final_conv"])
     return sd
 
 
@@ -172,6 +226,27 @@ def controlnet_state_dict_from_jax(params: Dict[str, Any], model_cfg: dict,
     for i in range(len(controlnet_cfg["cond_blocks"]) - 1):
         _conv(sd, f"controlnet_pre.blocks.{i}.0", pre[f"pyramid{i}_conv1"])
         _conv(sd, f"controlnet_pre.blocks.{i}.2", pre[f"pyramid{i}_conv2"])
+    return sd
+
+
+def cfg_wrapper_state_dict_from_jax(params: Dict[str, Any],
+                                    backbone_sd: Dict[str, torch.Tensor] = None
+                                    ) -> Dict[str, torch.Tensor]:
+    """JAX ``EmbeddingCFG`` / ``CFGModel`` / ``ConcatModel`` params -> the
+    port's ``models/cfg_wrappers.py`` state dict; ``backbone_sd``, the
+    backbone's own (for example :func:`udit_state_dict_from_jax`), goes
+    under ``backbone.``."""
+    sd: Dict[str, torch.Tensor] = {}
+    if "cfg_embedding" in params:  # a bare EmbeddingCFG
+        sd["cfg_embedding"] = _t(params["cfg_embedding"])
+    if "context_cfg" in params:
+        sd["context_cfg.cfg_embedding"] = _t(params["context_cfg"]["cfg_embedding"])
+    i = 0
+    while f"down{i}" in params:
+        _conv(sd, f"down.{i}", params[f"down{i}"])
+        i += 1
+    for k, v in (backbone_sd or {}).items():
+        sd[f"backbone.{k}"] = v
     return sd
 
 

@@ -6,7 +6,8 @@
     joins the channels (``blocks[0] + 1``); a pyramid of [Conv k3 p1, SiLU,
     Conv k3 p1 s2, SiLU] per stage; Conv1d(k1) out to the model width;
   * ``DiTControlNet``: patch embed plus the embedded condition, the
-    context and time embedders, ``depth // 2`` DiT in-blocks (attention on
+    positional embedding, the context (cross-attended, or prefixed to x
+    under ``concat``/``joint``) and time embedders, ``depth // 2`` DiT in-blocks (attention on
     kernel 1), each followed by its ``controlnet_zero_blocks`` projection,
     scaled by ``conditioning_scale``: the skips ``MaskDiT.forward_backbone``
     adds to the base model's long skips.
@@ -36,8 +37,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ezaudio_tpu_torch.models.blocks import DiTBlock
+from ezaudio_tpu_torch.models.blocks import ADA_MODES, DiTBlock
 from ezaudio_tpu_torch.models.span_mask import span_mask_from_draws, train_mask_draws
+from ezaudio_tpu_torch.models.udit import CONTEXT_FUSIONS, prefix_context
 from ezaudio_tpu_torch.ops.convs import Conv1d
 from ezaudio_tpu_torch.ops.embeddings import (MLPEmbedder, PatchEmbed1D, PEWrapper,
                                               TimestepEmbedder)
@@ -112,8 +114,10 @@ class ControlNetEmbed(nn.Module):
 
 class DiTControlNet(nn.Module):
     """Conditioned half-depth UDiT returning ``depth // 2`` skip tensors.
-    ``udit`` is the base model's UDiT config (cross-attention context,
-    AdaLN-SOLA time fusion, as the port's UDiT)."""
+    ``udit`` is the base model's UDiT config: the AdaLN time fusions only
+    (``token`` raises, as the JAX package asserts), the context by
+    cross-attention or ``concat``/``joint`` (the embedded context, padded to
+    ``context_max_length``, prefixed to x; the skips then cover it too)."""
 
     def __init__(self, udit: dict, cond_in: int = 1, cond_blocks: Sequence[int] = (64, 128),
                  cond_mask: bool = False, cond_mask_prob: Optional[float] = None,
@@ -121,29 +125,43 @@ class DiTControlNet(nn.Module):
                  cond_mask_span: Optional[int] = None):
         super().__init__()
         cfg = dict(udit)
-        if cfg.get("context_dim") is None or cfg.get("context_fusion", "cross") != "cross":
-            raise NotImplementedError(f"context_fusion={cfg.get('context_fusion')!r}")
+        time_fusion = cfg.get("time_fusion", "ada_sola_bias")
+        if time_fusion not in ADA_MODES:
+            raise NotImplementedError(f"ControlNet time_fusion={time_fusion!r}: the AdaLN "
+                                      "family only")
+        fusion = cfg.get("context_fusion", "cross")
+        if cfg.get("context_dim") is None or fusion not in CONTEXT_FUSIONS:
+            raise NotImplementedError(f"context_fusion={fusion!r}, "
+                                      f"context_dim={cfg.get('context_dim')!r}")
+        self.concat = fusion != "cross"
+        self.context_max_length = cfg.get("context_max_length")
+        if self.concat and self.context_max_length is None:
+            raise ValueError(f"context_fusion={fusion!r} needs context_max_length")
+        extras = self.context_max_length if self.concat else 0
         dim = cfg["embed_dim"]
         patch = cfg.get("patch_size", 1)
         self.patch_embed = PatchEmbed1D(patch, cfg["in_chans"], dim)
-        self.x_pe = PEWrapper(cfg.get("pe_method", "none"))
+        self.x_pe = PEWrapper(cfg.get("pe_method", "none"), dim, cfg["img_size"] // patch)
         self.controlnet_pre = ControlNetEmbed(cond_in, dim, cond_blocks, cond_mask,
                                               cond_mask_prob, cond_mask_ratio, cond_mask_span)
         self.context_embed = MLPEmbedder(cfg["context_dim"], dim)
-        self.context_pe = PEWrapper(cfg.get("context_pe_method", "none"))
+        self.context_pe = PEWrapper(cfg.get("context_pe_method", "none"), dim,
+                                    self.context_max_length)
         self.time_embed = TimestepEmbedder(dim)
-        self.time_ada = QuantLinear(dim, 6 * dim)
+        self.time_ada = QuantLinear(dim, 6 * dim) if time_fusion != "ada" else None
         half = cfg["depth"] // 2
         self.in_blocks = nn.ModuleList([DiTBlock(
-            dim, cfg["num_heads"], context_dim=dim, mlp_ratio=cfg.get("mlp_ratio", 4.0),
+            dim, cfg["num_heads"], context_dim=None if self.concat else dim,
+            mlp_ratio=cfg.get("mlp_ratio", 4.0),
             qkv_bias=cfg.get("qkv_bias", False), qk_scale=cfg.get("qk_scale"),
             qk_norm=cfg.get("qk_norm"), act_layer=cfg.get("act_layer", "gelu"),
             norm_layer=cfg.get("norm_layer", "layernorm"),
-            time_fusion=cfg.get("time_fusion", "ada_sola_bias"),
+            time_fusion=time_fusion,
             ada_sola_rank=cfg.get("ada_sola_rank", 32),
             ada_sola_alpha=cfg.get("ada_sola_alpha", 32),
             rope_mode=cfg.get("rope_mode", "none"),
-            context_norm=cfg.get("context_norm", False)) for _ in range(half)])
+            context_norm=cfg.get("context_norm", False), extras=extras)
+            for _ in range(half)])
         self.controlnet_zero_blocks = nn.ModuleList([QuantLinear(dim, dim)
                                                      for _ in range(half)])
 
@@ -154,7 +172,7 @@ class DiTControlNet(nn.Module):
         context (B, Lc, context_dim); condition (B, T * 2^(stages), cond_in).
         ``train`` with ``mask_draws`` masks the condition at random
         (:meth:`ControlNetEmbed.draw_mask`).  Returns the list of
-        depth // 2 skips (B, T, embed_dim)."""
+        depth // 2 skips (B, extras + T, embed_dim)."""
         timesteps = torch.as_tensor(timesteps, device=x.device)
         if timesteps.ndim == 0:
             timesteps = timesteps.expand(x.shape[0])
@@ -162,8 +180,12 @@ class DiTControlNet(nn.Module):
                                                       mask_draws)
         x = self.x_pe(x)
         context_token = self.context_pe(self.context_embed(context))
+        if self.concat:
+            x, x_mask = prefix_context(x, x_mask, context_token, context_mask,
+                                       self.context_max_length)
+            context_token = context_mask = None
         time_token = F.silu(self.time_embed(timesteps))
-        time_ada = self.time_ada(time_token)
+        time_ada = self.time_ada(time_token) if self.time_ada is not None else None
         skips = []
         for blk, zero in zip(self.in_blocks, self.controlnet_zero_blocks):
             x = blk(x, time_token, time_ada, None, context_token, x_mask, context_mask)
@@ -200,5 +222,7 @@ def init_from_base_(controlnet: DiTControlNet, base_udit: nn.Module) -> DiTContr
     (``SHARED_WITH_BASE``), value by value: the ControlNet keeps its own
     parameters, so loading ControlNet weights leaves the base as it is."""
     for name in SHARED_WITH_BASE:
-        getattr(controlnet, name).load_state_dict(getattr(base_udit, name).state_dict())
+        mine = getattr(controlnet, name)
+        if mine is not None:  # time_ada is None under time_fusion='ada'
+            mine.load_state_dict(getattr(base_udit, name).state_dict())
     return controlnet

@@ -51,8 +51,8 @@ class MaskDiT(nn.Module):
                                 device)
 
     def forward(self, x, timesteps, context=None, x_mask=None, context_mask=None,
-                gt=None, mae_mask_infer=None, forward_model=True, controlnet_skips=None,
-                collect_deep_k=None, deep_cache=None, mask_draws=None):
+                cls_token=None, gt=None, mae_mask_infer=None, forward_model=True,
+                controlnet_skips=None, collect_deep_k=None, deep_cache=None, mask_draws=None):
         """Returns (output, mae_mask) with mae_mask float (B, L, C); with
         ``forward_model=False`` the output is UDiT's input, the concat.
         ``collect_deep_k`` / ``deep_cache`` go to UDiT's layer caching;
@@ -85,22 +85,28 @@ class MaskDiT(nn.Module):
         if not forward_model:
             return x, mae_mask
         out = self.model(x, timesteps, context, x_mask=x_mask, context_mask=context_mask,
-                         controlnet_skips=controlnet_skips,
+                         cls_token=cls_token, controlnet_skips=controlnet_skips,
                          collect_deep_k=collect_deep_k, deep_cache=deep_cache)
         return out, mae_mask
 
     def forward_backbone(self, x_concat, timesteps, context=None, x_mask=None,
-                         context_mask=None, controlnet_skips=None):
+                         context_mask=None, cls_token=None, controlnet_skips=None):
         """UDiT on an already concatenated input (``forward_model=False``'s
         output), the ControlNet step's second phase; returns its output."""
         return self.model(x_concat, timesteps, context, x_mask=x_mask,
-                          context_mask=context_mask, controlnet_skips=controlnet_skips)
+                          context_mask=context_mask, cls_token=cls_token,
+                          controlnet_skips=controlnet_skips)
 
 
 def maskdit_from_config(model_cfg: dict) -> MaskDiT:
-    """Build MaskDiT from a reference-format ``model:`` config block."""
+    """Build MaskDiT from a reference-format ``model:`` config block: the
+    MAE keys, and every UDiT switch.  MaskDiT concatenates along the
+    channels of a 1d sequence, so an ``input_type`` other than ``'1d'``
+    raises (the JAX reader drops the key)."""
     cfg = dict(model_cfg)
-    cfg.pop("input_type", None)  # only '1d'
+    input_type = cfg.pop("input_type", "1d")
+    if input_type != "1d":
+        raise NotImplementedError(f"MaskDiT input_type={input_type!r}: only '1d'")
     return MaskDiT(mae=cfg.pop("mae", False), mae_prob=cfg.pop("mae_prob", 0.5),
                    mask_ratio=cfg.pop("mask_ratio", (0.25, 1.0)),
                    mask_span=cfg.pop("mask_span", 10), udit=cfg)

@@ -1,10 +1,26 @@
-"""UDiT: U-shaped 1D diffusion transformer with long skips
-(counterpart of ``ezaudio_tpu/models/udit.py::UDiT``).
+"""UDiT: U-shaped diffusion transformer with long skips
+(counterpart of ``ezaudio_tpu/models/udit.py::UDiT``), every switch the
+JAX package builds:
 
-This slice covers the EzAudio settings: 1d input, AdaLN-SOLA time fusion
-(shared ``time_ada`` -> 6*dim and ``time_ada_final`` -> 2*dim), per-block
-cross-attention to the context (none with ``context_dim=None``, the MAE
-pretraining stage), ``none`` positional embeddings.
+  * ``input_type`` ``1d`` (B, T, C) or ``2d`` (B, H, W, C) with a
+    (H, W) ``img_size``;
+  * ``pe_method`` / ``context_pe_method``: ``abs``, ``conv``, ``sinu``,
+    ``none`` (``ops/embeddings.py::PEWrapper``);
+  * ``time_fusion``: ``token`` (the time token, and the ``cls_dim`` class
+    token, prefixed to the sequence with an ``abs`` ``time_pe``) or the
+    AdaLN family ``ada``, ``ada_single``, ``ada_sola``, ``ada_sola_bias``
+    (``time_ada_final`` -> 2*dim for the FinalBlock; a shared ``time_ada``
+    -> 6*dim but for ``ada``; the class embedding added to the time
+    embedding);
+  * ``context_fusion``: ``cross`` (per-block cross-attention; none with
+    ``context_dim=None``, the MAE pretraining stage) or ``concat`` /
+    ``joint`` (the embedded context, padded to ``context_max_length``,
+    prefixed to x, its mask to x's key mask);
+  * ``rope_mode`` ``none``/``shared``/``x_only``/``dual`` over the
+    ``extras`` prefix (:func:`udit_extras`), the activations of
+    ``ops/mlp.py``, ``qkv_bias``, ``use_conv``, ``skip``, ``skip_norm``.
+
+An unknown value raises ``NotImplementedError``.
 depth//2 in-blocks collect skips, a mid block, depth//2 out-blocks pop
 them in reverse, then the FinalBlock.  Cross-step layer caching
 (``collect_deep_k`` / ``deep_cache``) splits that stack.  ControlNet skips
@@ -31,12 +47,44 @@ import torch.nn.functional as F
 import torch.utils.checkpoint as tc
 from torch import nn
 
-from ezaudio_tpu_torch.models.blocks import DiTBlock, FinalBlock
-from ezaudio_tpu_torch.ops.embeddings import (MLPEmbedder, PatchEmbed1D, PEWrapper,
-                                              TimestepEmbedder)
+from ezaudio_tpu_torch.models.blocks import TIME_FUSIONS, DiTBlock, FinalBlock
+from ezaudio_tpu_torch.ops.embeddings import (MLPEmbedder, PatchEmbed1D, PatchEmbed2D,
+                                              PEWrapper, TimestepEmbedder)
 from ezaudio_tpu_torch.ops.quant import QuantLinear
 
 REMAT_POLICIES = ("full", "dots")
+INPUT_TYPES = ("1d", "2d")
+CONTEXT_FUSIONS = ("cross", "concat", "joint")
+
+
+def udit_extras(time_fusion: str, cls_dim, context_dim, context_fusion: str,
+                context_max_length) -> int:
+    """The prefix tokens before x (JAX ``UDiT._extras``): the time token
+    (and the class token) under ``token``, the context under
+    ``concat``/``joint``."""
+    extras = 0
+    if time_fusion == "token":
+        extras = 2 if cls_dim is not None else 1
+    if context_dim is not None and context_fusion in ("concat", "joint"):
+        extras += context_max_length
+    return extras
+
+
+def prefix_context(x, x_mask, context_token, context_mask, max_length: int):
+    """Concat/joint fusion: the embedded context (B, Lc, D) before the
+    tokens x (B, L, D), its mask before x's (all-True where absent);
+    returns ``(x, key_mask)``.  The context must be padded to
+    ``max_length``: every prefix-aware step counts that many tokens."""
+    B, L, _ = x.shape
+    if context_token.shape[1] != max_length:
+        raise ValueError("concat fusion requires the context padded to context_max_length="
+                         f"{max_length}, got {context_token.shape[1]}")
+    if x_mask is None:
+        x_mask = torch.ones(B, L, dtype=torch.bool, device=x.device)
+    if context_mask is None:
+        context_mask = torch.ones(B, max_length, dtype=torch.bool, device=x.device)
+    return (torch.cat([context_token, x], dim=1),
+            torch.cat([context_mask.bool(), x_mask.bool()], dim=1))
 
 
 def _dots_saveable(ctx, op, *args, **kwargs):
@@ -59,7 +107,7 @@ def resolve_remat_policy(policy: str) -> str:
 
 
 class UDiT(nn.Module):
-    def __init__(self, img_size: int = 500, patch_size: int = 1, in_chans: int = 257,
+    def __init__(self, img_size=500, patch_size: int = 1, in_chans: int = 257,
                  input_type: str = "1d", out_chans: Optional[int] = None,
                  embed_dim: int = 1024, depth: int = 24, num_heads: int = 16,
                  mlp_ratio: float = 4.0, qkv_bias: bool = False,
@@ -67,56 +115,127 @@ class UDiT(nn.Module):
                  act_layer: str = "geglu", norm_layer: str = "layernorm",
                  context_norm: bool = False, use_checkpoint: bool = False,
                  remat_policy: str = "auto",
-                 time_fusion: str = "ada_sola_bias", ada_sola_rank: int = 32,
-                 ada_sola_alpha: float = 32, cls_dim: Optional[int] = None,
+                 time_fusion: str = "ada_sola_bias", ada_sola_rank: Optional[int] = 32,
+                 ada_sola_alpha: Optional[float] = 32, cls_dim: Optional[int] = None,
                  context_dim: Optional[int] = 1024, context_fusion: str = "cross",
                  context_max_length: Optional[int] = None,
                  context_pe_method: str = "none", pe_method: str = "none",
                  rope_mode: str = "none", use_conv: bool = True, skip: bool = True,
                  skip_norm: bool = True):
         super().__init__()
-        if input_type != "1d":
+        if input_type not in INPUT_TYPES:
             raise NotImplementedError(f"input_type={input_type!r}")
-        if cls_dim is not None:
-            raise NotImplementedError("cls_dim")
-        if context_dim is not None and context_fusion != "cross":
+        if time_fusion not in TIME_FUSIONS:
+            raise NotImplementedError(f"time_fusion={time_fusion!r}")
+        if context_dim is not None and context_fusion not in CONTEXT_FUSIONS:
             raise NotImplementedError(f"context_fusion={context_fusion!r}")
+        self.concat = context_dim is not None and context_fusion in ("concat", "joint")
+        if self.concat and context_max_length is None:
+            raise ValueError(f"context_fusion={context_fusion!r} needs context_max_length")
         self.out_chans = out_chans or in_chans
         self.skip = skip
         self.use_checkpoint = use_checkpoint
         self.remat_policy = remat_policy
-        self.patch_embed = PatchEmbed1D(patch_size, in_chans, embed_dim)
-        self.x_pe = PEWrapper(pe_method)
+        self.use_adanorm = time_fusion != "token"
+        self.context_max_length = context_max_length
+        self.extras = extras = udit_extras(time_fusion, cls_dim, context_dim, context_fusion,
+                                           context_max_length)
+        if input_type == "2d":
+            H, W = img_size
+            num_patches = (H // patch_size) * (W // patch_size)
+            self.patch_embed = PatchEmbed2D(patch_size, in_chans, embed_dim)
+        else:
+            num_patches = img_size // patch_size
+            self.patch_embed = PatchEmbed1D(patch_size, in_chans, embed_dim)
+        self.x_pe = PEWrapper(pe_method, embed_dim, num_patches)
         self.context_embed = (MLPEmbedder(context_dim, embed_dim)
                               if context_dim is not None else None)
-        self.context_pe = PEWrapper(context_pe_method)
+        self.context_pe = PEWrapper(context_pe_method if context_dim is not None else "none",
+                                    embed_dim, context_max_length)
         self.time_embed = TimestepEmbedder(embed_dim)
-        self.time_ada_final = QuantLinear(embed_dim, 2 * embed_dim)
-        self.time_ada = QuantLinear(embed_dim, 6 * embed_dim)
+        self.cls_embed = (MLPEmbedder(cls_dim, embed_dim, zero_out=self.use_adanorm)
+                          if cls_dim is not None else None)
+        self.time_ada_final = self.time_ada = self.time_pe = None
+        if self.use_adanorm:
+            self.time_ada_final = QuantLinear(embed_dim, 2 * embed_dim)
+            if time_fusion != "ada":
+                self.time_ada = QuantLinear(embed_dim, 6 * embed_dim)
+        else:
+            self.time_pe = PEWrapper("abs", embed_dim, 2 if cls_dim is not None else 1)
 
         def block(with_skip: bool):
             return DiTBlock(
-                embed_dim, num_heads, context_dim=embed_dim if context_dim is not None else None,
+                embed_dim, num_heads,
+                context_dim=embed_dim if context_dim is not None and not self.concat else None,
                 mlp_ratio=mlp_ratio,
                 qkv_bias=qkv_bias, qk_scale=qk_scale, qk_norm=qk_norm,
                 act_layer=act_layer, norm_layer=norm_layer, time_fusion=time_fusion,
                 ada_sola_rank=ada_sola_rank, ada_sola_alpha=ada_sola_alpha,
                 skip=with_skip, skip_norm=skip_norm and with_skip,
-                rope_mode=rope_mode, context_norm=context_norm)
+                rope_mode=rope_mode, context_norm=context_norm, extras=extras)
 
         half = depth // 2
         self.in_blocks = nn.ModuleList([block(False) for _ in range(half)])
         self.mid_block = block(False)
         self.out_blocks = nn.ModuleList([block(skip) for _ in range(half)])
         self.final_block = FinalBlock(embed_dim, patch_size, self.out_chans,
-                                      norm_layer=norm_layer, use_conv=use_conv)
+                                      norm_layer=norm_layer, use_conv=use_conv,
+                                      use_adanorm=self.use_adanorm, input_type=input_type,
+                                      img_size=img_size)
 
-    def forward(self, x, timesteps, context, x_mask=None, context_mask=None,
+    def embed(self, x, timesteps, context, x_mask=None, context_mask=None, cls_token=None):
+        """The tokens entering the first block and the block inputs:
+        ``(x, time_token, time_ada, time_ada_final, context_token, x_mask,
+        context_mask)``.  ``concat``/``joint`` put the embedded context
+        before x (its mask before x's), ``token`` the time token (and the
+        class token) before both."""
+        timesteps = torch.as_tensor(timesteps, device=x.device)
+        if timesteps.ndim == 0:
+            timesteps = timesteps.expand(x.shape[0])
+        x = self.x_pe(self.patch_embed(x))
+        B = x.shape[0]
+        context_token = None
+        if self.context_embed is not None:
+            context_token = self.context_pe(self.context_embed(context))
+            if self.concat:
+                x, x_mask = prefix_context(x, x_mask, context_token, context_mask,
+                                           self.context_max_length)
+                context_token = context_mask = None
+
+        time_token = self.time_embed(timesteps)
+        cls_emb = None
+        if self.cls_embed is not None:
+            if cls_token is None:
+                raise ValueError("a model with cls_dim needs cls_token")
+            cls_emb = self.cls_embed(cls_token)
+        time_ada = time_ada_final = None
+        if self.use_adanorm:
+            if cls_emb is not None:
+                time_token = time_token + cls_emb
+            time_token = F.silu(time_token)
+            time_ada_final = self.time_ada_final(time_token)
+            if self.time_ada is not None:
+                time_ada = self.time_ada(time_token)
+        else:
+            tt = time_token[:, None, :]
+            if cls_emb is not None:
+                tt = torch.cat([tt, cls_emb[:, None, :]], dim=1)
+            tt = self.time_pe(tt)
+            x = torch.cat([tt.to(x.dtype), x], dim=1)
+            if x_mask is not None:
+                x_mask = torch.cat([torch.ones(B, tt.shape[1], dtype=torch.bool,
+                                               device=x.device), x_mask.bool()], dim=1)
+            time_token = None
+        return x, time_token, time_ada, time_ada_final, context_token, x_mask, context_mask
+
+    def forward(self, x, timesteps, context, x_mask=None, context_mask=None, cls_token=None,
                 controlnet_skips=None, deep_cache=None, collect_deep_k=None):
-        """x: (B, T, in_chans); timesteps: (B,) or scalar, a tensor on
-        x's device under CUDA graph capture (a Python number is copied
-        from the host, which capture forbids); context:
-        (B, Lc, context_dim); context_mask: (B, Lc) bool.
+        """x: (B, T, in_chans), or (B, H, W, in_chans) for ``input_type='2d'``;
+        timesteps: (B,) or scalar, a tensor on x's device under CUDA graph
+        capture (a Python number is copied from the host, which capture
+        forbids); context: (B, Lc, context_dim), padded to
+        ``context_max_length`` under ``concat``/``joint``; context_mask:
+        (B, Lc) bool; cls_token: (B, cls_dim) for a model with ``cls_dim``.
 
         Layer caching (1 <= k < depth//2):
 
@@ -127,7 +246,7 @@ class UDiT(nn.Module):
             ``deep`` for the middle of the U, run ``out_blocks[half-k:]``
             and the final block.  Exact at the step that collected ``deep``.
 
-        ``controlnet_skips``: depth//2 tensors (B, L, D) from
+        ``controlnet_skips``: depth//2 tensors (B, extras + L, D) from
         ``DiTControlNet``; they do not combine with ``deep_cache``.
         """
         half = len(self.in_blocks)
@@ -139,16 +258,8 @@ class UDiT(nn.Module):
         for k in (cache_k, collect_deep_k):
             if k is not None and not 1 <= k < half:
                 raise ValueError(f"layer cache k={k} must satisfy 1 <= k < {half}")
-        timesteps = torch.as_tensor(timesteps, device=x.device)
-        if timesteps.ndim == 0:
-            timesteps = timesteps.expand(x.shape[0])
-        x = self.x_pe(self.patch_embed(x))
-        context_token = (self.context_pe(self.context_embed(context))
-                         if self.context_embed is not None else None)
-
-        time_token = F.silu(self.time_embed(timesteps))
-        time_ada_final = self.time_ada_final(time_token)
-        time_ada = self.time_ada(time_token)
+        (x, time_token, time_ada, time_ada_final, context_token, x_mask,
+         context_mask) = self.embed(x, timesteps, context, x_mask, context_mask, cls_token)
 
         args = (time_token, time_ada)
         ctx_args = (context_token, x_mask, context_mask)
@@ -187,5 +298,5 @@ class UDiT(nn.Module):
             x = run(blk, x, skip)
             if collect_deep_k is not None and i == half - collect_deep_k - 1:
                 deep = x
-        out = self.final_block(x, time_ada_final)
+        out = self.final_block(x, time_ada_final, self.extras)
         return (out, deep) if collect_deep_k is not None else out

@@ -38,6 +38,7 @@ from ezaudio_tpu_torch.codecs.discriminator import (Discriminator, discriminator
 from ezaudio_tpu_torch.ops.quant import quant_context
 from ezaudio_tpu_torch.training.optim import Optimizer, TorchAdamW, named_grads
 from ezaudio_tpu_torch.training.trainer import step_seed
+from ezaudio_tpu_torch.utils import deterministic_cudnn
 
 
 def inverse_lr(base_lr: float, inv_gamma: float, power: float,
@@ -65,7 +66,9 @@ def _adamw(module: nn.Module, lr: Callable[[int], float], weight_decay: float) -
 
 class CodecTrainStep:
     """``step(audio, seed, draws=None, return_grads=False) -> metrics``:
-    one generator and one discriminator update.  ``audio`` (B, T, 1)."""
+    one generator and one discriminator update under cuDNN's deterministic
+    algorithms (``utils.deterministic_cudnn``: a restart retakes its steps
+    exactly).  ``audio`` (B, T, 1)."""
 
     def __init__(self, codec: nn.Module, disc: Discriminator, codec_kind: str = "vae",
                  sample_rate: int = 24000, lambda_mrstft: float = 1.0,
@@ -106,7 +109,7 @@ class CodecTrainStep:
         if draws is None:
             gen = torch.Generator(device=audio.device).manual_seed(step_seed(seed, self.step))
         lam = self.lambdas
-        with quant_context("off"):
+        with quant_context("off"), deterministic_cudnn():
             recon, extra, aux = self.reconstruct(audio, gen, draws or {})
             n = min(recon.shape[1], audio.shape[1])
             recon, ref = recon[:, :n], audio[:, :n]

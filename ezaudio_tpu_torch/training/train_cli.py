@@ -40,13 +40,14 @@ compute, f32 parameters and optimizer state).  The ``opt:`` block's
 from __future__ import annotations
 
 import argparse
-import contextlib
 import os
 import time
 from typing import Callable, Optional
 
 import numpy as np
 import torch
+
+from ezaudio_tpu_torch.utils import deterministic_cudnn
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(prog="python -m ezaudio_tpu_torch.training.train_cli")
@@ -128,22 +129,6 @@ def build_models(cfg, device, seed: int, ckpt=None, vae_ckpt=None, t5_config=Non
     autoencoder = AutoencoderFacade(vae, quantization_first=cfg.autoencoder.get("q_first", True))
     tokenizer = get_tokenizer(None, t5_cfg.vocab_size) if t5 is not None else None
     return dit, autoencoder, t5, tokenizer
-
-
-@contextlib.contextmanager
-def deterministic_cudnn():
-    """cuDNN restricted to its deterministic algorithms, as the JAX
-    package's steps are on the TPU: the same inputs give the same
-    gradients in every run, so a restart retakes the steps after its
-    checkpoint exactly.  (cuDNN's default algorithms may sum a conv's
-    gradient in a run-dependent order: on the H100 a bf16 run and its
-    restart parted at the fifth or sixth step.)"""
-    before = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = True
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.deterministic = before
 
 
 def main(argv=None, *, t5_config=None, vae_config=None,

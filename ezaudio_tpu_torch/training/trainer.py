@@ -49,7 +49,7 @@ from ezaudio_tpu_torch.diffusion.ddim import DDIMSchedule
 from ezaudio_tpu_torch.ops.quant import quant_context
 from ezaudio_tpu_torch.training.losses import masked_diffusion_loss
 from ezaudio_tpu_torch.training.optim import Optimizer, global_norm, make_optimizer, named_grads
-from ezaudio_tpu_torch.utils import mixed_precision, scale_shift
+from ezaudio_tpu_torch.utils import deterministic_cudnn, mixed_precision, scale_shift
 
 MAX_TO_KEEP = 5
 STATE_FILE = "state.pt"
@@ -72,7 +72,9 @@ def noised(schedule: DDIMSchedule, latents, noise, t):
 class StepLoop:
     """What every train step shares (this module's, the ControlNet's and
     distillation's): the draws of step ``n`` from a generator seeded from
-    ``(seed, n)`` unless given, quantization off, the loss and the
+    ``(seed, n)`` unless given, quantization off, cuDNN's deterministic
+    algorithms (``utils.deterministic_cudnn``, so a restart retakes its
+    steps exactly), the loss and the
     gradients of ``params`` (in ``model``'s compute ``dtype``, see
     ``utils.mixed_precision``), the optimizer's update, the step counter.
 
@@ -101,7 +103,8 @@ class StepLoop:
             gen = torch.Generator(device=batch["latents"].device).manual_seed(
                 step_seed(seed, self.step))
             draws = self.draw_for(gen, batch)
-        with quant_context("off"), mixed_precision(self.model, self.dtype):
+        with (quant_context("off"), mixed_precision(self.model, self.dtype),
+              deterministic_cudnn()):
             loss = self.loss(batch, draws)
             grads = named_grads(self.params.items(), loss)
         out = {"loss": loss.detach(), **self.update(grads)}

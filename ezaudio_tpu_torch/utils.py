@@ -33,6 +33,24 @@ def randn(shape, generator: Optional[torch.Generator], device, dtype=torch.float
     return x.to(dtype)
 
 
+@contextlib.contextmanager
+def deterministic_cudnn() -> Iterator[None]:
+    """cuDNN restricted to its deterministic algorithms while open, the
+    caller's setting restored after, as the JAX package's steps are on the
+    TPU: the same inputs give the same gradients in every run, so a restart
+    retakes the steps after its checkpoint exactly.  (cuDNN's default
+    algorithms may sum a conv's gradient in a run-dependent order: on the
+    H100 a bf16 run and its restart parted at the fifth or sixth step.)
+    Every train step enters it (``training/trainer.py::StepLoop``,
+    ``training/codec_trainer.py::CodecTrainStep``)."""
+    before = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = before
+
+
 def _cast_in_place(dtype: torch.dtype):
     def cast(module: torch.nn.Module, name: str) -> None:
         if name in module._parameters:
@@ -52,8 +70,9 @@ def cast_params_(module: torch.nn.Module, dtype: torch.dtype,
     f32 parameters (``kernel.astype(dtype)``), which round the same way.
 
     A module with a ``cast_(dtype, cast)`` method casts itself and its
-    children instead: the norms, the VAE snakes, RoPE and T5's position
-    bias keep f32 where the JAX package computes with its f32 parameters,
+    children instead: the norms, the VAE and feed-forward snakes, RoPE, the
+    positional embeddings and T5's position bias keep f32 where the JAX
+    package computes with its f32 parameters,
     and ``QuantLinear`` quantizes its int8 weight from the f32 weight first.
 
     With ``cast``, ``cast(module, name)`` is called for each parameter or

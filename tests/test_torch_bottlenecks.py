@@ -54,7 +54,8 @@ def test_rvq_bottleneck_matches_jax(rng):
     jm = jb.RVQBottleneck(**kw)
     x = rng.standard_normal((2, 10, 8)).astype(np.float32)
     enc = lambda m, v: m.encode(v)  # noqa: E731
-    params = jax.device_get(jm.init(jax.random.PRNGKey(0), jnp.asarray(x), method=enc))
+    params = jax.device_get(jax.jit(lambda k, v: jm.init(k, v, method=enc))(
+        jax.random.PRNGKey(0), jnp.asarray(x)))
     zq, info = jm.apply(params, jnp.asarray(x), method=enc)
     m = tb.RVQBottleneck(**kw)
     m.rvq.load_state_dict(rvq_state_dict_from_jax(params["params"]["rvq"]), strict=True)

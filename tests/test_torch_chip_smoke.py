@@ -923,3 +923,46 @@ def test_codec_limits_catch_a_detached_residual_unit(monkeypatch):
     with pytest.raises(AssertionError, match="zero weight-norm gradients"):
         cs.codec_train_path("cpu", TINY_VAE, batch=2, samples=1024, steps=1, sr=8000,
                             disc_kw=TINY_DISC, step_kw=TINY_STEP)
+
+
+def test_variant_phase_rehearses_on_cpu(monkeypatch):
+    """Phase 31 at a tiny width on the CPU: config (a) staged, fused and
+    bf16, config (c), every launch counted and every attention shape
+    checked; (d)'s card-against-CPU comparisons (the CPU against itself);
+    and phase 30 (a)'s codec restart, bit-equal."""
+    import chip_smoke as cs
+    import ezaudio_tpu_torch.ops.kernels.attention as ka
+    import ezaudio_tpu_torch.ops.kernels.resunit as kr
+
+    monkeypatch.setattr(ka, "attention_plain", counted(ka.attention_plain, ka.fused_attention))
+    monkeypatch.setattr(kr, "residual_unit_plain",
+                        counted(kr.residual_unit_plain, kr.fused_residual_unit))
+    full = cs.variant_config
+
+    def tiny(depth=None, **switches):
+        cfg = full(**switches)
+        cfg["model"].update(embed_dim=32, depth=depth or 2, num_heads=4, context_dim=16)
+        cfg["text_encoder"].update(model="tiny", max_length=7)
+        cfg["model"]["context_max_length"] = 7
+        return cfg
+
+    monkeypatch.setattr(cs, "variant_config", tiny)
+    monkeypatch.setattr(cs, "SWITCH_FRAMES", 12)
+    monkeypatch.setattr(cs, "VARIANT_STEPS", 10)
+    cases = [(2, 4, 12, 12, 8, "concat"), (2, 4, 13, 13, 8, "concat")]
+    assert cs.uncovered_attention({(12, 12, 8, True), (13, 13, 8, False)}, cases) == [
+        (13, 13, 8, False)]
+    rows = cs.variant_paths("cpu", reps=2, length=0.1, attn_cases=cases)
+    counts = {r["path"]: [r["attention_launches"], r["resunit_launches"]] for r in rows}
+    # 3 blocks a call, one self-attention each, 10 calls; 12 units a decode
+    assert counts == {"variant[1]": [30, 12], "variant[4]": [30, 12],
+                      "variant_fused[1]": [90, 36], "variant_bf16[1]": [30, 12],
+                      "variant_token[1]": [30, 12]}
+    assert rows[-2]["launches_by_dtype"] == {"attention.bfloat16": 30,
+                                             "resunit.bfloat16": 12}
+    rows = cs.variant_card_vs_cpu(torch.Generator().manual_seed(0), dev="cpu")
+    assert len(rows) == 1 + len(cs.SWITCH_CASES) + 3 + 1
+    assert all(r.get("max_abs_err", 0.0) == 0.0 for r in rows[:-1])
+    row = cs.codec_restart("cpu", widths=TINY_VAE, batch=2, samples=960, steps=2,
+                           disc_kw=TINY_DISC, step_kw=TINY_STEP)
+    assert row["tensors_differ"] == [] and row["losses_resumed"] == row["losses_straight"]

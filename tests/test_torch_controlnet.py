@@ -149,8 +149,9 @@ class TestModulesAgainstJax:
             mask = np.zeros((2, 200, 1), bool)
             mask[:, 40:90] = True
         jembed = JaxEmbed(in_chans=1, out_chans=64, blocks=(8, 16), cond_mask=True)
-        want = jembed.apply({"params": jcn.cn_params["params"]["controlnet_pre"]},
-                            jnp.asarray(cond), None if mask is None else jnp.asarray(mask))
+        want = jax.jit(jembed.apply)({"params": jcn.cn_params["params"]["controlnet_pre"]},
+                                     jnp.asarray(cond),
+                                     None if mask is None else jnp.asarray(mask))
         with torch.no_grad():
             got = cn.controlnet.controlnet_pre(
                 torch.from_numpy(cond), None if mask is None else torch.from_numpy(mask))
@@ -162,9 +163,9 @@ class TestModulesAgainstJax:
         0.7 on carried non-zero weights: atol 1e-5."""
         jcn, cn = pair
         x, t, ctx, cmask, cond = _inputs(rng)
-        want = jcn.controlnet.apply(jcn.cn_params, jnp.asarray(x), jnp.asarray(t),
-                                    jnp.asarray(ctx), context_mask=jnp.asarray(cmask),
-                                    condition=jnp.asarray(cond), conditioning_scale=0.7)
+        want = jax.jit(functools.partial(jcn.controlnet.apply, conditioning_scale=0.7))(
+            jcn.cn_params, jnp.asarray(x), jnp.asarray(t), jnp.asarray(ctx),
+            context_mask=jnp.asarray(cmask), condition=jnp.asarray(cond))
         with torch.no_grad():
             got = cn.controlnet(torch.from_numpy(x), torch.from_numpy(t),
                                 torch.from_numpy(ctx), context_mask=torch.from_numpy(cmask),
@@ -185,13 +186,14 @@ class TestModulesAgainstJax:
         lat = rng.standard_normal((2, 100, 8)).astype(np.float32)
         _, t, ctx, cmask, cond = _inputs(rng)
         jkw = dict(context_mask=jnp.asarray(cmask))
-        jconcat, _ = jez.dit.apply(jez.dit_params, jnp.asarray(lat), jnp.asarray(t),
-                                   jnp.asarray(ctx), forward_model=False, **jkw)
-        jskips = jcn.controlnet.apply(jcn.cn_params, jconcat, jnp.asarray(t),
-                                      jnp.asarray(ctx), condition=jnp.asarray(cond), **jkw)
-        want = jez.dit.apply(jez.dit_params, jconcat, jnp.asarray(t), jnp.asarray(ctx),
-                             controlnet_skips=jskips, method=JaxMaskDiT.forward_backbone,
-                             **jkw)
+        jconcat, _ = jax.jit(functools.partial(jez.dit.apply, forward_model=False))(
+            jez.dit_params, jnp.asarray(lat), jnp.asarray(t), jnp.asarray(ctx), **jkw)
+        jskips = jax.jit(jcn.controlnet.apply)(jcn.cn_params, jconcat, jnp.asarray(t),
+                                               jnp.asarray(ctx), condition=jnp.asarray(cond),
+                                               **jkw)
+        want = jax.jit(functools.partial(jez.dit.apply, method=JaxMaskDiT.forward_backbone))(
+            jez.dit_params, jconcat, jnp.asarray(t), jnp.asarray(ctx),
+            controlnet_skips=jskips, **jkw)
         kw = dict(context_mask=torch.from_numpy(cmask))
         tt, tctx = torch.from_numpy(t), torch.from_numpy(ctx)
         with torch.no_grad():

@@ -12,9 +12,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from flax import linen as nn
 
 from ezaudio_tpu_torch import utils
 from ezaudio_tpu_torch.convert.from_jax import fold_weight_norm, vae_state_dict_from_jax
+from tests.test_torch_controlnet import _seeded_init
 from tests.test_torch_modules import _np_tree
 
 FIXTURES = os.path.join(os.path.dirname(__file__), "fixtures")
@@ -177,7 +179,11 @@ def tiny_pair():
     from tests.tiny_config import (TINY_CONFIG, TINY_T5, TINY_VAE_CONFIG,
                                    make_tiny_ezaudio)
 
-    jez = make_tiny_ezaudio()
+    # every leaf drawn from a seed by shape alone (flax's own init runs the
+    # model op by op: ~30 s on one core); none is zero (ROADMAP F6)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(nn.Module, "init", _seeded_init(np.random.default_rng(12)))
+        jez = make_tiny_ezaudio()
     rng = np.random.default_rng(12)
     jez.dit_params = {"params": _np_tree(jez.dit_params["params"], rng)}
     jez.t5_params = _np_tree(jez.t5_params, rng)

@@ -44,6 +44,16 @@ def _np_tree(tree, rng=None):
     return jax.tree.map(leaf, jax.device_get(tree))
 
 
+def seeded_params(module, rng, *args):
+    """``module``'s parameters drawn from ``rng`` by shape alone
+    (``tests/test_torch_controlnet.py::_seeded_init``; flax's own init runs
+    the model op by op), every leaf non-zero (ROADMAP F6)."""
+    from tests.test_torch_controlnet import _seeded_init
+
+    return _seeded_init(rng)(module, {"params": jax.random.PRNGKey(0),
+                                      "mask": jax.random.PRNGKey(1)}, *args)
+
+
 class TestPrimitives:
     def test_norms_rope_timestep(self, rng):
         from ezaudio_tpu.ops.embeddings import timestep_embedding as jax_te
@@ -103,9 +113,9 @@ class TestT5:
         ids = rng.integers(2, TINY_T5.vocab_size, (2, 12)).astype(np.int32)
         mask = np.ones((2, 12), bool)
         mask[0, 7:] = False
-        params = _np_tree(jmodel.init(jax.random.PRNGKey(0), jnp.asarray(ids),
-                                      jnp.asarray(mask))["params"])
-        want = jmodel.apply({"params": params}, jnp.asarray(ids), jnp.asarray(mask))
+        params = _np_tree(jax.jit(jmodel.init)(jax.random.PRNGKey(0), jnp.asarray(ids),
+                                               jnp.asarray(mask))["params"])
+        want = jax.jit(jmodel.apply)({"params": params}, jnp.asarray(ids), jnp.asarray(mask))
 
         model = T5Encoder(T5EncoderConfig(**dataclasses.asdict(TINY_T5))).eval()
         model.load_state_dict(t5_state_dict_from_jax(params, TINY_T5.num_layers))
@@ -122,10 +132,8 @@ class TestMaskDiT:
         from tests.test_dit import TINY_MODEL
 
         jmodel = jax_maskdit(TINY_MODEL)
-        params = jmodel.init({"params": jax.random.PRNGKey(0), "mask": jax.random.PRNGKey(1)},
-                             jnp.zeros((1, 32, 8)), jnp.zeros((1,), jnp.int32),
-                             jnp.zeros((1, 5, 24)))
-        params = {"params": _np_tree(params["params"], np.random.default_rng(7))}
+        params = seeded_params(jmodel, np.random.default_rng(7), jnp.zeros((1, 32, 8)),
+                               jnp.zeros((1,), jnp.int32), jnp.zeros((1, 5, 24)))
         model = maskdit_from_config(TINY_MODEL).eval()
         model.load_state_dict(maskdit_state_dict_from_jax(params["params"], TINY_MODEL))
         return jmodel, params, model
@@ -145,8 +153,9 @@ class TestMaskDiT:
             gmask[:, 8:16] = True
             kw_j = dict(gt=jnp.asarray(gt), mae_mask_infer=jnp.asarray(gmask))
             kw_t = dict(gt=torch.from_numpy(gt), mae_mask_infer=torch.from_numpy(gmask))
-        want, _ = jmodel.apply(params, jnp.asarray(x), jnp.asarray(t), jnp.asarray(ctx),
-                               context_mask=jnp.asarray(cmask), **kw_j)
+        want, _ = jax.jit(jmodel.apply)(params, jnp.asarray(x), jnp.asarray(t),
+                                        jnp.asarray(ctx), context_mask=jnp.asarray(cmask),
+                                        **kw_j)
         with torch.no_grad():
             got, _ = model(torch.from_numpy(x), torch.from_numpy(t), torch.from_numpy(ctx),
                            context_mask=torch.from_numpy(cmask), **kw_t)
@@ -184,8 +193,9 @@ class TestVAEDecode:
         from ezaudio_tpu_torch.codecs.oobleck_fast import decode_fused
 
         jvae = JaxVAE(channels=8, latent_dim=4, c_mults=(1, 2), strides=(2, 3))
-        params = jvae.init({"params": jax.random.PRNGKey(0), "sample": jax.random.PRNGKey(1)},
-                           jnp.zeros((1, 24, 1)))["params"]
+        params = jax.jit(jvae.init)({"params": jax.random.PRNGKey(0),
+                                     "sample": jax.random.PRNGKey(1)},
+                                    jnp.zeros((1, 24, 1)))["params"]
         params = _np_tree(params, np.random.default_rng(3))
         z = rng.standard_normal((2, 40, 4)).astype(np.float32)
         want = decode_fused_for(jvae, params, jnp.asarray(z))

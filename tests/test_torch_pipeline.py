@@ -11,6 +11,7 @@ import sys
 import numpy as np
 import pytest
 import torch
+from flax import linen as nn
 
 from ezaudio_tpu_torch.api.ezaudio import EzAudio
 from ezaudio_tpu_torch.convert.from_jax import (fold_weight_norm,
@@ -18,6 +19,7 @@ from ezaudio_tpu_torch.convert.from_jax import (fold_weight_norm,
                                                 t5_state_dict_from_jax,
                                                 vae_state_dict_from_jax)
 from ezaudio_tpu_torch.text.t5 import T5EncoderConfig, t5_state_dict_from_hf
+from tests.test_torch_controlnet import _seeded_init
 from tests.test_torch_modules import _np_tree
 
 FIXTURES = os.path.join(os.path.dirname(__file__), "fixtures")
@@ -39,7 +41,11 @@ def tiny_pair():
     from tests.tiny_config import (TINY_CONFIG, TINY_T5, TINY_VAE_CONFIG,
                                    make_tiny_ezaudio)
 
-    jez = make_tiny_ezaudio()
+    # every leaf drawn from a seed by shape alone (flax's own init runs the
+    # model op by op: ~30 s on one core); none is zero (ROADMAP F6)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(nn.Module, "init", _seeded_init(np.random.default_rng(11)))
+        jez = make_tiny_ezaudio()
     rng = np.random.default_rng(11)
     jez.dit_params = {"params": _np_tree(jez.dit_params["params"], rng)}
     jez.t5_params = _np_tree(jez.t5_params, rng)

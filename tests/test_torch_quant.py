@@ -15,7 +15,7 @@ import ezaudio_tpu_torch.ops.quant as qm
 from ezaudio_tpu_torch.convert.from_jax import maskdit_state_dict_from_jax
 from ezaudio_tpu_torch.ops.quant import (QuantLinear, current_quant_mode, int8_dot,
                                          int8_matmul, quant_context, quantize_symmetric)
-from tests.test_torch_modules import _np_tree
+from tests.test_torch_modules import seeded_params
 
 
 @pytest.fixture(autouse=True)
@@ -145,10 +145,8 @@ class TestAgainstJax:
         monkeypatch.setattr(jax_qm, "MIN_QUANT_ELEMENTS", 0)
         monkeypatch.setattr(qm, "MIN_QUANT_ELEMENTS", 0)
         jmodel = jax_maskdit(TINY_MODEL)
-        params = jmodel.init({"params": jax.random.PRNGKey(0), "mask": jax.random.PRNGKey(1)},
-                             jnp.zeros((1, 32, 8)), jnp.zeros((1,), jnp.int32),
-                             jnp.zeros((1, 5, 24)))
-        params = {"params": _np_tree(params["params"], np.random.default_rng(7))}
+        params = seeded_params(jmodel, np.random.default_rng(7), jnp.zeros((1, 32, 8)),
+                               jnp.zeros((1,), jnp.int32), jnp.zeros((1, 5, 24)))
         model = maskdit_from_config(TINY_MODEL).eval()
         model.load_state_dict(maskdit_state_dict_from_jax(params["params"], TINY_MODEL))
         x, ctx = _randn(1, 2, 32, 8), _randn(2, 2, 5, 24)

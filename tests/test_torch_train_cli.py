@@ -252,3 +252,76 @@ def test_default_directories_stay_under_the_working_directory(tmp_path, monkeypa
         assert not os.path.isabs(d)
         assert os.path.commonpath([os.path.abspath(d), str(tmp_path)]) == str(tmp_path), d
     assert os.path.abspath(args.log_dir) != os.path.abspath(args.save_dir)
+
+
+class _Stop(Exception):
+    pass
+
+
+@pytest.mark.parametrize("setting", [False, True])
+def test_every_train_step_runs_with_deterministic_cudnn(setting, monkeypatch):
+    """A step object driven directly (not through ``main``) holds cuDNN to
+    its deterministic algorithms while it computes, and puts the caller's
+    setting back after, also when the step raises: ``StepLoop`` (the DiT,
+    ControlNet and distillation steps share its ``__call__``) and
+    ``CodecTrainStep``.  The CPU has no cuDNN, so probes read the flag."""
+    from ezaudio_tpu_torch.diffusion.distill import DistillStep
+    from ezaudio_tpu_torch.training.codec_trainer import CodecTrainStep
+    from ezaudio_tpu_torch.training.controlnet_trainer import ControlNetTrainStep
+    from ezaudio_tpu_torch.training.trainer import StepLoop, TrainStep
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", setting)
+    for cls in (TrainStep, ControlNetTrainStep, DistillStep):
+        assert cls.__call__ is StepLoop.__call__, cls
+    seen = []
+
+    class Probe(StepLoop):
+        step = 0
+        params = {"p": torch.ones(1, requires_grad=True)}
+        optimizer = type("Opt", (), {"update": lambda self, grads, gnorm: None})()
+
+        def draw(self, generator, batch):
+            return {}
+
+        def loss(self, batch, draws):
+            seen.append(torch.backends.cudnn.deterministic)
+            return (self.params["p"] ** 2).sum()
+
+    Probe()({"latents": torch.zeros(1)}, seed=0)
+    assert seen == [True] and torch.backends.cudnn.deterministic is setting
+
+    def reconstruct(self, audio, generator, draws):
+        seen.append(torch.backends.cudnn.deterministic)
+        raise _Stop
+
+    codec_step = CodecTrainStep.__new__(CodecTrainStep)
+    codec_step.step, codec_step.lambdas = 0, {}
+    monkeypatch.setattr(CodecTrainStep, "reconstruct", reconstruct)
+    with pytest.raises(_Stop):
+        codec_step(torch.zeros(1, 8, 1), seed=0)
+    assert seen == [True, True] and torch.backends.cudnn.deterministic is setting
+
+
+@pytest.mark.parametrize("n_fft", [32, 512, 2048])
+def test_deterministic_stft_and_reflect_pad_equal_torch(n_fft):
+    """The codec step's STFT and reflection pads, written so that their
+    gradients sum the same way in every run (``audio/stft.py``), are
+    ``torch.stft`` (centre reflect padding) and ``F.pad(mode="reflect")``
+    bit for bit, and their gradients too (float64)."""
+    import torch.nn.functional as F
+
+    from ezaudio_tpu_torch.audio.stft import hann_window, reflect_pad, stft
+
+    x = torch.randn(2, 4800, dtype=torch.float64, generator=torch.Generator().manual_seed(1))
+    win = torch.from_numpy(hann_window(n_fft)).double()
+    a, b = (x.clone().requires_grad_() for _ in range(2))
+    got = stft(a, n_fft, n_fft // 4)
+    want = torch.stft(b, n_fft, n_fft // 4, n_fft, win, center=True, pad_mode="reflect",
+                      return_complex=True)
+    assert torch.equal(got, want)
+    got.abs().sum().backward()
+    want.abs().sum().backward()
+    torch.testing.assert_close(a.grad, b.grad, rtol=1e-12, atol=1e-12)
+    y = x[:, None, :37]
+    for left, right in ((0, 5), (4, 3), (0, 0)):
+        assert torch.equal(reflect_pad(y, left, right), F.pad(y, (left, right), mode="reflect"))
