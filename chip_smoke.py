@@ -24,7 +24,7 @@ Phases, each fatal on failure:
      (CFG 3.5, rescale 0, 100 steps, eta 1) on a seeded 10 s clip, mask
      [4 s, 7 s), boundary 2 s (clamped to half the mask: a 6 s window);
   7. long generation: ``generate_long(length=20, window=10, overlap=2)``,
-     one generate and two outpainting edits;
+     one generate and two outpainting edits, 25 DDIM steps each (``CUT_*``);
   8. the fast samplers, 10 s, 1 prompt: DPM-Solver++ at 25 steps; DPM +
      ``layer_cache=(2, 2)`` + ``guidance_interval`` + ``cfg_refresh=2`` at 25;
      DDIM + ``layer_cache=(2, 2)`` at 100; ``sampler='distilled'`` at 8;
@@ -33,14 +33,14 @@ Phases, each fatal on failure:
      eta 0, and DPM + ``layer_cache`` + ``guidance_interval`` + ``cfg_refresh``;
  10. ``fused=True`` at phase 4's recipe for 1 and 4 prompts on the same
      EzAudio: the first call (eager warm-up, CUDA graph capture and
-     instantiation, one replay), then two replays; the waveform must equal
+     instantiation, one replay), then one replay; the waveform must equal
      phase 4's within FUSED_TOL and each replay must launch the kernels as
      often as a staged call does;
- 11. ``quant="int8"``, 1 prompt, 100 steps, staged and fused: every
+ 11. ``quant="int8"``, 1 prompt, 25 steps, staged and fused: every
      (M, K, N) of the int8 products the DiT gave, ``int8_dot`` on the card
      against its plain version on the CPU (bit-equal), the staged launches
-     equal to the f32 path's, fused int8 equal to staged int8;
- 12. a ``GenerationServer`` (DPM 25 steps, batches of up to 4, length
+     those of an f32 call, fused int8 equal to staged int8;
+ 12. a ``GenerationServer`` (DPM 10 steps, batches of up to 4, length
      buckets 5 s and 10 s): four 10 s and two 4 s requests and phase 6's
      edit; fewer generate batches than generate requests, two served
      waveforms against their solo calls and the edit against the direct
@@ -56,12 +56,12 @@ Phases, each fatal on failure:
  14. the ControlNet path on the card against the CPU on the same weights
      and draws: energy config at full width, depth 4, a 1 s clip, 3 steps,
      eta 0;
- 15. a ``GenerationServer(cn.base, controlnet=cn)`` (DPM 25): two 10 s
+ 15. a ``GenerationServer(cn.base, controlnet=cn)`` (DPM 10): two 10 s
      generate requests and one ControlNet request; one ControlNet request
      counted and its waveform equal to the direct call within FUSED_TOL;
  16. s3_l in bf16: ``EzAudio("s3_l", dtype=torch.bfloat16)`` on phase 4's
      seeded weights, ``generate_audio`` at its defaults for 1 and 4 prompts
-     and ``fused=True`` for 1 (first call and two replays, equal to staged
+     and ``fused=True`` for 1 (first call and one replay, equal to staged
      within FUSED_TOL); every launch a bf16 launch; the distance and
      correlation of each waveform to phase 4's f32 one are printed, not
      checked;
@@ -88,7 +88,7 @@ Phases, each fatal on failure:
      the scoring timed alone; the candidates scored again by the CPU scorer:
      embeddings within CLAP_EMBED_ATOL, the same choice unless the CPU's
      top two are within CLAP_TIE;
- 21. a ``GenerationServer(ez, clap_scorer=)`` (DPM 25, ``fused=True`` in its
+ 21. a ``GenerationServer(ez, clap_scorer=)`` (DPM 10, ``fused=True`` in its
      recipe): one ``submit_reranked`` (run staged) and one plain request;
      the rerank equal to the direct call by phase 12's rule, one rerank
      request counted;
@@ -175,8 +175,8 @@ Phases, each fatal on failure:
      the reference golden's switch set, concat context of 100 T5 tokens,
      so every block runs one masked self-attention over 600 tokens): (a)
      ``EzAudio(config=variant_config())`` in f32 at the reference recipe,
-     1 prompt (3 times, the median wall) and 4, then ``fused=True`` (equal
-     to staged within FUSED_TOL); (b) the same in bf16, every launch bf16;
+     1 prompt and 4, then ``fused=True`` (a first call and one replay,
+     equal to staged within FUSED_TOL); (b) the same in bf16, every launch bf16;
      (c) ``TOKEN_SWITCHES`` (a time token: 601 tokens, dual RoPE, gated
      snake); kernel 1 25 x 100 launches a call, kernel 2 12 a decode, every
      attention shape among phase 3's; (d) card against CPU at depth 2:
@@ -185,8 +185,25 @@ Phases, each fatal on failure:
      activation), ``DiTControlNet`` with concat context, ``CFGModel`` and
      ``ConcatModel``, and one span-masked train step of config (a) (kernel
      1's masked self-attention backward);
- 32. the launches of each path, a ``{"kernels": [...]}`` line (launches
-     summed over the paths of phases 4-8, 10-13, 15, 16, 19-21, 24, 26-31),
+ 32. the port's demos and audio toolkit (``toolkit_paths``): (a)
+     ``python -m ezaudio_tpu_torch.demo t2a`` and ``... controlnet --ref``
+     (a seeded 10 s burst clip) at their defaults through ``demo.main``,
+     each building its model (s3_l; energy) on the card by default: 5 000
+     / 12 and 3 700 / 12 launches; (b) ``AudioSignal`` on the t2a wav:
+     load, resample, loudness, normalize, ``stft``/``mel_spectrogram``/
+     ``mfcc`` card against CPU (``SIGNAL_*``), the write/load round trip;
+     (c) an ``AudioDataset`` over 16 seeded 10 s wavs and a ``create_csv``
+     manifest with a ``Compose`` of every transform (``toolkit_compose``),
+     batches of 8 on the card (wall per batch) against the CPU (``DATA_*``),
+     ``istft`` twice on the card bit-equal; (d) ``stoi``, ``pesq`` and
+     ``visqol_nsim`` of the t2a clip against its band-limited and MNRU
+     versions, in range; (e) ``WhisperTranscriber`` at whisper-base width
+     on seeded weights: features, embeddings and 64-token ``transcribe``
+     at batch 1 and 4 (median of 3, peak), card against CPU
+     (``WHISPER_*``, ids by the near-tie rule); none of it imports pandas,
+     matplotlib, IPython or transformers;
+ 33. the launches of each path, a ``{"kernels": [...]}`` line (launches
+     summed over the paths of phases 4-8, 10-13, 15, 16, 19-21, 24, 26-32),
      the card's name and power limit, and last ``{"ok": true,
      "device": {...}}``.
 
@@ -194,7 +211,7 @@ Phase 3 also holds kernel 1 at phase 31's masked self-attention shapes,
 phase 23 its backward there (batch 8); phase 30 (a) also restarts the
 codec step from a checkpoint, bit-equal to the straight run (ROADMAP F14).
 
-Every path of phases 4, 6-8, 11-13, 15, 16, 19-21, 24, 26-31 is driven with the launch
+Every path of phases 4, 6-8, 11-13, 15, 16, 19-21, 24, 26-32 is driven with the launch
 counters set to 0 just before it and read just after, and must launch each
 kernel exactly as often as its model calls and decodes imply; the bf16
 paths count every launch by dtype (``launches_by_dtype``), so a path that
@@ -269,6 +286,19 @@ MEM_SLACK_GIB = 0.1
 # ContentVec features, card against CPU in f32: within this share of the
 # CPU output's range
 VC_REL_TOL = 1e-4
+
+
+# Depth cut from earlier card-only paths so that the whole run stays within
+# 600 s with phase 32 (PERF.md section 4, "cut:"): fused replays after the
+# first call (phases 10, 16, 31; 2 before), DDIM steps of the int8 calls
+# (phase 11; 100 before) and of generate_long's windows (phase 7; 100
+# before), DPM steps of the servers (phases 12, 15, 21; 25 before), and
+# phase 31 (a)'s 1-prompt call run once (3 before).  The shapes each
+# kernel sees, and every check, are unchanged.
+CUT_REPLAYS = 1
+CUT_INT8_STEPS = 25
+CUT_LONG_STEPS = 25
+CUT_SERVED_STEPS = 10
 
 
 def log(msg: str) -> None:
@@ -972,10 +1002,12 @@ def check_int8(dev, gen, shapes):
     return rows
 
 
-def int8_paths(ez, gen, f32_row, length=10.0):
-    """Phase 11: ``quant='int8'`` at the main path's recipe, 1 prompt,
-    staged (launches as the f32 path's) and fused (equal to staged), and
-    ``int8_dot`` against its plain version at every shape of the run."""
+def int8_paths(ez, gen, f32_row=None, length=10.0, steps=100):
+    """Phase 11: ``quant='int8'`` at the main path's recipe with ``steps``
+    DDIM steps, 1 prompt, staged (launches as an f32 call's) and fused
+    (equal to staged), and ``int8_dot`` against its plain version at every
+    shape of the run; the distance to ``f32_row`` (an f32 call of the same
+    recipe) printed when given."""
     import numpy as np
 
     from ezaudio_tpu_torch.codecs.oobleck import ResidualUnit
@@ -987,22 +1019,24 @@ def int8_paths(ez, gen, f32_row, length=10.0):
 
     def call(**kw):
         return ez.generate_audio(PROMPTS[:1], length=length, random_seed=1234,
-                                 quant="int8", **kw)[1]
+                                 quant="int8", ddim_steps=steps, **kw)[1]
 
     with int8_shapes(shapes):
-        row = run_path("int8[1]", ez.device, call, 2 * (depth + 1) * 100, want_res,
+        row = run_path("int8[1]", ez.device, call, want_attention(depth, steps), want_res,
                        length, n_samples)
-    f32 = f32_row["wav"]
-    row.update(int8_shapes=sorted(shapes),
-               vs_f32_max_abs=float(np.abs(row["wav"] - f32).max()),
-               vs_f32_corr=float(np.corrcoef(row["wav"].ravel(), f32.ravel())[0, 1]))
+    row.update(int8_shapes=sorted(shapes))
+    if f32_row is not None:
+        f32 = f32_row["wav"]
+        row.update(vs_f32_max_abs=float(np.abs(row["wav"] - f32).max()),
+                   vs_f32_corr=float(np.corrcoef(row["wav"].ravel(), f32.ravel())[0, 1]))
     log("int8[1] shapes " + json.dumps({k: row[k] for k in
-                                        ("int8_shapes", "vs_f32_max_abs", "vs_f32_corr")}))
+                                        ("int8_shapes", "vs_f32_max_abs", "vs_f32_corr")
+                                        if k in row}))
     if not any(m <= 16 for m, _, _ in shapes):
         raise AssertionError("int8: no product with 16 rows or fewer (the time MLPs)")
     int8_rows = check_int8(ez.device, gen, shapes)
-    fused = fused_run("fused_int8[1]", ez, lambda: call(fused=True), 2 * (depth + 1) * 100,
-                      want_res, length, 1, row["wav"])
+    fused = fused_run("fused_int8[1]", ez, lambda: call(fused=True),
+                      want_attention(depth, steps), want_res, length, 1, row["wav"])
     return [row, fused], int8_rows
 
 
@@ -3869,9 +3903,11 @@ def variant_run(name, ez, n, reps=1, dtype=None, length=10.0):
             for _ in range(reps)]
 
 
-def variant_paths(dev="cuda", before=None, reps=3, length=10.0, attn_cases=ATTN_CASES):
+def variant_paths(dev="cuda", before=None, reps=3, length=10.0, attn_cases=ATTN_CASES,
+                  replays=2):
     """Phase 31 (a)-(c): config (a) in f32 for 1 prompt (``reps`` times)
-    and 4, then ``fused=True`` for 1 (equal to staged within FUSED_TOL);
+    and 4, then ``fused=True`` for 1 (first call and ``replays`` replays,
+    equal to staged within FUSED_TOL);
     (b) config (a) in bf16, 1 prompt, every launch bf16; (c) config (a)
     with TOKEN_SWITCHES, 1 prompt.  Kernel 1 launches 25 x 100 a call,
     kernel 2 12 a decode; every attention shape among phase 3's."""
@@ -3892,7 +3928,7 @@ def variant_paths(dev="cuda", before=None, reps=3, length=10.0, attn_cases=ATTN_
                                                     random_seed=1234, fused=True,
                                                     ddim_steps=VARIANT_STEPS)[1],
                           attention_modules(ez.params_cfg.model.to_dict()) * VARIANT_STEPS,
-                          want_res, length, 2, one[0]["wav"])
+                          want_res, length, replays, one[0]["wav"])
         rows += one + four + [fused]
         summary = dict(card=card_line() if torch.device(dev).type == "cuda" else "cpu",
                        wall_s_1=statistics.median(r["wall_s"] for r in one),
@@ -4107,6 +4143,368 @@ def codec_restart(dev="cuda", widths=VAE_WIDTHS, batch=CODEC_BATCH, samples=CODE
     return row
 
 
+# ---------------------------------------------------------------------------
+# Phase 32: the demos, AudioSignal, the data path, the quality metrics and
+# Whisper.  The card against the CPU:
+#   * AudioSignal's stft and mel spectrogram: the f32 FFTs sum in another
+#     order, ~1e-6 of the spectrum's largest magnitude; within
+#     SIGNAL_SPEC_TOL of it.  MFCC takes the log of the mel + 1e-6, which
+#     magnifies the error of the quietest bands: within SIGNAL_MFCC_TOL of
+#     the largest coefficient;
+#   * the transform batch: each item within DATA_MAX_TOL of its largest
+#     magnitude everywhere and within DATA_L2_TOL in relative L2.  The
+#     thresholded transforms decide each bin by its dB level: a bin within
+#     rounding of the threshold lands on either side, and the spectral
+#     gate smooths its mask over 7 x 11 bins, so one flipped bin moves 77
+#     bins of the output.  On the CPU, a 1e-7 relative perturbation of every
+#     STFT bin moves a 10 s item by up to 4.3e-4 of its scale (8.1e-5 in
+#     L2) through SpectralDenoising alone, and cuFFT and pocketfft
+#     differ by more in the quiet bins: an H100 reads 1.5e-3 and 5.2e-4
+#     (PERF.md section 6).  The limits leave 5-10x that; a fault (a transposed or
+#     unscaled spectrum, a lost mask) moves an item by O(1);
+#   * Whisper's features and embeddings within WHISPER_REL_TOL of their
+#     largest magnitude (f32, TF32 off); the greedy ids equal up to the
+#     first position where the CPU's logit of the card's id is within
+#     WHISPER_TIE of its top logit (a near tie, as ``near_tie_codes`` is
+#     for DAC's codes), compared no further along that row.
+SIGNAL_SPEC_TOL = 1e-5
+SIGNAL_MFCC_TOL = 1e-4
+DATA_MAX_TOL = 1e-2
+DATA_L2_TOL = 5e-3
+WHISPER_REL_TOL = 1e-4
+WHISPER_TIE = 1e-3
+# modules the toolkit's paths must not import (the card's machine has none)
+TOOLKIT_FORBIDDEN = ("pandas", "matplotlib", "IPython", "transformers")
+
+
+def vae_units(vae_config=None) -> int:
+    """ResidualUnits of one VAE decode: 3 per decoder block."""
+    from ezaudio_tpu_torch.config import MODEL_REGISTRY, load_config
+
+    cfg = vae_config or load_config(MODEL_REGISTRY["vae"]["config"]).to_dict()
+    return 3 * len(cfg["model"]["decoder"]["config"]["c_mults"])
+
+
+def demo_paths(root, extra_argv=(), t2a_kw=None, cn_kw=None, clip_s=10.0):
+    """Phase 32 (a): ``python -m ezaudio_tpu_torch.demo t2a`` and
+    ``... controlnet --ref <a seeded burst clip>`` at their defaults
+    (through ``demo.main``; CUDA by default), each building its model from
+    scratch; each wall includes the build.  ``extra_argv`` is added to both
+    command lines; the launches expected follow the steps they parse to.
+    ``t2a_kw``/``cn_kw`` are the configs ``demo.main`` takes (tiny ones in
+    the CPU rehearsal)."""
+    import torch
+
+    from ezaudio_tpu_torch import demo
+    from ezaudio_tpu_torch.config import get_model_config
+    from ezaudio_tpu_torch.data.audio_io import load_wav, save_wav
+
+    t2a_kw, cn_kw = t2a_kw or {}, cn_kw or {}
+    rows = []
+    for name, sub, kw in (("demo_t2a", "t2a", t2a_kw), ("demo_controlnet", "controlnet", cn_kw)):
+        out, ref = os.path.join(root, f"{name}.wav"), os.path.join(root, "ref.wav")
+        argv = [sub, "--out", out, *extra_argv] + (["--ref", ref] if sub == "controlnet" else [])
+        args = demo.parse_args(argv)
+        cfg = kw.get("config") or get_model_config(args.model).to_dict()
+        sr = cfg["autoencoder"]["sr"]
+        seconds = clip_s if sub == "controlnet" else args.length
+        if sub == "controlnet":
+            save_wav(ref, burst_clip(sr, clip_s), sr)
+        dev = args.device or "cuda"
+        attn = want_attention(cfg["model"]["depth"], args.steps, controlnet=sub == "controlnet")
+        row = run_path(name, dev, lambda: (demo.main(argv, **kw), load_wav(out))[1], attn,
+                       vae_units(kw.get("vae_config")), seconds, int(seconds * sr))
+        row.update(wav_path=out, sr=sr)
+        rows.append(row)
+        if torch.device(dev).type == "cuda":
+            torch.cuda.empty_cache()
+    return rows
+
+
+def rel_max(got, want) -> float:
+    """max |got - want| / max |want| (numpy)."""
+    import numpy as np
+
+    return float(np.abs(got - want).max() / max(float(np.abs(want).max()), 1e-30))
+
+
+def signal_checks(path, root, dev="cuda"):
+    """Phase 32 (b): ``AudioSignal`` on the t2a demo's wav: load, resample
+    to 16 and 44.1 kHz, loudness, normalize to -24 LUFS; ``stft``,
+    ``mel_spectrogram`` and ``mfcc`` (their defaults: n_fft 2048, hop 512,
+    80 mels, 40 coefficients) on the card against the CPU, each card call
+    timed (median of 3); the write/load round trip."""
+    import numpy as np
+
+    from ezaudio_tpu_torch.audio.signal import AudioSignal
+
+    sig = AudioSignal.load(path, device=dev)
+    cpu = sig.clone().to("cpu")
+    row = dict(path="signal", shape=list(sig.audio_data.shape), sr=sig.sample_rate)
+    for sr in (16000, 44100):
+        r = sig.clone().resample(sr)
+        if r.signal_length != round(sig.signal_length * sr / sig.sample_rate):
+            raise AssertionError(f"resample to {sr}: {r.signal_length} samples")
+    row["loudness"] = sig.loudness()
+    row["normalized_loudness"] = sig.clone().normalize(-24.0).loudness()
+    if not np.isfinite(row["loudness"]) or abs(row["normalized_loudness"] + 24.0) > 0.1:
+        raise AssertionError(f"loudness {row['loudness']}, normalized "
+                             f"{row['normalized_loudness']}")
+    for method, tol in (("stft", SIGNAL_SPEC_TOL), ("mel_spectrogram", SIGNAL_SPEC_TOL),
+                        ("mfcc", SIGNAL_MFCC_TOL)):
+        got = getattr(sig, method)()
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            getattr(sig, method)()
+            walls.append(time.perf_counter() - t0)
+        want = getattr(cpu, method)()
+        err = rel_max(got, want)
+        row[method] = dict(shape=list(got.shape), rel_err=err, tol=tol,
+                           card_ms=statistics.median(walls) * 1e3)
+        if got.shape != want.shape or not err <= tol:
+            raise AssertionError(f"AudioSignal.{method}: card against CPU {err} (limit {tol})")
+    out = os.path.join(root, "round_trip.wav")
+    sig.write(out)
+    if AudioSignal.load(out) != sig:
+        raise AssertionError("AudioSignal write/load round trip differs")
+    log("signal " + json.dumps(row))
+    return row
+
+
+def toolkit_compose(sources, ir):
+    """A seeded ``Compose`` of every transform class: the ones that round
+    or clip first (on the same samples on both sides), then the filters and
+    mixes, the spectral ones (``SpectralDenoising`` included), the
+    loudness ones, the combinators and ``RescaleAudio`` last."""
+    from ezaudio_tpu_torch.data import transforms as T
+
+    return T.Compose([
+        T.Quantize(channels=(64, 128), prob=0.5), T.MuLawQuantize(prob=0.5),
+        T.ClippingDistortion(prob=0.5), T.Silence(prob=0.1), T.Identity(),
+        T.VolumeChange(), T.LowPass(prob=0.5), T.HighPass(prob=0.5), T.Smoothing(prob=0.3),
+        T.Equalizer(), T.BackgroundNoise(sources=sources), T.RoomImpulseResponse(sources=[ir]),
+        T.CrossTalk(sources=sources, prob=0.5), T.NoiseFloor(), T.InvertPhase(prob=0.5),
+        T.FrequencyMask(), T.TimeMask(), T.ShiftPhase(), T.CorruptPhase(prob=0.5),
+        T.MaskLowMagnitudes(db_cutoff=(-40.0, -20.0)), T.TimeNoise(), T.FrequencyNoise(),
+        T.SpectralDenoising(), T.VolumeNorm(), T.GlobalVolumeNorm(),
+        T.Choose([T.ShiftPhase(), T.HighPass()], weights=[1, 2]),
+        T.Repeat(T.TimeMask(), n=2), T.RepeatUpTo(T.VolumeChange(db=(-3.0, 0.0)), max_repeat=3),
+        T.RescaleAudio(),
+    ])
+
+
+def data_path(root, dev="cuda", clips=16, seconds=10.0, sr=24000, batch=8):
+    """Phase 32 (c): ``clips`` seeded ``seconds`` s wavs at ``sr``, a
+    ``create_csv`` manifest, an ``AudioDataset`` over it with
+    ``toolkit_compose``, batches of ``batch`` on the card (wall per batch)
+    and the first batch on the CPU too (the same generator states), each of
+    its items held by the DATA_* rule; then ``istft`` of the first batch's
+    STFT twice on the card, bit-equal."""
+    import numpy as np
+    import torch
+
+    from ezaudio_tpu_torch.audio.stft import istft, stft
+    from ezaudio_tpu_torch.data.audio_dataset import AudioDataset, AudioLoader
+    from ezaudio_tpu_torch.data.audio_io import save_wav
+    from ezaudio_tpu_torch.data.manifest import create_csv
+
+    audio = os.path.join(root, "audio")
+    write_training_set(root, clips=clips, seconds=seconds, sr=sr)
+    manifest = os.path.join(audio, "manifest.csv")
+    rows = create_csv(audio, manifest)
+    ir = np.zeros(int(0.25 * sr), np.float32)
+    ir[[0, int(0.02 * sr), int(0.11 * sr)]] = (1.0, 0.5, 0.2)
+    ir_path = os.path.join(root, "ir.wav")
+    save_wav(ir_path, ir, sr)
+    sources = [os.path.join(audio, r["audio_path"]) for r in rows[:2]]
+
+    def dataset(device):
+        return AudioDataset(AudioLoader([manifest], transform=toolkit_compose(sources, ir_path)),
+                            duration=seconds, sample_rate=sr, n_examples=clips, seed=0,
+                            device=device)
+
+    walls, card_batches = [], []
+    batches = dataset(dev).batches(batch)
+    while True:
+        sync(dev)
+        t0 = time.perf_counter()
+        got = next(batches, None)
+        sync(dev)
+        if got is None:
+            break
+        walls.append(time.perf_counter() - t0)
+        g = got["signal"].audio_data
+        if g.shape != (batch, 1, int(seconds * sr)) or not np.isfinite(g).all():
+            raise AssertionError(f"data batch {g.shape}, finite={np.isfinite(g).all()}")
+        card_batches.append(g)
+    t0 = time.perf_counter()
+    w = next(dataset("cpu").batches(batch))["signal"].audio_data
+    cpu_s = time.perf_counter() - t0
+    g, worst = card_batches[0], dict(max=0.0, l2=0.0)
+    for i in range(len(g)):
+        scale = max(float(np.abs(w[i]).max()), 1e-12)
+        worst["max"] = max(worst["max"], float(np.abs(g[i] - w[i]).max()) / scale)
+        worst["l2"] = max(worst["l2"], float(np.linalg.norm(g[i] - w[i])
+                                             / max(np.linalg.norm(w[i]), 1e-12)))
+    if not (worst["max"] <= DATA_MAX_TOL and worst["l2"] <= DATA_L2_TOL):
+        raise AssertionError(f"transform batch card against CPU: {worst} (limits "
+                             f"{DATA_MAX_TOL}, {DATA_L2_TOL})")
+    x = torch.from_numpy(card_batches[0][:, 0]).to(dev)
+    spec = stft(x, 2048, 512)
+    a, b = istft(spec, 2048, 512, length=x.shape[-1]), istft(spec, 2048, 512, length=x.shape[-1])
+    row = dict(path="data", clips=clips, batch=batch, batches=len(walls),
+               wall_per_batch_s=walls, cpu_wall_first_batch_s=cpu_s, rel_err=worst,
+               istft_bit_equal=bool(torch.equal(a, b)),
+               istft_round_trip=rel_max(a.cpu().numpy(), x.cpu().numpy()))
+    log("data " + json.dumps(row))
+    if not row["istft_bit_equal"] or not row["istft_round_trip"] <= 1e-5:
+        raise AssertionError(f"istft on the card: {row}")
+    row["clips"] = card_batches[0][:3, 0]
+    return row
+
+
+def quality_checks(wav, sr):
+    """Phase 32 (d): ``stoi``, ``pesq`` and ``visqol_nsim`` of the t2a clip
+    against its 4 kHz ``band_limit`` and its 20 dB ``mnru``: finite and in
+    range."""
+    import numpy as np
+
+    from ezaudio_tpu_torch.audio import effects, quality
+
+    row = dict(path="quality")
+    for name, deg in (("band_limit", effects.band_limit(wav, sr, 4000.0)),
+                      ("mnru", effects.mnru(wav, 20.0, seed=0))):
+        t0 = time.perf_counter()
+        nsim = quality.visqol_nsim(deg, wav, sr)
+        r = dict(stoi=quality.stoi(deg, wav, sr), pesq=quality.pesq(deg, wav, sr),
+                 nsim=nsim["nsim"], mos=nsim["mos"], wall_s=time.perf_counter() - t0)
+        row[name] = r
+        ok = (np.isfinite(list(r.values())).all() and -1.0 <= r["stoi"] <= 1.0
+              and -0.5 <= r["pesq"] <= 4.5 and -1.0 <= r["nsim"] <= 1.0 and 1.0 <= r["mos"] <= 5.0)
+        if not ok:
+            raise AssertionError(f"quality of {name}: {r}")
+    log("quality " + json.dumps(row))
+    return row
+
+
+def whisper_ids_agreement(card_ids, cpu_ids, cpu_logits, prompt_len, tie=WHISPER_TIE):
+    """Card ids against the CPU's (B, P + N) by the near-tie rule: ``(row,
+    failures)``; ``cpu_logits`` (B, N, vocab) are the CPU's at each new
+    token."""
+    import numpy as np
+
+    gaps, bad, first = [], [], []
+    for b in range(cpu_ids.shape[0]):
+        diff = np.flatnonzero(card_ids[b] != cpu_ids[b])
+        first.append(int(diff[0]) if diff.size else None)
+        if not diff.size:
+            continue
+        pos = int(diff[0])
+        if pos < prompt_len:
+            bad.append(f"row {b}: the prompt differs at {pos}")
+            continue
+        s = cpu_logits[b, pos - prompt_len]
+        gap = float(s[int(cpu_ids[b, pos])] - s[int(card_ids[b, pos])])
+        gaps.append(gap)
+        if not gap <= tie:
+            bad.append(f"row {b} position {pos}: id {int(card_ids[b, pos])} against "
+                       f"{int(cpu_ids[b, pos])}, logit gap {gap}")
+    return dict(rows=int(cpu_ids.shape[0]), first_difference=first,
+                max_gap=max(gaps, default=0.0), tie=tie), bad
+
+
+def whisper_path(wavs, sr, dev="cuda", cfg=None, reps=3, new_tokens=64):
+    """Phase 32 (e): ``WhisperTranscriber(sr, device=dev)`` at the JAX
+    ``WhisperConfig()`` (whisper-base) on seeded weights (drawn on the CPU,
+    loaded on the card): features (1, 80, 3000), embeddings (1, 1500, 512)
+    and ``transcribe`` with ``new_tokens`` new tokens at batch 1 and 4,
+    walls the median of ``reps``, peak memory; the card against the CPU
+    transcriber (WHISPER_* rule)."""
+    import numpy as np
+    import torch
+
+    from ezaudio_tpu_torch.models.whisper import WhisperTranscriber, greedy_decode
+
+    cuda = torch.device(dev).type == "cuda"
+    cpu = WhisperTranscriber(sr, cfg=cfg, device="cpu")
+    card = WhisperTranscriber(sr, cfg=cfg, weights=cpu.model.state_dict(), device=dev)
+    c = card.cfg
+    one, four = wavs[:1], wavs[:4]
+    row = dict(path="whisper", d_model=c.d_model, layers=[c.encoder_layers, c.decoder_layers],
+               vocab=c.vocab_size, new_tokens=new_tokens)
+
+    def timed(name, fn):
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        walls = []
+        for _ in range(reps):
+            sync(dev)
+            t0 = time.perf_counter()
+            out = fn()
+            sync(dev)
+            walls.append(time.perf_counter() - t0)
+        row[name] = dict(wall_s=statistics.median(walls), walls=walls,
+                         peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30 if cuda else None)
+        return out
+
+    feats = timed("features[1]", lambda: card.features(one))
+    emb = timed("embeddings[1]", lambda: card.embeddings(one))
+    timed("transcribe[1]", lambda: card.transcribe(one, max_new_tokens=new_tokens))
+    ids = timed("transcribe[4]", lambda: card.transcribe(four, max_new_tokens=new_tokens))
+    T = 2 * c.max_source_positions
+    if tuple(feats.shape) != (1, c.num_mel_bins, T) or tuple(emb.shape) != (
+            1, c.max_source_positions, c.d_model) or ids.shape != (len(four), 1 + new_tokens):
+        raise AssertionError(f"whisper shapes {tuple(feats.shape)}, {tuple(emb.shape)}, "
+                             f"{ids.shape}")
+    row["features_rel_err"] = rel_max(feats.cpu().numpy(), cpu.features(one).numpy())
+    row["embeddings_rel_err"] = rel_max(emb.cpu().numpy(), cpu.embeddings(one).numpy())
+    prompt = (c.decoder_start_token_id,)
+    cpu_ids, cpu_logits = greedy_decode(cpu.model, cpu.features(four), prompt,
+                                        max_new_tokens=new_tokens, return_logits=True)
+    row["ids"], bad = whisper_ids_agreement(ids, cpu_ids, cpu_logits.numpy(), len(prompt))
+    row["distinct_ids"] = int(len(np.unique(ids)))
+    log("whisper " + json.dumps(row))
+    if not (row["features_rel_err"] <= WHISPER_REL_TOL
+            and row["embeddings_rel_err"] <= WHISPER_REL_TOL):
+        raise AssertionError(f"whisper card against CPU: features {row['features_rel_err']}, "
+                             f"embeddings {row['embeddings_rel_err']} "
+                             f"(limit {WHISPER_REL_TOL})")
+    if bad:
+        raise AssertionError(f"whisper ids, card against CPU: {bad}")
+    return row
+
+
+def toolkit_paths(root, dev="cuda", demo_argv=(), t2a_kw=None, cn_kw=None, clip_s=10.0,
+                  data_kw=None, whisper_cfg=None):
+    """Phase 32: (a) the demos, (b) AudioSignal on the t2a clip, (c) the
+    data path, (d) the quality metrics, (e) Whisper on the t2a clip (batch
+    1) and on it and the data batch's first three items (batch 4).  Returns the demos' path rows.  None
+    of it may import a module of TOOLKIT_FORBIDDEN."""
+    import numpy as np
+
+    before = set(sys.modules)
+    demos = demo_paths(root, demo_argv, t2a_kw, cn_kw, clip_s)
+    t0 = time.perf_counter()
+    signal_checks(demos[0]["wav_path"], root, dev)
+    log(f"phase 32 (b) signal: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    data = data_path(root, dev, **(data_kw or {}))
+    log(f"phase 32 (c) data: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    wav, sr = demos[0]["wav"], demos[0]["sr"]
+    quality_checks(wav, sr)
+    log(f"phase 32 (d) quality: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    whisper_path(np.concatenate([wav[None], data["clips"][:, :wav.shape[-1]]]), sr, dev,
+                 cfg=whisper_cfg)
+    log(f"phase 32 (e) whisper: {time.perf_counter() - t0:.1f} s")
+    new = sorted(m for m in set(sys.modules) - before if m.split(".")[0] in TOOLKIT_FORBIDDEN)
+    if new:
+        raise AssertionError(f"phase 32 imported {new[:5]}")
+    return demos
+
+
 def _kernel_class(name: str) -> str:
     n = name.lower()
     if "attn_fwd" in n:
@@ -4278,19 +4676,20 @@ def main(argv) -> int:
     with phase("5 card_vs_cpu"):
         card_vs_cpu(gen)
     with phase("6-7 editing, long"):
-        paths += edit_paths(ez)
+        paths += edit_paths(ez, long_steps=CUT_LONG_STEPS)
     with phase("8 samplers"):
         paths += sampler_paths(ez)
     with phase("9 card_vs_cpu_fast"):
         card_vs_cpu_fast()
     with phase("10 fused"):
-        paths += fused_paths(ez, f32_main)
+        paths += fused_paths(ez, f32_main, replays=CUT_REPLAYS)
     with phase("11 int8"):
-        int8_rows, _ = int8_paths(ez, gen, paths[0])
+        int8_rows, _ = int8_paths(ez, gen, steps=CUT_INT8_STEPS)
     with phase("12 served"):
-        served = served_paths(ez)
-        served_fused = served_paths(ez, fused=True)  # captures
-        served_replay = served_paths(ez, fused=True, name="served_fused_replay")
+        served = served_paths(ez, steps=CUT_SERVED_STEPS)
+        served_fused = served_paths(ez, fused=True, steps=CUT_SERVED_STEPS)  # captures
+        served_replay = served_paths(ez, fused=True, name="served_fused_replay",
+                                     steps=CUT_SERVED_STEPS)
         served_checks(ez, served, served_fused, served_replay)
     paths += int8_rows + [served, served_fused, served_replay]
 
@@ -4300,7 +4699,7 @@ def main(argv) -> int:
         rerank = rerank_path(ez, scorer, ids)
         clap_card_vs_cpu(scorer, rerank, ids)
     with phase("21 served rerank"):
-        paths += [rerank, served_rerank(ez, scorer, ids)]
+        paths += [rerank, served_rerank(ez, scorer, ids, steps=CUT_SERVED_STEPS)]
     del scorer
     check_freed("CLAP scorer", before_clap)
     del ez  # no gc: nothing holds it in a cycle (ROADMAP F8)
@@ -4308,7 +4707,7 @@ def main(argv) -> int:
 
     ez = build_ezaudio(dtype="bfloat16")
     with phase("16 s3_l bf16"):
-        paths += bf16_paths(ez, f32_main)
+        paths += bf16_paths(ez, f32_main, replays=CUT_REPLAYS)
     del ez
     check_freed("s3_l bf16", before)
     with phase("17 bf16 card_vs_cpu"):
@@ -4320,7 +4719,7 @@ def main(argv) -> int:
     with phase("14 controlnet card_vs_cpu"):
         controlnet_card_vs_cpu()
     with phase("15 controlnet served"):
-        paths.append(controlnet_served(cn))
+        paths.append(controlnet_served(cn, steps=CUT_SERVED_STEPS))
     with phase("18 checkpoint round trip"):
         checkpoint_round_trip(cn)
     del cn
@@ -4394,10 +4793,17 @@ def main(argv) -> int:
     with phase("30e pretransforms"):
         pretransform_paths()
     with phase("31 UDiT variants"):
-        paths += variant_paths(before=before)
+        paths += variant_paths(before=before, reps=1, replays=CUT_REPLAYS)
     with phase("31 variants card_vs_cpu"):
         variant_card_vs_cpu(gen)
     check_freed("variants card_vs_cpu", before)
+    with phase("32 demos, toolkit and Whisper"):
+        root = tempfile.mkdtemp(prefix="ezaudio_toolkit_")
+        try:
+            paths += toolkit_paths(root)
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+    check_freed("demos and Whisper", before)
 
     missing = uncovered_shapes(paths)
     if missing:

@@ -1,10 +1,12 @@
-"""STFT and mel filterbanks (counterpart of ``ezaudio_tpu/audio/stft.py``
-and of ``_mel_filterbank_htk`` in ``ezaudio_tpu/audio/clap.py``).
+"""STFT, its inverse and mel filterbanks (counterpart of
+``ezaudio_tpu/audio/stft.py`` and of ``_mel_filterbank_htk`` in
+``ezaudio_tpu/audio/clap.py``).
 
 The filterbanks are host constants (numpy).  The STFT has the JAX
 package's conventions (periodic hann window, centre reflect padding,
 one-sided, unnormalized), runs on the tensor's device, and its gradient is
-the same in every run.
+the same in every run.  :func:`istft` overlap-adds without atomics, so two
+runs on the card are bit-equal.
 """
 
 from __future__ import annotations
@@ -50,6 +52,37 @@ def stft(x: torch.Tensor, n_fft: int, hop_length: Optional[int] = None,
         x = reflect_pad(x, n_fft // 2, n_fft // 2)
     frames = x.unfold(-1, n_fft, hop_length) * torch.from_numpy(win).to(x.device)
     return torch.fft.rfft(frames, dim=-1).transpose(-1, -2)
+
+
+def overlap_add(frames: torch.Tensor, hop: int) -> torch.Tensor:
+    """(..., n_frames, n) frames -> (..., n + (n_frames - 1) * hop): each
+    frame added at ``i * hop``.  The frames are cut into ``r = ceil(n / hop)``
+    hop-long pieces (zero-padded), and piece j of every frame lands on
+    output chunk i + j: r shifted whole-tensor adds, in the same order in
+    every run (``index_add_``/``scatter_add_`` sum with atomics on CUDA)."""
+    *lead, n_frames, n = frames.shape
+    r = -(-n // hop)
+    pieces = torch.nn.functional.pad(frames, (0, r * hop - n)).unflatten(-1, (r, hop))
+    out = frames.new_zeros(*lead, n_frames + r - 1, hop)
+    for j in range(r):
+        out[..., j:j + n_frames, :] += pieces[..., j, :]
+    return out.flatten(-2)[..., :n + (n_frames - 1) * hop]
+
+
+def istft(spec: torch.Tensor, n_fft: int, hop_length: Optional[int] = None,
+          length: Optional[int] = None) -> torch.Tensor:
+    """Inverse of :func:`stft` (centre, periodic hann): complex
+    (..., 1 + n_fft // 2, frames) -> (..., T), ``torch.istft(center=True)``
+    semantics as ``ezaudio_tpu/audio/stft.py::istft``: the windowed frames
+    overlap-added, divided by max(sum of the squared windows, 1e-11), the
+    first ``n_fft // 2`` samples dropped, trimmed to ``length``."""
+    hop_length = hop_length or n_fft // 4
+    win = torch.from_numpy(hann_window(n_fft)).to(spec.device)
+    frames = torch.fft.irfft(spec.transpose(-1, -2), n=n_fft, dim=-1) * win
+    out = overlap_add(frames, hop_length)
+    norm = overlap_add(win.square().expand(frames.shape[-2], n_fft), hop_length)
+    out = (out / norm.clamp_min(1e-11))[..., n_fft // 2:]
+    return out if length is None else out[..., :length]
 
 
 def _hz_to_mel(f):

@@ -24,7 +24,10 @@ package's torch -> jax converters:
   * :func:`clap_params_to_torch` — CLAP params ->
     :class:`~ezaudio_tpu_torch.models.clap.CLAP` (transformers names);
   * :func:`hubert_params_to_torch` — HubertEncoder params ->
-    :class:`~ezaudio_tpu_torch.models.hubert.HubertEncoder` (transformers names).
+    :class:`~ezaudio_tpu_torch.models.hubert.HubertEncoder` (transformers names);
+  * :func:`whisper_state_dict_from_jax` — ``WhisperModel`` params ->
+    :class:`~ezaudio_tpu_torch.models.whisper.WhisperForConditionalGeneration`
+    (transformers names).
 
 Inputs are nested dicts of numpy arrays (``jax.device_get`` of the
 trees); outputs map names to float32 ``torch.Tensor``.  Because the port
@@ -548,4 +551,44 @@ def hubert_params_to_torch(params: Dict[str, Any], cfg) -> Dict[str, torch.Tenso
         _ln(sd, f"{pre}.final_layer_norm", p["final_layer_norm"])
         for name in ("intermediate_dense", "output_dense"):
             _lin(sd, f"{pre}.feed_forward.{name}", p["feed_forward"][name])
+    return sd
+
+
+def _whisper_attn(dst, prefix, p):
+    for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
+        _lin(dst, f"{prefix}.{name}", p[name])
+
+
+def whisper_state_dict_from_jax(params: Dict[str, Any], cfg) -> Dict[str, torch.Tensor]:
+    """JAX ``WhisperModel`` params (``{"encoder": ..., "decoder": ...}``) ->
+    the port's ``WhisperForConditionalGeneration`` state dict, the inverse of
+    ``ezaudio_tpu/models/whisper.py::convert_whisper_state_dict``: dense
+    kernels (in, out) -> (out, in), conv kernels (k, in, out) -> (out, in, k),
+    LayerNorm ``scale`` -> ``weight``; ``proj_out.weight`` is the tied
+    ``embed_tokens``.  ``cfg`` is a ``WhisperConfig`` of either package."""
+    sd: Dict[str, torch.Tensor] = {}
+    enc, dec = params["encoder"], params["decoder"]
+    _conv(sd, "model.encoder.conv1", enc["conv1"])
+    _conv(sd, "model.encoder.conv2", enc["conv2"])
+    sd["model.encoder.embed_positions.weight"] = _t(enc["embed_positions"])
+    for i in range(cfg.encoder_layers):
+        p, pre = enc[f"layers_{i}"], f"model.encoder.layers.{i}"
+        _whisper_attn(sd, f"{pre}.self_attn", p["self_attn"])
+        for name in ("self_attn_layer_norm", "final_layer_norm"):
+            _ln(sd, f"{pre}.{name}", p[name])
+        _lin(sd, f"{pre}.fc1", p["fc1"])
+        _lin(sd, f"{pre}.fc2", p["fc2"])
+    _ln(sd, "model.encoder.layer_norm", enc["layer_norm"])
+    sd["model.decoder.embed_tokens.weight"] = _t(dec["embed_tokens"])
+    sd["model.decoder.embed_positions.weight"] = _t(dec["embed_positions"])
+    for i in range(cfg.decoder_layers):
+        p, pre = dec[f"layers_{i}"], f"model.decoder.layers.{i}"
+        _whisper_attn(sd, f"{pre}.self_attn", p["self_attn"])
+        _whisper_attn(sd, f"{pre}.encoder_attn", p["encoder_attn"])
+        for name in ("self_attn_layer_norm", "encoder_attn_layer_norm", "final_layer_norm"):
+            _ln(sd, f"{pre}.{name}", p[name])
+        _lin(sd, f"{pre}.fc1", p["fc1"])
+        _lin(sd, f"{pre}.fc2", p["fc2"])
+    _ln(sd, "model.decoder.layer_norm", dec["layer_norm"])
+    sd["proj_out.weight"] = sd["model.decoder.embed_tokens.weight"]
     return sd

@@ -966,3 +966,67 @@ def test_variant_phase_rehearses_on_cpu(monkeypatch):
     row = cs.codec_restart("cpu", widths=TINY_VAE, batch=2, samples=960, steps=2,
                            disc_kw=TINY_DISC, step_kw=TINY_STEP)
     assert row["tensors_differ"] == [] and row["losses_resumed"] == row["losses_straight"]
+
+
+def test_toolkit_phase_rehearses_on_cpu(monkeypatch, tmp_path):
+    """Phase 32 at a tiny size on the CPU: both demos through ``demo.main``
+    (tiny configs, ``--device cpu``, 3 steps) with their launches counted;
+    ``AudioSignal``, the transform batch, the quality metrics and Whisper,
+    each against the CPU itself; ``istft`` twice bit-equal; nothing of
+    TOOLKIT_FORBIDDEN imported."""
+    import dataclasses
+
+    import chip_smoke as cs
+    from ezaudio_tpu_torch.models.whisper import WhisperConfig
+    from ezaudio_tpu_torch.text.t5 import T5EncoderConfig
+    from tests.test_torch_debug_demo import CN_CONFIG
+    from tests.tiny_config import TINY_CONFIG, TINY_T5, TINY_VAE_CONFIG
+
+    _counted_kernels(monkeypatch)
+    towers = dict(t5_config=T5EncoderConfig(**dataclasses.asdict(TINY_T5)),
+                  vae_config=TINY_VAE_CONFIG)
+    whisper = WhisperConfig(vocab_size=64, d_model=32, encoder_layers=1, decoder_layers=1,
+                            encoder_attention_heads=2, decoder_attention_heads=2,
+                            encoder_ffn_dim=64, decoder_ffn_dim=64, max_target_positions=80,
+                            decoder_start_token_id=1, eos_token_id=2)
+    rows = cs.toolkit_paths(str(tmp_path), "cpu", demo_argv=("--steps", "3", "--device", "cpu"),
+                            t2a_kw=dict(config=TINY_CONFIG, **towers),
+                            cn_kw=dict(config=CN_CONFIG, **towers),
+                            data_kw=dict(clips=4, seconds=0.5, sr=24000, batch=2),
+                            whisper_cfg=whisper)
+    # 3 steps of 5 blocks (+ 2 ControlNet blocks), self and cross each; 6 units a decode
+    assert [(r["path"], r["attention_launches"], r["resunit_launches"]) for r in rows] == [
+        ("demo_t2a", 30, 6), ("demo_controlnet", 42, 6)]
+    assert rows[0]["wav_shape"] == [10 * 800]
+    assert cs.want_attention(24, 100) == 5000 and cs.want_attention(24, 50, controlnet=True) == 3700
+    assert cs.vae_units() == 12
+
+
+@pytest.mark.parametrize("case,passes", [("equal", True), ("near_tie", True),
+                                         ("shifted", False), ("prompt", False)])
+def test_whisper_id_rule_catches_a_shifted_id(case, passes):
+    """The card's ids against the CPU's: equal, or differing first where
+    the CPU's logits are within WHISPER_TIE, passes; an id shifted by one
+    at a clear margin, or a differing prompt, fails."""
+    import numpy as np
+
+    import chip_smoke as cs
+
+    rng = np.random.default_rng(0)
+    logits = rng.standard_normal((2, 5, 40)).astype(np.float32)
+    cpu = np.concatenate([np.full((2, 1), 7), logits.argmax(-1)], 1)
+    card = cpu.copy()
+    if case == "near_tie":
+        logits[1, 2, cpu[1, 3] + 1] = logits[1, 2, cpu[1, 3]] - cs.WHISPER_TIE / 2
+        card[1, 3] += 1
+        card[1, 4:] = 0  # after the first difference nothing is compared
+    elif case == "shifted":
+        top2 = np.sort(logits[1, 2])[-2:]
+        assert top2[1] - top2[0] > cs.WHISPER_TIE
+        card[1, 3] += 1 if cpu[1, 3] + 1 < 40 else -1
+    elif case == "prompt":
+        card[0, 0] = 8
+    row, bad = cs.whisper_ids_agreement(card, cpu, logits, 1)
+    assert (not bad) == passes, bad
+    assert row["first_difference"] == {"equal": [None, None], "near_tie": [None, 3],
+                                       "shifted": [None, 3], "prompt": [0, None]}[case]
