@@ -174,11 +174,11 @@ Phases, each fatal on failure:
  31. the UDiT architecture switches at s3_l width (``VARIANT_SWITCHES``:
      the reference golden's switch set, concat context of 100 T5 tokens,
      so every block runs one masked self-attention over 600 tokens): (a)
-     ``EzAudio(config=variant_config())`` in f32 at the reference recipe,
-     1 prompt and 4, then ``fused=True`` (a first call and one replay,
+     ``EzAudio(config=variant_config())`` in f32 at the reference recipe
+     (``VARIANT_STEPS`` DDIM steps), 1 prompt and 4, then ``fused=True`` (a first call and one replay,
      equal to staged within FUSED_TOL); (b) the same in bf16, every launch bf16;
      (c) ``TOKEN_SWITCHES`` (a time token: 601 tokens, dual RoPE, gated
-     snake); kernel 1 25 x 100 launches a call, kernel 2 12 a decode, every
+     snake); kernel 1 25 x 50 launches a call, kernel 2 12 a decode, every
      attention shape among phase 3's; (d) card against CPU at depth 2:
      config (a)'s ``generate_audio``, each ``SWITCH_CASES`` UDiT (2-D
      input, ``cls_dim``, the conv PE, every time fusion, RoPE mode and
@@ -202,8 +202,25 @@ Phases, each fatal on failure:
      at batch 1 and 4 (median of 3, peak), card against CPU
      (``WHISPER_*``, ids by the near-tie rule); none of it imports pandas,
      matplotlib, IPython or transformers;
- 33. the launches of each path, a ``{"kernels": [...]}`` line (launches
-     summed over the paths of phases 4-8, 10-13, 15, 16, 19-21, 24, 26-32),
+ 33. non-wav audio, a world of one, the ring (``nonwav_paths``,
+     ``world_one_paths``, ``ring_math``): (a) the codec bridge and the
+     native loader built with ``g++`` into the build directory (whether
+     libav and ``g++`` were found is printed; without libav the native
+     loader runs alone), phase 4's clip through flac (bit-exact), mp3 and
+     ogg (SNR, ``MP3_*``/``OGG_*``) and ``AudioSignal.load`` of the mp3,
+     ``EACaps(use_native=True)`` over 16 seeded 10 s wavs in batches of 8
+     (one ``load_batch`` call each) into the VAE encode on the card (12
+     launches of kernel 2 a batch), card against CPU; (b) a world of one on
+     NCCL: ``EzAudio("s3_l", mesh=make_mesh())`` at 1 prompt and
+     ``CUT_MESH_STEPS`` DDIM steps equal to the mesh-less EzAudio
+     (``MESH_TOL``), one s3_l f32 train step (batch 2) of
+     ``Trainer.create(mesh=make_mesh())`` and of an FSDP2 (HSDP) wrapped
+     trainer against the plain step by phase 25's limits; (c) the ring's
+     per-hop math at sp = 4 in one process at s3_l and s3_xl
+     self-attention, f32 and bf16, with and without a key mask: forward
+     against kernel 1, backward against SDPA, timed beside kernel 1;
+ 34. the launches of each path, a ``{"kernels": [...]}`` line (launches
+     summed over the paths of phases 4-8, 10-13, 15, 16, 19-21, 24, 26-33),
      the card's name and power limit, and last ``{"ok": true,
      "device": {...}}``.
 
@@ -211,7 +228,7 @@ Phase 3 also holds kernel 1 at phase 31's masked self-attention shapes,
 phase 23 its backward there (batch 8); phase 30 (a) also restarts the
 codec step from a checkpoint, bit-equal to the straight run (ROADMAP F14).
 
-Every path of phases 4, 6-8, 11-13, 15, 16, 19-21, 24, 26-32 is driven with the launch
+Every path of phases 4, 6-8, 11-13, 15, 16, 19-21, 24, 26-33 is driven with the launch
 counters set to 0 just before it and read just after, and must launch each
 kernel exactly as often as its model calls and decodes imply; the bf16
 paths count every launch by dtype (``launches_by_dtype``), so a path that
@@ -289,12 +306,13 @@ VC_REL_TOL = 1e-4
 
 
 # Depth cut from earlier card-only paths so that the whole run stays within
-# 600 s with phase 32 (PERF.md section 4, "cut:"): fused replays after the
-# first call (phases 10, 16, 31; 2 before), DDIM steps of the int8 calls
-# (phase 11; 100 before) and of generate_long's windows (phase 7; 100
-# before), DPM steps of the servers (phases 12, 15, 21; 25 before), and
-# phase 31 (a)'s 1-prompt call run once (3 before).  The shapes each
-# kernel sees, and every check, are unchanged.
+# 600 s with phases 32 and 33 (PERF.md section 4, "cut:"): fused replays
+# after the first call (phases 10, 16, 31; 2 before), DDIM steps of the
+# int8 calls (phase 11; 100 before) and of generate_long's windows (phase
+# 7; 100 before), DPM steps of the servers (phases 12, 15, 21; 25 before),
+# phase 31 (a)'s 1-prompt call run once (3 before), and the DDIM steps of
+# phase 31 (a)-(c)'s calls (VARIANT_STEPS; 100 before, for phase 33).  The
+# shapes each kernel sees, and every check, are unchanged.
 CUT_REPLAYS = 1
 CUT_INT8_STEPS = 25
 CUT_LONG_STEPS = 25
@@ -3844,7 +3862,7 @@ SWITCH_CASES = {
     "snake": dict(act_layer="snake"),
 }
 SWITCH_FRAMES = 100  # latent frames of (d)'s module checks
-VARIANT_STEPS = 100  # DDIM steps of (a)-(c): the reference recipe
+VARIANT_STEPS = 50  # DDIM steps of (a)-(c) (the reference recipe's 100; cut, see CUT_*)
 
 
 def variant_config(depth=None, **switches):
@@ -3909,7 +3927,7 @@ def variant_paths(dev="cuda", before=None, reps=3, length=10.0, attn_cases=ATTN_
     and 4, then ``fused=True`` for 1 (first call and ``replays`` replays,
     equal to staged within FUSED_TOL);
     (b) config (a) in bf16, 1 prompt, every launch bf16; (c) config (a)
-    with TOKEN_SWITCHES, 1 prompt.  Kernel 1 launches 25 x 100 a call,
+    with TOKEN_SWITCHES, 1 prompt.  Kernel 1 launches 25 x VARIANT_STEPS a call,
     kernel 2 12 a decode; every attention shape among phase 3's."""
     import numpy as np
     import torch
@@ -4505,6 +4523,423 @@ def toolkit_paths(root, dev="cuda", demo_argv=(), t2a_kw=None, cn_kw=None, clip_
     return demos
 
 
+# ---------------------------------------------------------------------------
+# Phase 33: non-wav audio through the codec bridge and the native batch
+# loader (a), the parallel paths at a world of one on NCCL (b), and the
+# sequence-parallel ring's per-hop math at sp = 4 in one process (c).
+# mp3 at 320 kbps and vorbis at its default quality are lossy: the decoded
+# 10 s clip is held by its SNR against the input (white noise, the hardest
+# input, reads 10.7 dB and 5.8 dB through them on the CPU; a misaligned or
+# garbled decode reads 0 dB or less).  flac of a clip on the 16-bit grid
+# (peak 0.45, where the bridge's 32767-in, 32768-out scaling is the
+# identity) is lossless: bit-exact.
+MP3_BITRATE = 320000
+MP3_MIN_SNR_DB = 6.0
+OGG_MIN_SNR_DB = 3.0
+# the parallel path at a world of one against the plain one on the card:
+# the same kernels on the same inputs in the same order
+MESH_TOL = 1e-5
+CUT_MESH_STEPS = 10      # DDIM steps of (b)'s generate calls (the recipe's 100)
+CUT_MESH_TRAIN_DEPTH = 4  # (b)'s train steps: s3_l's widths at this depth (24)
+RING_SP = 4
+RING_CASES = [(2, 16, 500, 500, 64), (2, 16, 500, 500, 72)]   # s3_l, s3_xl self
+
+
+def snr_db(got, want) -> float:
+    import numpy as np
+
+    n = min(len(got), len(want))
+    err = float(((got[:n] - want[:n]) ** 2).sum())
+    return float(10 * np.log10(float((want[:n] ** 2).sum()) / max(err, 1e-30)))
+
+
+def nonwav_paths(clip, sr, root, dev="cuda", clips=16, seconds=10.0, batch=8, vae_config=None,
+                 excerpt_s=2.0):
+    """Phase 33 (a): build the codec bridge and the native loader into the
+    build directory; ``clip`` (phase 4's t2a waveform) through flac (on
+    the 16-bit grid: bit-exact), mp3 and ogg (SNR) with ``save_audio`` and
+    ``load_audio``, and ``AudioSignal.load`` of the mp3; then
+    ``EACaps(use_native=True)`` over ``clips`` seeded ``seconds`` s wavs in
+    batches of ``batch``: one ``load_batch`` call a batch (wall), the VAE
+    encode (the posterior mean) of each batch on the card with its kernel 2
+    launches counted; the first item's first ``excerpt_s`` seconds encoded
+    on the card and on the CPU (plain versions), held by PIPE_REL_TOL.
+    Without libav it says so and runs the native loader alone; without
+    ``g++`` it fails."""
+    import numpy as np
+    import torch
+
+    from ezaudio_tpu_torch.api.ezaudio import init_random_
+    from ezaudio_tpu_torch.audio.signal import AudioSignal
+    from ezaudio_tpu_torch.codecs.facade import AutoencoderFacade
+    from ezaudio_tpu_torch.codecs.oobleck import ResidualUnit, vae_from_config
+    from ezaudio_tpu_torch.config import MODEL_REGISTRY, load_config
+    from ezaudio_tpu_torch.data import codec_loader, native_build, native_loader
+    from ezaudio_tpu_torch.data.audio_io import load_audio, save_audio
+    from ezaudio_tpu_torch.data.dataset import EACaps
+
+    gxx = native_build.gxx()
+    log(f"non-wav: g++ {'found at ' + gxx if gxx else 'missing'}")
+    if gxx is None:
+        raise AssertionError("g++ is missing: the native loader cannot be built")
+    t0 = time.perf_counter()
+    if not native_loader.available():
+        raise AssertionError(f"the native loader did not build: {native_loader.build_error}")
+    libav = codec_loader.available()
+    row = dict(path="nonwav", build_s=time.perf_counter() - t0, libav=libav,
+               native_lib=native_loader.lib_path(), attention_launches=0)
+    if libav:
+        log(f"non-wav: libav found; the codec bridge built into {codec_loader.lib_path()}")
+        # on the 16-bit grid q / 32768 with |q| < 2^14: the bridge writes
+        # lrint(32767 v) and reads q / 32768, the identity on that range
+        x = np.asarray(clip, np.float32).reshape(-1)
+        x = np.round(x / max(float(np.abs(x).max()), 1e-9) * 0.45 * 32768) / 32768.0
+        x = x.astype(np.float32)
+        formats = {}
+        for ext, kw in (("flac", {}), ("mp3", dict(bitrate=MP3_BITRATE)), ("ogg", {})):
+            path = os.path.join(root, f"t2a.{ext}")
+            t1 = time.perf_counter()
+            save_audio(path, x, sr, **kw)
+            enc_s = time.perf_counter() - t1
+            decode_ms = []
+            for _ in range(5):
+                t1 = time.perf_counter()
+                y, rate = load_audio(path)
+                decode_ms.append((time.perf_counter() - t1) * 1e3)
+            formats[ext] = dict(bytes=os.path.getsize(path), encode_s=enc_s,
+                                decode_ms=statistics.median(decode_ms), sr=rate,
+                                samples=[len(y), len(x)], snr_db=snr_db(y, x),
+                                bit_exact=bool(len(y) == len(x) and np.array_equal(y, x)))
+        sig = AudioSignal.load(os.path.join(root, "t2a.mp3"), device=dev)
+        row.update(formats=formats, signal=dict(shape=list(sig.audio_data.shape),
+                                                sr=sig.sample_rate))
+        bad = [f"{e}: {f}" for e, f in formats.items() if f["sr"] != sr]
+        if not formats["flac"]["bit_exact"]:
+            bad.append(f"flac not bit-exact: {formats['flac']}")
+        if not formats["mp3"]["snr_db"] >= MP3_MIN_SNR_DB:
+            bad.append(f"mp3 SNR {formats['mp3']['snr_db']:.2f} dB < {MP3_MIN_SNR_DB}")
+        if not formats["ogg"]["snr_db"] >= OGG_MIN_SNR_DB:
+            bad.append(f"ogg SNR {formats['ogg']['snr_db']:.2f} dB < {OGG_MIN_SNR_DB}")
+        if sig.sample_rate != sr or sig.audio_data.shape[-1] != formats["mp3"]["samples"][0]:
+            bad.append(f"AudioSignal.load of the mp3: {row['signal']}")
+        if bad:
+            raise AssertionError("non-wav: " + "; ".join(bad))
+    else:
+        log(f"non-wav: libav not found on this machine ({codec_loader.build_error}); "
+            "mp3/flac/ogg skipped, the native wav loader runs alone")
+
+    meta = write_training_set(root, clips=clips, seconds=seconds, sr=sr)
+    ds = EACaps(data_dir=os.path.join(root, "audio"), meta_dir=meta, seg_length=seconds, sr=sr,
+                use_native=True, seed=0)
+    if not ds.use_native:
+        raise AssertionError("EACaps(use_native=True) did not take the native loader")
+    vae_cfg = vae_config or load_config(MODEL_REGISTRY["vae"]["config"]).to_dict()
+    with torch.device(dev):
+        vae = vae_from_config(vae_cfg)
+    init_random_(vae, torch.Generator(device=dev).manual_seed(33)).eval()
+    card = AutoencoderFacade(vae)
+    want_res = sum(isinstance(m, ResidualUnit) for m in vae.encoder.modules())
+    walls, launches, seen, first = [], [], set(), None  # first: the excerpt
+    batches = ds.batches(batch)
+    with torch.no_grad(), resunit_shapes(seen, full=True):
+        while True:
+            t1 = time.perf_counter()
+            b = next(batches, None)
+            if b is None:
+                break
+            walls.append(time.perf_counter() - t1)
+            audio = b["audio"]
+            if audio.shape != (batch, int(seconds * sr)) or not np.isfinite(audio).all():
+                raise AssertionError(f"native batch {audio.shape}")
+            reset_counters()
+            lat = card.encode(torch.from_numpy(audio).to(dev)[:, :, None], sample=False)
+            sync(dev)
+            launches.append(read_counters()[1])
+            if first is None:
+                first = audio[:1, :int(excerpt_s * sr)].copy()
+    cpu_vae = vae_from_config(vae_cfg)
+    cpu_vae.load_state_dict({k: v.cpu() for k, v in vae.state_dict().items()})
+    with torch.no_grad():
+        x = torch.from_numpy(first)[:, :, None]
+        got = card.encode(x.to(dev), sample=False).float().cpu().numpy()
+        want = AutoencoderFacade(cpu_vae.eval()).encode(x, sample=False).numpy()
+    err = rel_max(got, want)
+    row.update(batches=len(walls), load_batch_s=walls, resunit_launches=sum(launches),
+               launches_per_batch=launches, encode_rel_err=err,
+               resunit_batch_shapes=sorted(seen), resunit_shapes=[])
+    log("nonwav " + json.dumps(row))
+    if launches != [want_res] * (clips // batch):
+        raise AssertionError(f"native batches' encode launches {launches}, want {want_res} each")
+    if not err <= PIPE_REL_TOL:
+        raise AssertionError(f"native batch encode, card against CPU: {err} > {PIPE_REL_TOL}")
+    return row
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def world_one_paths(dev="cuda", cfg=None, t5_config=None, vae_config=None, length=10.0,
+                    steps=CUT_MESH_STEPS, batch=2, init_method=None,
+                    train_depth=CUT_MESH_TRAIN_DEPTH):
+    """Phase 33 (b): a world of one (NCCL on the card): ``EzAudio(mesh=
+    make_mesh())`` at 1 prompt and ``steps`` DDIM steps against the
+    mesh-less EzAudio at the same seed (launches counted; then both again,
+    warm, four times each in the order mesh, plain, plain, mesh, twice, for
+    the walls and their spread); one train step (the
+    model at ``train_depth``) of a plain ``Trainer``, of
+    ``Trainer.create(mesh=make_mesh())`` and of one whose DiT FSDP2 wraps
+    (HSDP over the (dp, fsdp) = (1, 1) sub-mesh, each parameter's fsdp
+    axis taken as a 2-way split would) on the same weights, batch and
+    draws, each held to the plain step by phase 25's limits, then two warm
+    steps of each timed (the plain trainer's again last).  Leaves the
+    process group."""
+    import copy
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from ezaudio_tpu_torch.api.ezaudio import EzAudio, init_random_
+    from ezaudio_tpu_torch.codecs.oobleck import ResidualUnit
+    from ezaudio_tpu_torch.config import get_model_config
+    from ezaudio_tpu_torch.diffusion.ddim import DDIMSchedule
+    from ezaudio_tpu_torch.models.maskdit import maskdit_from_config
+    from ezaudio_tpu_torch.parallel import init_distributed, make_mesh, param_shardings
+    from ezaudio_tpu_torch.parallel.mesh import AXES
+
+    class FsdpTwo:
+        """The one size the fsdp rule reads, 2: the placements of a 2-way
+        split, which FSDP2 applies over the world of one."""
+
+        def size(self, i=None):
+            return 2 if i == AXES.index("fsdp") else 1
+    from ezaudio_tpu_torch.training.trainer import Trainer
+
+    cfg = copy.deepcopy(cfg if cfg is not None else get_model_config("s3_l").to_dict())
+    t0 = t_phase = time.perf_counter()
+    rank_dev = init_distributed(dev, init_method=init_method
+                                or f"tcp://localhost:{free_port()}", rank=0, world_size=1)
+    mesh = make_mesh()
+    log(f"world: {dist.get_backend()} group of {dist.get_world_size()} on {rank_dev}, mesh "
+        f"{tuple(mesh.mesh.shape)} in {time.perf_counter() - t0:.2f} s")
+    rows = []
+    try:
+        kw = dict(config=cfg, t5_config=t5_config, vae_config=vae_config, device=rank_dev,
+                  seed=0)
+        solo = EzAudio(**kw)
+        t0 = time.perf_counter()
+        ez = EzAudio(mesh=mesh, **kw)
+        build_s = time.perf_counter() - t0
+        depth = cfg["model"]["depth"]
+        want_res = sum(isinstance(m, ResidualUnit)
+                       for m in solo.autoencoder.model.decoder.modules())
+        n_samples = int(length * solo.latent_sr) * solo.autoencoder.downsampling_ratio
+        gen = dict(length=length, ddim_steps=steps, random_seed=1234)
+        want_attn = 2 * (depth + 1) * steps
+        plain = run_path("mesh_off[1]", rank_dev,
+                         lambda: solo.generate_audio(PROMPTS[:1], **gen)[1],
+                         want_attn, want_res, length, n_samples)
+        meshed = run_path("mesh_world1[1]", rank_dev,
+                          lambda: ez.generate_audio(PROMPTS[:1], **gen)[1],
+                          want_attn, want_res, length, n_samples)
+        err = rel_max(meshed["wav"], plain["wav"])
+        # the walls again, warm, alternating: mesh, plain, plain, mesh, twice
+        walls = {"mesh": [], "plain": []}
+        for name in ("mesh", "plain", "plain", "mesh") * 2:
+            sync(rank_dev)
+            t1 = time.perf_counter()
+            (ez if name == "mesh" else solo).generate_audio(PROMPTS[:1], **gen)
+            sync(rank_dev)
+            walls[name].append(time.perf_counter() - t1)
+        overhead = statistics.mean(walls["mesh"]) - statistics.mean(walls["plain"])
+        # the spread: the largest gap between two walls of one kind
+        spread = max(max(v) - min(v) for v in walls.values())
+        meshed.update(mesh_build_s=build_s, rel_err_vs_no_mesh=err, warm_walls_s=walls,
+                      overhead_s=overhead, spread_s=spread)
+        log(f"mesh_world1 rel_err {err:.3e}, warm walls {walls} s, overhead "
+            f"{overhead * 1e3:.1f} ms, spread within a kind {spread * 1e3:.1f} ms")
+        if not err <= MESH_TOL:
+            raise AssertionError(f"EzAudio(mesh) at a world of one: {err} > {MESH_TOL}")
+        rows += [plain, meshed]
+        del solo, ez
+
+        m = dict(cfg["model"], depth=min(train_depth, cfg["model"]["depth"]))
+        schedule = DDIMSchedule.from_config(cfg["diff"])
+        lr = 1e-4
+        opt = dict(learning_rate=lr, warmup=0, grad_clip=1.0, weight_decay=0.01, snr_gamma=5.0)
+        with torch.device(rank_dev):
+            first = maskdit_from_config(m)
+        init_random_(first, torch.Generator(device=rank_dev).manual_seed(33))
+        weights = {k: v.cpu() for k, v in first.state_dict().items()}
+        del first
+        host_gen = torch.Generator().manual_seed(33)
+        frames, C, ctx, text_len = m["img_size"], m["out_chans"], m["context_dim"], 100
+        text_mask = torch.ones(batch, text_len, dtype=torch.bool)
+        text_mask[0, 23:] = False
+        host = dict(latents=torch.randn(batch, frames, C, generator=host_gen),
+                    text=torch.randn(batch, text_len, ctx, generator=host_gen),
+                    text_mask=text_mask,
+                    uncond=torch.randn(1, text_len, ctx, generator=host_gen),
+                    uncond_mask=torch.arange(text_len)[None] < 1)
+
+        def step(kind):
+            with torch.device(rank_dev):
+                model = maskdit_from_config(m)
+            model.load_state_dict(weights)
+            model.train()
+            extra = {}
+            if kind != "plain":
+                extra["mesh"] = mesh
+            if kind == "hsdp":
+                extra["placements"] = param_shardings(FsdpTwo(), model)
+            trainer = Trainer.create(model, schedule, opt, **extra)
+            sh = trainer.sharding
+            full = (lambda n, t: sh.to_full(n, t)) if sh is not None else (lambda n, t: t)
+            draws = trainer.step_fn.draw(torch.Generator().manual_seed(34), batch, frames, C,
+                                         "cpu")
+            draws["cfg"][:] = torch.tensor([0.05] + [0.9] * (batch - 1))
+            data = {k: v.to(rank_dev) for k, v in host.items()}
+            sync(rank_dev)
+            reset_counters()
+            res = trainer.step_fn(data, seed=0,
+                                  draws={k: v.to(rank_dev) for k, v in draws.items()},
+                                  return_grads=True)
+            sync(rank_dev)
+            launches = read_counters()
+            grads = {k: full(k, v).detach().cpu() for k, v in res["grads"].items()}
+            params = {k: full(k, v).detach().cpu() for k, v in model.named_parameters()}
+            walls = []
+            for i in range(2):  # warm steps, timed (their own draws)
+                sync(rank_dev)
+                t1 = time.perf_counter()
+                trainer.step_fn(data, seed=1 + i)
+                sync(rank_dev)
+                walls.append(time.perf_counter() - t1)
+            out = dict(loss=res["loss"].item(), grad_norm=res["grad_norm"].item(),
+                       grads=grads, params=params, launches=launches, wall_s=statistics.median(walls),
+                       wrapped=bool(sh is not None and sh.wrapped),
+                       dtensors=sum(hasattr(p, "device_mesh") for p in model.parameters()))
+            del trainer, model, res, sh
+            if kind == "hsdp":
+                # FSDP2's hooks hold the module and its state in a reference
+                # cycle: a wrapped model is freed by the collector alone
+                # (ROADMAP F20)
+                import gc
+
+                gc.collect()
+            return out
+
+        log(f"world: generate checks done at {time.perf_counter() - t_phase:.1f} s")
+        plain_step = step("plain")
+        plain_walls = [plain_step["wall_s"]]
+        for kind in ("mesh", "hsdp", "plain"):
+            if kind == "plain":  # timed again, after the allocator has grown
+                plain_walls.append(step("plain")["wall_s"])
+                break
+            got = step(kind)
+            row, failed = train_step_agreement(got, plain_step, lr, m["depth"],
+                                               train_attention_launches(m),
+                                               n_attn=attention_modules(m))
+            row.update(path=f"train_world1_{kind}", wall_s=got["wall_s"],
+                       plain_wall_s=plain_walls, fsdp2_wrapped=got["wrapped"],
+                       dtensor_params=got["dtensors"], batch=batch, depth=m["depth"])
+            log("train_world1 " + json.dumps(row))
+            log(f"world: {kind} step checked at {time.perf_counter() - t_phase:.1f} s")
+            if kind == "hsdp" and not (got["wrapped"] and got["dtensors"] > 0):
+                raise AssertionError("the HSDP trainer did not wrap its DiT in FSDP2")
+            if failed:
+                raise AssertionError(f"train step at a world of one ({kind}) against the "
+                                     "plain step: " + "; ".join(failed))
+            rows.append(row)
+        log(f"train_world1 plain step walls {plain_walls} s (first, last)")
+    finally:
+        dist.destroy_process_group()
+        log(f"world: left the group at {time.perf_counter() - t_phase:.1f} s")
+    return rows
+
+
+def ring_math(dev="cuda", gen=None, cases=RING_CASES, sp=RING_SP, time_it=True):
+    """Phase 33 (c): the ring's per-hop functions at sp = ``sp`` in one
+    process over hand-rotated blocks (``ring_blocks_forward`` /
+    ``_backward``), f32 and bf16, with and without a T5-style key mask.
+    f32: the output held to kernel 1's (ATTN_F32_ATOL), the gradients to
+    SDPA's (SDPA_GRAD_TOL).  bf16: the output within one bf16 ulp (plus
+    one) of the f32 attention of the same bf16 inputs, and within
+    2^-8 max|v| plus two ulps of kernel 1's bf16 output (its p is rounded
+    to bf16); the gradients by phase 28's rule against SDPA's bf16 ones.
+    The ring's forward and backward timed beside kernel 1's forward."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from ezaudio_tpu_torch.ops.kernels.attention import attention_plain, fused_attention
+    from ezaudio_tpu_torch.parallel.ring_attention import (ring_blocks_backward,
+                                                           ring_blocks_forward)
+
+    rows = []
+    for (B, H, Lq, Lk, D) in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            for masked in (False, True):
+                dname = str(dtype).split(".")[-1]
+                q, k, v = (torch.randn(B, H, L, D, device=dev, generator=gen).to(dtype)
+                           for L in (Lq, Lk, Lk))
+                dout = torch.randn(B, H, Lq, D, device=dev, generator=gen)
+                mask = key_mask(B, Lk, masked, dev)
+                sdpa_mask = None if mask is None else mask[:, None, None, :]
+                out, _, _ = ring_blocks_forward(q, k, v, mask, sp=sp)
+                kern = fused_attention(q, k, v, key_mask=mask)
+                got = dict(zip("qkv", ring_blocks_backward(q, k, v, dout.to(dtype), mask,
+                                                           sp=sp)))
+
+                def sdpa_grads(dt):
+                    ins = [t.to(dt).requires_grad_() for t in (q, k, v)]
+                    o = F.scaled_dot_product_attention(*ins, attn_mask=sdpa_mask)
+                    return dict(zip("qkv", torch.autograd.grad(o, ins, dout.to(dt))))
+
+                sdpa = sdpa_grads(dtype)
+                sync(dev)
+                row = dict(shape=[B, H, Lq, Lk, D], dtype=dname, masked=masked, sp=sp)
+                if dtype == torch.float32:
+                    ok_fwd, err, share = attention_agreement(out, kern, v)
+                    ok_bwd, by = grad_agreement(got, sdpa, SDPA_GRAD_TOL)
+                    row.update(max_abs_err_vs_kernel=err, grads_rel_err_vs_sdpa={
+                        n: r["rel_err"] for n, r in by.items()})
+                else:
+                    ref = attention_plain(q.float(), k.float(), v.float(), key_mask=mask)
+                    ok_ref, err_ref, share = bf16_agreement(out, ref)
+                    slack = 2.0 ** -8 * v.float().abs().max() + 2.0 ** -6 * ref.abs() + 2e-5
+                    d_kern = (out.float() - kern.float()).abs()
+                    ok_fwd = ok_ref and bool((d_kern <= slack).all())
+                    f32 = {n: g.float() for n, g in sdpa_grads(torch.float32).items()}
+                    stats, ok_bwd = {}, True
+                    for n in "qkv":
+                        d_ring = (got[n].float() - f32[n]).abs().max().item()
+                        d_sdpa = (sdpa[n].float() - f32[n]).abs().max().item()
+                        corr = bf16_agreement_stats(got[n], sdpa[n], f32[n])[2]
+                        stats[n] = dict(ring_to_f32=d_ring, sdpa_to_f32=d_sdpa, corr=corr)
+                        ok_bwd &= d_ring <= BF16_REF_FACTOR * d_sdpa and corr > BF16_ATTN_GRAD_CORR
+                    row.update(max_abs_err_vs_f32=err_ref, off_ulp_share=share,
+                               max_abs_err_vs_kernel=d_kern.max().item(), grads=stats)
+                if time_it and not masked and torch.device(dev).type == "cuda":
+                    row["ring_fwd_ms"] = time_ms(lambda: ring_blocks_forward(q, k, v, mask,
+                                                                             sp=sp),
+                                                 reps=3, iters=3)
+                    row["ring_bwd_ms"] = time_ms(lambda: ring_blocks_backward(
+                        q, k, v, dout.to(dtype), mask, sp=sp), reps=3, iters=3)
+                    row["kernel_ms"] = time_ms(lambda: fused_attention(q, k, v, key_mask=mask))
+                log("ring " + json.dumps(row))
+                if not (ok_fwd and ok_bwd) or not np.isfinite(out.float().cpu().numpy()).all():
+                    raise AssertionError(f"ring at sp={sp} {row['shape']} {dname} "
+                                         f"masked={masked}: forward {ok_fwd}, backward {ok_bwd}")
+                rows.append(row)
+    return rows
+
+
 def _kernel_class(name: str) -> str:
     n = name.lower()
     if "attn_fwd" in n:
@@ -4804,6 +5239,22 @@ def main(argv) -> int:
         finally:
             shutil.rmtree(root, ignore_errors=True)
     check_freed("demos and Whisper", before)
+    with phase("33 non-wav, world of one, ring"):
+        root = tempfile.mkdtemp(prefix="ezaudio_nonwav_")
+        try:
+            with phase("33 (a) non-wav"):
+                nonwav = nonwav_paths(f32_main[0]["wav"], 24000, root)
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+        check_batch_shapes(nonwav, RESUNIT_CASES)
+        paths.append(nonwav)
+        check_freed("native batch encode", before)
+        with phase("33 (b) world of one"):
+            world = world_one_paths()
+        paths += world[:2]
+        check_freed("world of one", before)
+        with phase("33 (c) ring"):
+            ring_math("cuda", gen)
 
     missing = uncovered_shapes(paths)
     if missing:

@@ -20,7 +20,10 @@ in-blocks are copied from the base (``init_from_base_``).
 ``dtype=torch.bfloat16`` runs the base and the ControlNet in bf16, as
 ``EzAudio`` does: a base built here is built in f32, its in-blocks copied,
 and both cast after, so the copies start from the f32 weights as the JAX
-package's do.
+package's do.  ``mesh=`` (or a base on a mesh) places the base as
+``EzAudio(mesh=)`` does and replicates the ControlNet's weights on it; a
+call is one prompt, which every rank computes, each decoding its row of
+the batch padded to the world.
 """
 
 from __future__ import annotations
@@ -68,12 +71,16 @@ class EzAudioControlNet:
         """``dtype`` (default: the base's, float32 for a base built here)."""
         own_base = base is None
         if own_base:
+            # built without the mesh: the in-blocks are copied from the whole
+            # weights, the dtype is set, then the base goes on the mesh
             base = EzAudio(model_name=model_name, config=config, config_path=config_path,
                            ckpt_path=ckpt_path, vae_path=vae_path, t5_path=t5_path,
                            tokenizer_path=tokenizer_path, t5_config=t5_config,
-                           vae_config=vae_config, seed=seed, device=device, mesh=mesh)
+                           vae_config=vae_config, seed=seed, device=device)
         elif dtype is not None and dtype != base.dtype:
             raise ValueError(f"dtype {dtype} differs from the base's {base.dtype}")
+        if not own_base and mesh is None:
+            mesh = base.mesh
         dtype = dtype or base.dtype
         self.base = base
         self.device = base.device
@@ -82,13 +89,22 @@ class EzAudioControlNet:
         with torch.device(self.device):
             cn = controlnet_from_config(cfg.model.to_dict(), cfg.controlnet.to_dict())
         init_random_(cn, gen)
-        cn = init_from_base_(cn, base.dit.model)
+        if base._sharding is not None:  # a placed base: copy from its whole weights
+            _init_from_state_dict_(cn, base._sharding.full_state_dict())
+        else:
+            cn = init_from_base_(cn, base.dit.model)
         if controlnet_path:
             load_state_dict_strict(cn, load_torch_checkpoint(controlnet_path, "model"),
                                    controlnet_path)
         if own_base:
             base._cast_(dtype)
+            if mesh is not None:
+                base._apply_mesh(mesh)
         self.controlnet = cast_params_(cn, dtype).eval().requires_grad_(False)
+        if mesh is not None:  # the ControlNet's weights are replicated on the mesh
+            from ezaudio_tpu_torch.parallel.mesh import replicate
+
+            replicate(mesh, self.controlnet)
         self.dtype = dtype
         cond_kw = cfg.conditioner.to_dict()
         if cond_kw.get("condition_type") == "vc":
@@ -107,12 +123,14 @@ class EzAudioControlNet:
             n = lat.shape[0]
             ts = base._timestep(t)
             c, cm = ctx[:n], cmask[:n]
-            concat, _ = dit(lat, ts, c, context_mask=cm, forward_model=False)
-            skips = self.controlnet(
-                concat, ts, c, context_mask=cm,
-                condition=condition.repeat(n // condition.shape[0], 1, 1),
-                conditioning_scale=conditioning_scale)
-            return dit.forward_backbone(concat, ts, c, context_mask=cm, controlnet_skips=skips)
+            with base._dit_context():
+                concat, _ = dit(lat, ts, c, context_mask=cm, forward_model=False)
+                skips = self.controlnet(
+                    concat, ts, c, context_mask=cm,
+                    condition=condition.repeat(n // condition.shape[0], 1, 1),
+                    conditioning_scale=conditioning_scale)
+                return dit.forward_backbone(concat, ts, c, context_mask=cm,
+                                            controlnet_skips=skips)
 
         schedule = base.noise_scheduler
         if sampler == "dpm":
@@ -186,6 +204,18 @@ class EzAudioControlNet:
                                     float(conditioning_scale), sampler, gen)
         wav = base._decode(scale_shift_re(latents, base.scale, base.shift))[0]
         return sr, wav[:original_length]
+
+
+def _init_from_state_dict_(controlnet, sd) -> None:
+    """``init_from_base_`` from a MaskDiT state dict (``model.*`` names)
+    in the unsharded layout."""
+    from ezaudio_tpu_torch.models.controlnet import SHARED_WITH_BASE
+
+    for name in SHARED_WITH_BASE:
+        mine = getattr(controlnet, name)
+        if mine is not None:
+            pre = f"model.{name}."
+            mine.load_state_dict({k[len(pre):]: v for k, v in sd.items() if k.startswith(pre)})
 
 
 # the reference's spelling (api/controlnet.py class EzAudio_ControlNet)

@@ -24,7 +24,9 @@ program: a CUDA graph captured at the first call of a signature and
 replayed after (``api/graphs.py``), the same function eagerly on the CPU.
 ``attn_impl`` names that compute kernel 1's function (f32 softmax) run on
 it; ``'bf16'`` and ``'chunked_bf16'`` run the JAX package's bf16-logit
-einsum formulation in plain torch; ``'ring'`` raises ``NotImplementedError``.
+einsum formulation in plain torch; ``'ring'`` runs self-attention on the
+sequence-parallel ring inside ``parallel.ring_context(mesh)`` (and raises
+outside one, as JAX asserts).
 
 ``config=`` builds any MaskDiT architecture the JAX package builds (its
 ``model:`` block's switches; concat/joint context needs
@@ -37,12 +39,24 @@ without a path keeps its random weights, drawn from ``seed``.
 copies of the parameters, made once on the device, where the JAX package
 casts its f32 parameters at each use, and f32 where it keeps f32 (norms,
 RoPE, T5's scores and softmax, the sampler's update, the VAE snakes); both
-kernels run in their bf16 modes.  ``mesh`` raises ``NotImplementedError``.
+kernels run in their bf16 modes.
+
+``mesh=parallel.make_mesh(...)`` (one process per GPU, every rank making
+the same calls): the DiT is placed by ``dit_param_shardings`` (FSDP2 over
+dp x fsdp, Megatron tp), T5 and the VAE are replicated (rank 0's weights
+broadcast).  A call's batch is padded to the data-parallel world (dp x
+fsdp, repeating the last row), each rank samples and decodes its rows
+(in chunks of 4, the JAX package's 4 x world a call), and every rank
+returns the whole batch, gathered.  The noise is drawn for the request's
+batch before the split, so a (prompt, seed) pair gives the single-device
+waveform.  ``fused=True`` on a mesh is the staged program per rank on the
+CPU, and on CUDA with dp alone (no collective may run inside a graph).
 Every random draw goes through ``utils.randn`` (ROADMAP F1).
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 import weakref
 from collections import OrderedDict
@@ -91,16 +105,15 @@ DTYPES = (torch.float32, torch.bfloat16)  # the dtypes both kernels take
 # bf16 variants (ops/attention.py BF16_IMPLS) keep their logits in bf16,
 # another function, and run as plain torch ops.
 ATTN_ON_KERNEL = ("auto", "einsum", "pallas", "flash", "chunked")
-ATTN_UNPORTED = ("ring",)
+ATTN_RING = ("ring",)  # self-attention on the sp ring (parallel/ring_attention.py)
 FUSED_CACHE = 32  # fused programs kept per EzAudio (their graphs share one pool)
 
 
 def check_attn_impl(attn_impl: Optional[str]) -> None:
     """Accept the attention implementations that are ported."""
-    if attn_impl is None or attn_impl in ATTN_ON_KERNEL or attn_impl in BF16_IMPLS:
+    if (attn_impl is None or attn_impl in ATTN_ON_KERNEL or attn_impl in BF16_IMPLS
+            or attn_impl in ATTN_RING):
         return
-    if attn_impl in ATTN_UNPORTED:
-        raise NotImplementedError(f"attn_impl={attn_impl!r} is not ported yet")
     raise ValueError(f"unknown attn_impl {attn_impl!r}")
 
 
@@ -174,7 +187,9 @@ class EzAudio:
         mesh=None,
     ):
         if mesh is not None:
-            raise NotImplementedError("mesh (multi-device inference) is not ported yet")
+            from ezaudio_tpu_torch.parallel.mesh import check_mesh
+
+            check_mesh(mesh)
         if dtype not in DTYPES:
             raise NotImplementedError(f"dtype {dtype}: float32 and bfloat16 are ported")
         self.device = resolve_device(device)
@@ -233,6 +248,69 @@ class EzAudio:
         self._fused = OrderedDict()
         self._graph_pool = None
         self._cast_(dtype)
+        self.mesh, self._sharding = None, None
+        if mesh is not None:
+            self._apply_mesh(mesh)
+
+    def _apply_mesh(self, mesh) -> None:
+        """Place the weights on ``mesh``: rank 0's weights everywhere, then
+        the DiT by ``dit_param_shardings`` (after the dtype is set)."""
+        from ezaudio_tpu_torch.parallel.mesh import replicate
+        from ezaudio_tpu_torch.parallel.sharding import shard_dit
+
+        for m in (self.dit, self.t5, self.autoencoder.model):
+            replicate(mesh, m)
+        self._sharding = shard_dit(mesh, self.dit)
+        if self._sharding.wrapped:
+            from torch.distributed.fsdp import register_fsdp_forward_method
+
+            register_fsdp_forward_method(self.dit, "forward_backbone")
+        self.mesh = mesh
+
+    def _dit_context(self):
+        """Around a call of the DiT: FSDP2 cannot gather its weights in
+        inference mode, so a wrapped DiT runs under ``no_grad`` instead."""
+        if self._sharding is None or not self._sharding.wrapped:
+            return contextlib.nullcontext()
+        stack = contextlib.ExitStack()
+        stack.enter_context(torch.inference_mode(False))
+        stack.enter_context(torch.no_grad())
+        return stack
+
+    @property
+    def _world(self) -> int:
+        """The data-parallel world: the ways a call's batch splits."""
+        from ezaudio_tpu_torch.parallel.mesh import data_world
+
+        return 1 if self.mesh is None else data_world(self.mesh)
+
+    def _pad_rows(self, x, pad: int):
+        """``x`` with its last row repeated ``pad`` times."""
+        if pad == 0 or x is None:
+            return x
+        return torch.cat([x, x[-1:].expand(pad, *x.shape[1:])], dim=0)
+
+    def _shard_rows(self, x):
+        """This rank's rows of ``x`` (all of them without a mesh; replicated
+        when the rows do not divide the world)."""
+        if self.mesh is None:
+            return x
+        from ezaudio_tpu_torch.parallel.mesh import data_rank, shard_batch
+
+        if isinstance(x, list):
+            if len(x) % self._world:
+                return x
+            k = len(x) // self._world
+            return x[data_rank(self.mesh) * k:(data_rank(self.mesh) + 1) * k]
+        return shard_batch(self.mesh, x, strict=False)
+
+    def _gather_rows(self, x):
+        """Every rank's rows, in order (``x`` itself without a mesh)."""
+        if self.mesh is None:
+            return x
+        from ezaudio_tpu_torch.parallel.mesh import gather_rows
+
+        return gather_rows(self.mesh, x)
 
     def _cast_(self, dtype: torch.dtype) -> None:
         """The compute dtype of the DiT, T5 and the VAE (``utils.cast_params_``),
@@ -294,23 +372,37 @@ class EzAudio:
         if random_seed is None:
             random_seed = np.random.randint(0, MAX_SEED)
         gen = torch.Generator(device=self.device).manual_seed(int(random_seed))
+        # on a mesh: pad the batch to the data-parallel world, each rank its rows
+        pad = (-B) % self._world
+        texts = self._shard_rows(list(texts) + [texts[-1]] * pad)
         cond, cond_mask = self.embed_text(texts)
         if guidance_scale:
-            uncond, uncond_mask = self._uncond_embedding(B)
+            uncond, uncond_mask = self._uncond_embedding(len(texts))
             ctx = torch.cat([cond, uncond], dim=0)
             cmask = torch.cat([cond_mask, uncond_mask], dim=0)
         else:
             guidance_scale = None
             ctx, cmask = cond, cond_mask
-        noise = self._initial_noise((B, frames, self.latent_dim), initial_latents, gen)
+        shape = (B, frames, self.latent_dim)
+        # the request batch's draws, then the padding and the split
+        noise = self._shard_rows(self._pad_rows(self._initial_noise(shape, initial_latents,
+                                                                    gen), pad))
+        step_noise = None
+        if self.mesh is not None:
+            def step_noise(i):
+                draw = utils.randn(shape, gen, self.device, self.dtype)
+                return self._shard_rows(self._pad_rows(draw, pad))
         if gt is not None:
             gt = torch.as_tensor(gt, dtype=self.dtype, device=self.device)
             gt_mask = torch.as_tensor(gt_mask, device=self.device).bool()
+            gt = self._shard_rows(self._pad_rows(gt, pad))
+            gt_mask = self._shard_rows(self._pad_rows(gt_mask, pad))
         with quant_context(quant), attention_impl_context(attn_impl):
-            return self._denoise(ctx, cmask, noise, ddim_steps, guidance_scale,
-                                 guidance_rescale, eta, guidance_interval, sampler,
-                                 layer_cache, cfg_refresh, gt=gt, gt_mask=gt_mask,
-                                 generator=gen)
+            latents = self._denoise(ctx, cmask, noise, ddim_steps, guidance_scale,
+                                    guidance_rescale, eta, guidance_interval, sampler,
+                                    layer_cache, cfg_refresh, gt=gt, gt_mask=gt_mask,
+                                    generator=gen, step_noise=step_noise)
+        return self._gather_rows(latents)[:B]
 
     def _denoise(self, ctx, cmask, noise, steps, guidance_scale, guidance_rescale, eta,
                  guidance_interval=None, sampler="ddim", layer_cache=None, cfg_refresh=1,
@@ -326,7 +418,8 @@ class EzAudio:
             if gt is not None:
                 r = n // gt.shape[0]
                 kw.update(gt=gt.repeat(r, 1, 1), mae_mask_infer=gt_mask.repeat(r, 1, 1))
-            out, _ = self.dit(lat, self._timestep(t), ctx[:n], context_mask=cmask[:n], **kw)
+            with self._dit_context():
+                out, _ = self.dit(lat, self._timestep(t), ctx[:n], context_mask=cmask[:n], **kw)
             return out
 
         steps, schedule = int(steps), self.noise_scheduler
@@ -364,8 +457,11 @@ class EzAudio:
         return wav.float()
 
     def _decode(self, pred):
-        """Latents (B, L, C) -> waveform (B, T) on the host."""
-        return self._decode_device(pred).cpu().numpy()
+        """Latents (B, L, C) -> waveform (B, T) on the host; on a mesh each
+        rank decodes its rows of the batch padded to the world."""
+        B = pred.shape[0]
+        rows = self._shard_rows(self._pad_rows(pred, (-B) % self._world))
+        return self._gather_rows(self._decode_device(rows))[:B].cpu().numpy()
 
     # ------------------------------------------------------------------
     def _fused_impl(self, steps, guidance_scale, guidance_rescale, eta, guidance_interval,
@@ -428,24 +524,33 @@ class EzAudio:
         if sampler not in SAMPLERS:
             raise ValueError(f"sampler must be one of {SAMPLERS}, got {sampler!r}")
         B, steps, eta = len(texts), int(ddim_steps), float(eta)
+        if self.mesh is not None and self.device.type == "cuda" and (
+                self._sharding.fsdp_names or self._world != self.mesh.size()):
+            raise NotImplementedError("fused=True on a CUDA mesh takes dp alone: fsdp, tp "
+                                      "and sp run collectives, which a CUDA graph cannot hold")
         gen = torch.Generator(device=self.device).manual_seed(int(random_seed))
-        ids, mask = self._tokens(texts)
+        pad = (-B) % self._world
+        ids, mask = self._tokens(self._shard_rows(list(texts) + [texts[-1]] * pad))
         cfg = bool(guidance_scale)
         shape = (B, frames, self.latent_dim)
-        noise = self._initial_noise(shape, initial_latents, gen)
+        noise = self._shard_rows(self._pad_rows(self._initial_noise(shape, initial_latents,
+                                                                    gen), pad))
         eta_noise = None
         if sampler == "ddim" and eta > 0:
             # the staged DDIM loop's per-step draws, one per step in its order
-            eta_noise = torch.stack([utils.randn(shape, gen, self.device, self.dtype)
-                                     for _ in range(steps)])
+            eta_noise = torch.stack([
+                self._shard_rows(self._pad_rows(utils.randn(shape, gen, self.device,
+                                                            self.dtype), pad))
+                for _ in range(steps)])
         with quant_context(quant):
             mode = current_quant_mode()
+        b = ids.shape[0]
         prog = self._fused_program(
             steps, guidance_scale if cfg else None, guidance_rescale, eta,
             tuple(guidance_interval) if guidance_interval is not None else None, sampler,
             mode, tuple(layer_cache) if layer_cache is not None else None, attn_impl,
-            self.dtype, B, frames, initial_latents is None, cfg, min(B, 4), int(cfg_refresh))
-        return prog(ids, mask, noise, eta_noise).cpu().numpy()
+            self.dtype, b, frames, initial_latents is None, cfg, min(b, 4), int(cfg_refresh))
+        return self._gather_rows(prog(ids, mask, noise, eta_noise))[:B].cpu().numpy()
 
     # ------------------------------------------------------------------
     @torch.inference_mode()
@@ -502,7 +607,9 @@ class EzAudio:
         ``attn_impl``: the JAX package's names that compute kernel 1's
         function (``'auto'``, ``'einsum'``, ``'pallas'``, ``'flash'``,
         ``'chunked'``) all run on it; ``'bf16'`` and ``'chunked_bf16'`` run
-        the bf16-logit einsum formulation (plain torch); ``'ring'`` raises.
+        the bf16-logit einsum formulation (plain torch); ``'ring'`` runs
+        self-attention on the sequence-parallel ring inside
+        ``parallel.ring_context(mesh)`` and raises outside one.
         """
         check_attn_impl(attn_impl)
         batched = not isinstance(text, str)

@@ -4,11 +4,11 @@ The reference's audiotools carries mixins that shell out to external
 resources: ffmpeg (ffmpeg.py:87-204: loudness, resampling and loading of
 non-wav formats), Whisper transcription (whisper.py), and IPython/gradio
 playback.  Here transcription goes through ``audio/whisper.py`` and
-playback through ``audio/playback.py``.  :func:`ffmpeg_load` decodes with
-the ffmpeg binary when one is installed, else reads a ``.wav`` natively,
-else raises ``ImportError``; the JAX package's first choice, its
-in-process libavcodec bridge, is not carried by the port yet (ROADMAP
-queue 1 item 5).
+playback through ``audio/playback.py``.  :func:`ffmpeg_load` decodes a
+non-wav file through the in-process libavcodec bridge
+(``data/codec_loader.py``) when it is available, else with the ffmpeg
+binary when one is installed, else reads a ``.wav`` natively, else raises
+``ImportError``: the JAX package's order.
 """
 
 from __future__ import annotations
@@ -25,8 +25,14 @@ def ffmpeg_available() -> bool:
 
 
 def ffmpeg_load(path: str, sr: Optional[int] = None) -> tuple:
-    """Decode a file -> (float32 mono, sr): the ffmpeg binary if one
-    exists, then the native wav reader for wavs."""
+    """Decode a file -> (float32 mono, sr): the codec bridge for a non-wav
+    file, then the ffmpeg binary if one exists, then the native wav reader
+    for wavs."""
+    from ezaudio_tpu_torch.data import codec_loader
+    from ezaudio_tpu_torch.data.audio_io import load_audio
+
+    if not path.lower().endswith(".wav") and codec_loader.available():
+        return load_audio(path, sr=sr)
     if ffmpeg_available():
         cmd = ["ffmpeg", "-i", path, "-f", "f32le", "-ac", "1"]
         if sr:
@@ -36,13 +42,10 @@ def ffmpeg_load(path: str, sr: Optional[int] = None) -> tuple:
         wav = np.frombuffer(out, np.float32)
         return wav, sr or _probe_sr(path)
     if path.lower().endswith(".wav"):
-        from ezaudio_tpu_torch.data.audio_io import load_audio
-
         return load_audio(path, sr=sr)
     raise ImportError(
-        f"Decoding {path} requires an ffmpeg binary (or the native codec bridge, "
-        "which the port does not carry yet); neither is available, so only .wav "
-        "is supported.")
+        f"Decoding {path} requires the native codec bridge (libavformat/libavcodec + "
+        "g++) or an ffmpeg binary; neither is available, so only .wav is supported.")
 
 
 def _probe_sr(path: str) -> int:

@@ -53,6 +53,9 @@ class AudioSignal:
     @classmethod
     def load(cls, path: str, sr: Optional[int] = None, offset: float = 0.0,
              duration: Optional[float] = None, device=None) -> "AudioSignal":
+        """A file -> (1, C, T): wav natively, mp3/flac/ogg and the other
+        libav containers through the codec bridge (``data/audio_io.py``;
+        ``ImportError`` without it); ``offset`` and ``duration`` in seconds."""
         wav, rate = load_audio(path, sr=sr, mono=False)
         if wav.ndim == 1:
             wav = wav[None, :]
@@ -226,6 +229,8 @@ class AudioSignal:
 
     # ------------------------------------------------------------------
     def write(self, path: str) -> "AudioSignal":
+        """The first item to ``path``, the container by extension (non-wav
+        through the codec bridge, ``ImportError`` without it)."""
         from ezaudio_tpu_torch.data.audio_io import save_audio
 
         save_audio(path, self.audio_data[0].T, self.sample_rate)

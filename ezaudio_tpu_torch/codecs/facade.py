@@ -17,10 +17,11 @@ EnCodec's continuous latent).  Also carries the chunked overlap-discard
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
+from ezaudio_tpu_torch import utils
 from ezaudio_tpu_torch.codecs.oobleck import vae_sample
 from ezaudio_tpu_torch.codecs.oobleck_fast import decode_fused, encode_fused
 
@@ -45,10 +46,14 @@ class AutoencoderFacade:
 
     @torch.no_grad()
     def encode(self, audio, generator: Optional[torch.Generator] = None,
-               sample: bool = True) -> torch.Tensor:
+               sample: bool = True, rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
         """audio (B, T, 1) -> latent (B, L, C).  The VAE with
         ``quantization_first`` draws its posterior sample from ``generator``
-        (``sample=False``: the mean); without, it returns mean || scale."""
+        (``sample=False``: the mean); without, it returns mean || scale.
+        ``rows=(start, total)``: ``audio`` is rows ``start .. start + B`` of
+        a batch of ``total`` (one rank's share of a data-parallel batch);
+        the posterior noise is drawn for all ``total`` rows and these rows
+        kept, so the sample is the whole batch's."""
         a, m = self._tensor(audio), self.model
         if self.model_type == "encodec":
             z = m.encoder(a)
@@ -56,7 +61,14 @@ class AutoencoderFacade:
         if self.model_type == "dac":
             return m.encode(a)[0] if self.quantization_first else m.encode_latent(a)
         ms = encode_fused(m.encoder, a)
-        return vae_sample(ms, sample, generator) if self.quantization_first else ms
+        if not self.quantization_first:
+            return ms
+        noise = None
+        if rows is not None and sample:
+            start, total = rows
+            shape = (total,) + tuple(ms.shape[1:-1]) + (ms.shape[-1] // 2,)
+            noise = utils.randn(shape, generator, ms.device, ms.dtype)[start:start + len(ms)]
+        return vae_sample(ms, sample, generator, noise=noise)
 
     @torch.no_grad()
     def decode(self, embedding, generator: Optional[torch.Generator] = None) -> torch.Tensor:

@@ -8,10 +8,12 @@ channels as (C, T) with ``mono=False``), polyphase resampling to ``sr``.
 ``save_wav`` writes f32 or 16-bit PCM RIFF.  :func:`load_audio` and
 :func:`save_audio` have the JAX package's contract (``load_wav`` /
 ``save_audio`` of ``ezaudio_tpu/data/audio_io.py``): the reader returns
-``(wav, sr)``, ``sr`` the file's own rate when none is asked for.  Other
-containers need the JAX package's libavcodec bridge, which the port does
-not carry yet (ROADMAP queue 1 item 5): they raise ``ImportError``, as
-the JAX package does without its bridge.
+``(wav, sr)``, ``sr`` the file's own rate when none is asked for.  Every
+other container (mp3, flac, ogg, ...) goes through the in-process
+libavcodec bridge (``data/codec_loader.py``, ``native/ezaudio_codec.cpp``):
+decoded to the same shapes as a wav, resampled by the same polyphase
+filter, and written by extension.  Without the bridge (no libav or no
+``g++``) they raise ``ImportError``, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -42,10 +44,22 @@ def _is_wav(path: str) -> bool:
         return path.lower().endswith(".wav")
 
 
-def _no_bridge(path: str, verb: str) -> ImportError:
-    return ImportError(f"{verb} {path} needs the native codec bridge (libavformat/"
-                       "libavcodec), which the port does not carry yet; only .wav is "
-                       "supported")
+def _bridge(path: str, verb: str):
+    """The codec bridge module, or ``ImportError`` when it is unavailable."""
+    from ezaudio_tpu_torch.data import codec_loader
+
+    if not codec_loader.available():
+        raise ImportError(f"{verb} {path} requires the native codec bridge (libavformat/"
+                          "libavcodec + g++), which is unavailable here "
+                          f"({codec_loader.build_error}); only .wav is supported without it")
+    return codec_loader
+
+
+def _read_other(path: str, mono: bool):
+    """A non-wav file through the bridge, shaped as :func:`_read_wav`'s
+    output: (T,) mono, (C, T) multichannel."""
+    data, file_sr = _bridge(path, "Decoding").decode(path, mono=mono)
+    return (data if mono else (data.T if data.ndim == 2 else data[None, :])), file_sr
 
 
 def _read_wav(path: str, mono: bool):
@@ -64,15 +78,11 @@ def _read_wav(path: str, mono: bool):
 
 
 def load_wav(path: str, sr: Optional[int] = None, mono: bool = True) -> np.ndarray:
-    """A wav file -> its float32 waveform at ``sr`` (the file's rate when
+    """An audio file -> its float32 waveform at ``sr`` (the file's rate when
     None): (T,) mono, or with ``mono=False`` (C, T) for a multichannel
-    file and (T,) for a mono one."""
-    with open(path, "rb") as f:
-        head = f.read(12)
-    if head[:4] != b"RIFF" or head[8:12] != b"WAVE":
-        raise ValueError(f"{path}: only RIFF/WAVE files are supported")
-    wav, file_sr = _read_wav(path, mono)
-    return wav if sr is None else resample(wav, file_sr, sr)
+    file and (T,) for a mono one.  Non-wav containers go through the codec
+    bridge (``ImportError`` without it)."""
+    return load_audio(path, sr=sr, mono=mono)[0]
 
 
 def load_audio(path: str, sr: Optional[int] = None, mono: bool = True
@@ -80,11 +90,9 @@ def load_audio(path: str, sr: Optional[int] = None, mono: bool = True
     """An audio file -> ``(float32 waveform, rate)``: ``librosa.load``
     semantics as the JAX package's ``load_wav``: (T,) mono, or with
     ``mono=False`` (C, T) for a multichannel file; resampled to ``sr`` when
-    given, and ``rate`` is then ``sr``.  Non-wav files raise
-    ``ImportError``."""
-    if not _is_wav(path):
-        raise _no_bridge(path, "Decoding")
-    wav, file_sr = _read_wav(path, mono)
+    given, and ``rate`` is then ``sr``.  Non-wav files decode through the
+    codec bridge, or raise ``ImportError`` without it."""
+    wav, file_sr = _read_wav(path, mono) if _is_wav(path) else _read_other(path, mono)
     if sr is not None and sr != file_sr:
         return resample(wav, file_sr, sr), sr
     return wav, file_sr
@@ -108,11 +116,16 @@ def save_wav(path: str, wav: np.ndarray, sr: int, subtype: str = "float") -> Non
 def save_audio(path: str, wav: np.ndarray, sr: int, subtype: str = "float",
                bitrate: int = 0) -> None:
     """Write audio in the container the extension names: ``.wav`` natively
-    (:func:`save_wav`); any other raises ``ImportError`` (``bitrate`` is
-    the bridge's, kept for the JAX package's signature)."""
-    if not path.lower().endswith(".wav"):
-        raise _no_bridge(path, "Encoding")
-    save_wav(path, wav, sr, subtype=subtype)
+    (:func:`save_wav`), any other (mp3/flac/ogg/...) through the codec
+    bridge at ``bitrate`` (0: the codec's default), or ``ImportError``
+    without it."""
+    if path.lower().endswith(".wav"):
+        return save_wav(path, wav, sr, subtype=subtype)
+    codec = _bridge(path, "Encoding")
+    wav = np.asarray(wav)
+    if wav.ndim == 2 and wav.shape[0] < wav.shape[1]:
+        wav = wav.T  # (T, C), as save_wav
+    codec.encode(path, wav, sr, bitrate=bitrate)
 
 
 def peak_normalize(wav: np.ndarray, eps: float = 1e-9) -> np.ndarray:

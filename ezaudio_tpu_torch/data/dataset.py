@@ -17,8 +17,12 @@
 
 The numpy draws are the JAX package's, in its order, so one manifest and
 one seed give the same batches bit for bit, augmentations included.
-``use_native=True`` raises until the native loader is ported (ROADMAP
-queue 1 item 9).
+``use_native=True`` reads each batch with one call of the threaded C++
+loader (``data/native_loader.py``: decode, crop, pad and normalise in a
+thread pool, seeded from the dataset's generator), where its fixed
+policy applies: no augmenter, mono, norm, no offline embeddings or
+prepare mode, and the library available; an item it reports an error
+for is read by the Python path instead.
 """
 
 from __future__ import annotations
@@ -51,9 +55,6 @@ class EACaps:
                  uncond_path: Optional[str] = None, cfg_prob: float = 0.0,
                  prepare_mode: bool = False, seed: int = 0,
                  use_native: bool = False, native_threads: int = 8, **kwargs):
-        if use_native:
-            raise NotImplementedError("use_native (the native batch loader) is not ported "
-                                      "yet (ROADMAP queue 1 item 9)")
         self.data_dir = data_dir
         with open(meta_dir, newline="") as f:
             rows = [r for r in csv.DictReader(f) if r["split"] == subset]
@@ -76,6 +77,13 @@ class EACaps:
             if uncond_path is None:
                 raise ValueError("offline embeddings (text_path) need uncond_path")
             self.uncond = dict(np.load(uncond_path))
+        self.use_native = False
+        if use_native and self.augmenter is None and mono and norm:
+            from ezaudio_tpu_torch.data import native_loader
+
+            if native_loader.available():
+                self.use_native = True
+                self.native_threads = native_threads
 
     def __len__(self):
         return len(self.meta)
@@ -128,7 +136,11 @@ class EACaps:
         n_full = len(order) // batch_size
         end = n_full * batch_size if drop_remainder else len(order)
         for i in range(0, end, batch_size):
-            items = [self[j] for j in order[i: i + batch_size]]
+            idx = order[i: i + batch_size]
+            if self.use_native and not self.prepare_mode and not self.text_path:
+                yield self._native_batch(idx)
+                continue
+            items = [self[j] for j in idx]
             if self.prepare_mode:
                 yield {"text": [it[0] for it in items], "index": [it[1] for it in items]}
             elif self.text_path:
@@ -138,6 +150,20 @@ class EACaps:
             else:
                 yield {"audio": np.stack([it[0] for it in items]),
                        "text": [it[1] for it in items]}
+
+
+    def _native_batch(self, idx) -> dict:
+        """One ``load_batch`` call for the rows ``idx``; an item with an
+        error status is read by :meth:`load_audio`."""
+        from ezaudio_tpu_torch.data import native_loader
+
+        paths = [os.path.join(self.data_dir, self.meta[j]["audio_path"]) for j in idx]
+        audio, status = native_loader.load_batch(
+            paths, int(self.seg_len * self.sr), self.sr, normalize=self.norm,
+            seed=int(self.rng.integers(1, 2**63 - 1)), n_threads=self.native_threads)
+        for b in np.nonzero(status)[0]:
+            audio[b] = self.load_audio(paths[b])
+        return {"audio": audio, "text": [self.meta[j]["caption"] for j in idx]}
 
 
 class ResumableIterator:

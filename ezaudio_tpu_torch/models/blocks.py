@@ -11,6 +11,11 @@ Attention (self and cross) goes through ``ops/kernels/attention.py``:
 the hand-written CUDA kernel for CUDA tensors, its plain twin on the CPU;
 inside ``attention_impl_context('bf16' | 'chunked_bf16')`` it is the
 JAX package's bf16-logit einsum formulation in plain torch instead.
+Self-attention runs the sequence-parallel ring
+(``parallel/ring_attention.py``) under ``'ring'``, or under ``'auto'``
+inside a ``ring_context`` whose mesh has sp > 1; cross-attention stays on
+the kernel.  The heads are read from the projections' width, so a
+tensor-parallel shard (``parallel/sharding.py``) runs H/tp of them.
 The linear layers are ``ops/quant.py::QuantLinear``: int8 inside
 ``quant_context('int8')``, float otherwise.
 """
@@ -73,8 +78,10 @@ class Attention(nn.Module):
 
     def __init__(self, dim: int, num_heads: int, context_dim: Optional[int] = None,
                  qkv_bias: bool = False, qk_scale: Optional[float] = None,
-                 qk_norm: Optional[str] = None, rope_mode: str = "none", extras: int = 0):
+                 qk_norm: Optional[str] = None, rope_mode: str = "none", extras: int = 0,
+                 attention_impl: str = "auto"):
         super().__init__()
+        self.attention_impl = attention_impl
         self.num_heads = num_heads
         self.head_dim = dim // num_heads
         self.scale = qk_scale or self.head_dim ** -0.5
@@ -118,15 +125,31 @@ class Attention(nn.Module):
         B, L, _ = x.shape
         ctx = x if context is None else context
         Lk = ctx.shape[1]
-        H, Dh = self.num_heads, self.head_dim
-        q = self.to_q(x).view(B, L, H, Dh).transpose(1, 2)
-        k = self.to_k(ctx).view(B, Lk, H, Dh).transpose(1, 2)
-        v = self.to_v(ctx).view(B, Lk, H, Dh).transpose(1, 2)
+        Dh = self.head_dim  # the heads: all, or this tensor-parallel rank's
+        q = self.to_q(x).view(B, L, -1, Dh).transpose(1, 2)
+        k = self.to_k(ctx).view(B, Lk, -1, Dh).transpose(1, 2)
+        v = self.to_v(ctx).view(B, Lk, -1, Dh).transpose(1, 2)
         if self.norm_q is not None:
             q, k = self.norm_q(q), self.norm_k(k)
         if self.rope_mode != "none":  # self-attention only (cross passes rope "none")
             q, k = self._rope(q, k)
-        impl = current_attention_impl()
+        impl = self.attention_impl
+        if impl == "auto":
+            impl = current_attention_impl() or "auto"
+        if context is None and impl in ("auto", "ring"):
+            from ezaudio_tpu_torch.parallel.mesh import axis_size
+            from ezaudio_tpu_torch.parallel.ring_attention import (current_ring_context,
+                                                                   ring_attention)
+
+            rctx = current_ring_context()
+            if impl == "ring" and rctx is None:
+                raise RuntimeError("attention_impl='ring' requires running inside "
+                                   "ring_context(mesh, ...)")
+            if rctx is not None and (impl == "ring" or axis_size(rctx[0], rctx[1]) > 1):
+                mesh, axis, batch_axes = rctx
+                out = ring_attention(q, k, v, mesh, key_mask=context_mask, scale=self.scale,
+                                     axis=axis, batch_axes=batch_axes)
+                return self.proj(out.transpose(1, 2).reshape(B, L, -1))
         if impl in BF16_IMPLS:
             mask = None if context_mask is None else context_mask.bool()[:, None, None, :]
             fn = chunked_dot_product_attention if impl == "chunked_bf16" else dot_product_attention
@@ -134,7 +157,7 @@ class Attention(nn.Module):
         else:
             out = fused_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                                   key_mask=context_mask, scale=self.scale)
-        return self.proj(out.transpose(1, 2).reshape(B, L, H * Dh))
+        return self.proj(out.transpose(1, 2).reshape(B, L, -1))
 
 
 class AdaLN(nn.Module):
@@ -196,7 +219,7 @@ class DiTBlock(nn.Module):
                  time_fusion: str = "ada_sola_bias", ada_sola_rank: Optional[int] = 32,
                  ada_sola_alpha: Optional[float] = 32, skip: bool = False,
                  skip_norm: bool = False, rope_mode: str = "none",
-                 context_norm: bool = False, extras: int = 0):
+                 context_norm: bool = False, extras: int = 0, attention_impl: str = "auto"):
         super().__init__()
         if time_fusion not in TIME_FUSIONS:
             raise NotImplementedError(f"time_fusion={time_fusion!r}")
@@ -206,7 +229,8 @@ class DiTBlock(nn.Module):
                       if time_fusion != "token" else None)
         self.norm1 = make_norm(norm_layer, dim)
         self.attn = Attention(dim, num_heads, qkv_bias=qkv_bias, qk_scale=qk_scale,
-                              qk_norm=qk_norm, rope_mode=rope_mode, extras=extras)
+                              qk_norm=qk_norm, rope_mode=rope_mode, extras=extras,
+                              attention_impl=attention_impl)
         self.cross = context_dim is not None
         if self.cross:
             self.norm2 = make_norm(norm_layer, dim)

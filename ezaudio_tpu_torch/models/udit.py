@@ -121,7 +121,7 @@ class UDiT(nn.Module):
                  context_max_length: Optional[int] = None,
                  context_pe_method: str = "none", pe_method: str = "none",
                  rope_mode: str = "none", use_conv: bool = True, skip: bool = True,
-                 skip_norm: bool = True):
+                 skip_norm: bool = True, attention_impl: str = "auto"):
         super().__init__()
         if input_type not in INPUT_TYPES:
             raise NotImplementedError(f"input_type={input_type!r}")
@@ -172,7 +172,8 @@ class UDiT(nn.Module):
                 act_layer=act_layer, norm_layer=norm_layer, time_fusion=time_fusion,
                 ada_sola_rank=ada_sola_rank, ada_sola_alpha=ada_sola_alpha,
                 skip=with_skip, skip_norm=skip_norm and with_skip,
-                rope_mode=rope_mode, context_norm=context_norm, extras=extras)
+                rope_mode=rope_mode, context_norm=context_norm, extras=extras,
+                attention_impl=attention_impl)
 
         half = depth // 2
         self.in_blocks = nn.ModuleList([block(False) for _ in range(half)])

@@ -33,9 +33,12 @@ class ActProj(nn.Module):
     f32 in a bf16 model and are cast to the activations' dtype at use, as
     the JAX package does (``cast_``)."""
 
+    tp_inner = None  # this rank's inner channels under tensor parallelism
+
     def __init__(self, dim: int, inner: int, activation_fn: str):
         super().__init__()
         mult, self.fn = ACTIVATIONS[activation_fn]
+        self.mult = mult
         self.gated_snake = activation_fn == "gesnake"
         self.proj = QuantLinear(dim, inner * mult)
         if self.fn is None:
@@ -50,6 +53,8 @@ class ActProj(nn.Module):
         if self.fn is not None:
             return self.fn(h)
         alpha, beta = self.alpha.to(h.dtype), self.beta.to(h.dtype)
+        if self.tp_inner is not None:
+            alpha, beta = alpha[..., self.tp_inner], beta[..., self.tp_inner]
         if self.gated_snake:
             a, gate = h.chunk(2, dim=-1)
             return a * act.snake_beta(gate, alpha, beta)

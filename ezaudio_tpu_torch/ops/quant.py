@@ -126,12 +126,27 @@ class QuantLinear(nn.Linear):
     """``nn.Linear`` (same parameters and names) whose product goes through
     :func:`int8_linear` while the quant mode is ``'int8'`` and the layer has
     at least ``MIN_QUANT_ELEMENTS`` weights.  The quantized weight is kept
-    while the weight tensor is unchanged (its storage and version)."""
+    while the weight tensor is unchanged (its storage and version).
+
+    ``tp`` (set by ``parallel/sharding.py``) makes it a tensor-parallel
+    shard: the weight a DTensor of this rank's output rows (``'col'``) or
+    input columns (``'row'``).  A column split copies its input to the
+    group (the gradient all-reduced) and adds its slice of the bias; a
+    row split all-reduces its partial product, then adds the bias.  int8
+    under tp quantizes as the whole layer would: a row split's weight
+    scales come from the whole weight, and its activations' row scales
+    are the maximum over the group."""
 
     _wq_key = None
+    tp = None
+
+    def _local_weight(self):
+        w = self.weight
+        return w.to_local() if hasattr(w, "to_local") else w
 
     def _weight_key(self):
-        return (self.weight.data_ptr(), self.weight._version, self.weight.device)
+        w = self._local_weight()
+        return (w.data_ptr(), w._version, w.device)
 
     def cast_(self, dtype, cast=None):
         """Cast weight and bias to ``dtype`` (``utils.cast_params_``),
@@ -150,6 +165,8 @@ class QuantLinear(nn.Linear):
         self._wq_key = self._weight_key()
 
     def forward(self, x):
+        if self.tp is not None:
+            return self._forward_tp(x)
         if (current_quant_mode() != "int8"
                 or self.in_features * self.out_features < MIN_QUANT_ELEMENTS):
             return super().forward(x)
@@ -159,3 +176,59 @@ class QuantLinear(nn.Linear):
             self._wq_key = key
         y = int8_linear(x, *self._wq).to(x.dtype)
         return y if self.bias is None else y + self.bias
+
+    def _forward_tp(self, x):
+        from ezaudio_tpu_torch.parallel.collectives import copy_to_group, reduce_from_group
+
+        tp, w = self.tp, self._local_weight()
+        int8 = (current_quant_mode() == "int8"
+                and tp.in_features * tp.out_features >= MIN_QUANT_ELEMENTS)
+        if tp.role == "col":
+            x = copy_to_group(x, tp.group)
+            if int8:
+                y = int8_linear(x, *self._quantized(w)).to(x.dtype)
+            else:
+                y = F.linear(x, w)
+            return y if self.bias is None else y + self.bias[tp.index]
+        if int8:
+            y = self._int8_row(x, w).to(x.dtype)
+        else:
+            y = F.linear(x, w)
+        y = reduce_from_group(y, tp.group)
+        return y if self.bias is None else y + self.bias
+
+    def _quantized(self, w):
+        """The int8 weight of this shard, quantized per output channel
+        over the whole layer's input (a row split's scales reduced over
+        the group)."""
+        key = self._weight_key()
+        if self._wq_key != key:
+            if self.tp.role == "col":
+                self._wq = quantize_symmetric(w.detach().float(), -1)
+            else:
+                import torch.distributed as dist
+
+                wf = w.detach().float()
+                amax = wf.abs().amax(dim=-1, keepdim=True)
+                dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=self.tp.group)
+                scale = amax.clamp(min=1e-8) / amax.new_full((), 127.0)
+                q = torch.clamp(torch.round(wf / scale), -127, 127).to(torch.int8)
+                self._wq = (q, scale)
+            self._wq_key = key
+        return self._wq
+
+    def _int8_row(self, x, w):
+        """A row split's int8 partial product: the activations quantized
+        per row over the whole input (the row maxima reduced over the
+        group), this shard's columns multiplied."""
+        import torch.distributed as dist
+
+        wq, ws = self._quantized(w)
+        xf = x.float()
+        amax = xf.abs().amax(dim=-1, keepdim=True)
+        dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=self.tp.group)
+        xs = amax.clamp(min=1e-8) / amax.new_full((), 127.0)
+        xq = torch.clamp(torch.round(xf / xs), -127, 127).to(torch.int8)
+        K, N = x.shape[-1], wq.shape[0]
+        y = int8_matmul(xq.reshape(-1, K), wq).reshape(*x.shape[:-1], N)
+        return y.float() * xs * ws.reshape(N)

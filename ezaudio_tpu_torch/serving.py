@@ -27,6 +27,13 @@ server aggregates concurrent requests into batches:
     draw a solo ``generate_audio(random_seed=seed)`` makes, so a (text,
     seed, length bucket) triple reproduces across batch compositions under
     a deterministic sampler.  Results come back through futures.
+
+On a mesh (``EzAudio(mesh=)``, one process per GPU, every rank running
+a server and submitting the same requests in the same order) the batch
+sizes are multiples of the data-parallel world, as the JAX server's are,
+and rank 0's drain decides each batch for every rank (a broadcast of its
+size), so all ranks make the same calls; unseeded requests draw their
+seeds from a generator rank 0 seeds.
 """
 
 from __future__ import annotations
@@ -57,6 +64,9 @@ class _Request:
 
 def _new_seed(seed: Optional[int]) -> int:
     return int(seed if seed is not None else np.random.randint(0, 2**31 - 1))
+
+
+PG_JOIN_SECONDS = 120  # a mesh server's wait for rank 0 to stop
 
 
 class GenerationServer:
@@ -90,10 +100,27 @@ class GenerationServer:
         self.ez = ez
         self.controlnet = controlnet
         self.clap_scorer = clap_scorer
-        self.max_batch_size = max_batch_size
         self.max_wait = max_wait_ms / 1000.0
+        # on a mesh, the batch sizes are multiples of the data-parallel world,
+        # so a batch splits over the ranks without more padding
+        world = getattr(ez, "_world", 1) or 1
+        if world > 1:
+            max_batch_size = -(-max_batch_size // world) * world
+        self.max_batch_size = max_batch_size
         buckets = batch_buckets or [b for b in (1, 2, 4, 8, 16) if b <= max_batch_size]
-        self.buckets = sorted(set(buckets) | {max_batch_size})  # a bucket >= any drain
+        self.buckets = sorted({-(-b // world) * world for b in buckets}
+                              | {max_batch_size})  # a bucket >= any drain
+        # every rank of a mesh serves the same requests in the same batches:
+        # rank 0's drain decides and the others follow (_drain)
+        mesh = getattr(ez, "mesh", None)
+        self._spmd = mesh is not None and mesh.size() > 1
+        self._seeds = None  # a mesh draws unseeded requests' seeds alike on every rank
+        if self._spmd:
+            import torch.distributed as dist
+
+            box = [int(np.random.randint(0, 2**31 - 1))]
+            dist.broadcast_object_list(box, src=0)
+            self._seeds = np.random.default_rng(box[0])
         self.default_length = float(length)
         # a request's length rounds UP to the nearest bucket; lengths above
         # every bucket run at their exact value (a program of their own)
@@ -120,7 +147,8 @@ class GenerationServer:
     def stop(self):
         self._stop.set()
         if self._thread:
-            self._thread.join(timeout=30)
+            # on a mesh the loop ends when rank 0's does
+            self._thread.join(timeout=PG_JOIN_SECONDS if self._spmd else 30)
         # resolve still-queued requests so no waiter blocks forever
         while True:
             try:
@@ -142,6 +170,11 @@ class GenerationServer:
                 return b
         return float(length)
 
+    def _new_seed(self, seed: Optional[int]) -> int:
+        if seed is None and self._seeds is not None:
+            return int(self._seeds.integers(0, 2**31 - 1))
+        return _new_seed(seed)
+
     def _enqueue(self, req: _Request) -> Future:
         if self._stop.is_set():
             raise RuntimeError("GenerationServer is stopped; requests submitted now "
@@ -156,7 +189,7 @@ class GenerationServer:
         the server's; it rounds up to a length bucket and the result is
         trimmed back."""
         length = float(length if length is not None else self.default_length)
-        return self._enqueue(_Request(text=text, seed=_new_seed(seed), length=length,
+        return self._enqueue(_Request(text=text, seed=self._new_seed(seed), length=length,
                                       bucket=self._length_bucket(length)))
 
     def submit_edit(self, text: str, gt_file, boundary: float, mask_start: float,
@@ -165,7 +198,7 @@ class GenerationServer:
         through the same queue."""
         edit_kwargs = dict(gt_file=gt_file, boundary=boundary, mask_start=mask_start,
                            mask_length=mask_length, **kw)
-        fut = self._enqueue(_Request(text=text, seed=_new_seed(seed), kind="edit",
+        fut = self._enqueue(_Request(text=text, seed=self._new_seed(seed), kind="edit",
                                      edit_kwargs=edit_kwargs))
         self.stats["edit_requests"] += 1
         return fut
@@ -180,7 +213,7 @@ class GenerationServer:
         if self.controlnet is None:
             raise ValueError("this GenerationServer was built without a controlnet=; "
                              "pass an EzAudioControlNet sharing the same base EzAudio")
-        fut = self._enqueue(_Request(text=text, seed=_new_seed(seed), kind="controlnet",
+        fut = self._enqueue(_Request(text=text, seed=self._new_seed(seed), kind="controlnet",
                                      edit_kwargs=dict(audio_path=audio_path, **kw)))
         self.stats["controlnet_requests"] += 1
         return fut
@@ -196,7 +229,7 @@ class GenerationServer:
                              "pass a CLAPScorer (ezaudio_tpu_torch.audio.clap) to enable "
                              "submit_reranked")
         length = float(length if length is not None else self.default_length)
-        fut = self._enqueue(_Request(text=text, seed=_new_seed(seed), kind="rerank",
+        fut = self._enqueue(_Request(text=text, seed=self._new_seed(seed), kind="rerank",
                                      length=length,
                                      edit_kwargs=dict(n_candidates=int(n_candidates), **kw)))
         self.stats["rerank_requests"] += 1
@@ -222,6 +255,31 @@ class GenerationServer:
         return next(b for b in self.buckets if n <= b)
 
     def _drain(self) -> List[_Request]:
+        if self._spmd:
+            return self._drain_agreed()
+        return self._drain_local()
+
+    def _drain_agreed(self) -> List[_Request]:
+        """On a mesh: rank 0 drains as alone, then tells every rank how
+        many requests the batch takes (-1: stop); the others take as many
+        from their queues, which hold the same requests in the same order
+        (every rank submits alike)."""
+        import torch.distributed as dist
+
+        rank0 = dist.get_rank() == 0
+        batch = self._drain_local() if rank0 else []
+        n = torch.tensor([-1 if rank0 and self._stop.is_set() and not batch else len(batch)],
+                         device=self.ez.device)
+        dist.broadcast(n, src=0)
+        n = int(n.item())
+        if n < 0:
+            self._agreed_stop = True
+            return []
+        while not rank0 and len(batch) < n:
+            batch.append(self._q.get())
+        return batch
+
+    def _drain_local(self) -> List[_Request]:
         try:
             first = self._q.get(timeout=0.1)
         except queue.Empty:
@@ -310,8 +368,15 @@ class GenerationServer:
             if not req.future.done():
                 req.future.set_exception(e)
 
+    _agreed_stop = False
+
+    def _running(self) -> bool:
+        if self._spmd:  # every rank runs until rank 0 stops
+            return not self._agreed_stop
+        return not self._stop.is_set()
+
     def _loop(self):
-        while not self._stop.is_set():
+        while self._running():
             batch = self._drain()
             groups = {}
             for r in batch:

@@ -88,8 +88,60 @@ def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
     """``sqrt(sum of squares)`` over every element, f32, on the device.
     Each tensor's squares go through ``sum`` (a cascade sum on the CPU):
     torch's CPU ``vector_norm`` and ``_foreach_norm`` of a 16M-element f32
-    tensor read 7e-4 off its float64 value (torch 2.13)."""
-    return torch.stack([t.float().square().sum() for t in tensors]).sum().sqrt()
+    tensor read 7e-4 off its float64 value (torch 2.13).
+
+    A DTensor (a parameter sharded by ``parallel/sharding.py``: FSDP2's
+    or tensor parallelism's) counts its whole value: its shard's squares,
+    summed over the mesh dimensions it is sharded on (one all-reduce per
+    group), and never over those it is replicated on; a plain tensor is
+    whole on every rank and counts once."""
+    import torch.distributed as dist
+
+    plain, sharded = [], {}
+    for t in tensors:
+        mesh = getattr(t, "device_mesh", None)
+        if mesh is None:
+            plain.append(t.float().square().sum())
+            continue
+        dims = tuple(i for i, pl in enumerate(t.placements) if pl.is_shard())
+        sharded.setdefault((id(mesh), dims), (mesh, dims, []))[2].append(
+            t.to_local().float().square().sum())
+    parts = plain
+    for mesh, dims, sums in sharded.values():
+        total = torch.stack(sums).sum()
+        for i in dims:
+            if mesh.size(i) > 1:
+                dist.all_reduce(total, group=mesh.get_group(i))
+        parts.append(total)
+    return torch.stack(parts).sum().sqrt()
+
+
+def _layout_groups(tensors: List[torch.Tensor]) -> List[List[int]]:
+    """Indices of ``tensors`` that one ``torch._foreach`` call can take
+    together: plain tensors, and DTensors by mesh and placements (a
+    foreach op refuses a mix)."""
+    groups: Dict[object, List[int]] = {}
+    for i, t in enumerate(tensors):
+        mesh = getattr(t, "device_mesh", None)
+        groups.setdefault(None if mesh is None else (id(mesh), tuple(t.placements)),
+                          []).append(i)
+    return list(groups.values())
+
+
+def foreach(op: str, *args, **kw):
+    """``torch._foreach_<op>(*args, **kw)`` over tensors of mixed layouts
+    (``_layout_groups`` of the first list): one call per group, the lists
+    among ``args`` split alike; the results (if any) in the input order."""
+    fn = getattr(torch, f"_foreach_{op}")
+    groups = _layout_groups(args[0])
+    if len(groups) == 1:
+        return fn(*args, **kw)
+    out = [None] * len(args[0])
+    for idx in groups:
+        res = fn(*[[a[i] for i in idx] if isinstance(a, list) else a for a in args], **kw)
+        for i, r in zip(idx, res or ()):
+            out[i] = r
+    return out if not op.endswith("_") else None
 
 
 def _f32(x: float) -> float:
@@ -103,15 +155,29 @@ def _weak(x: float, like: torch.Tensor) -> float:
 
 
 class TorchAdamW:
-    """f32 AdamW: ``torch.optim.AdamW`` in a decayed and an undecayed group."""
+    """f32 AdamW: ``torch.optim.AdamW`` with one parameter group per decay
+    and layout (``_layout_groups``: plain tensors, or DTensors of one mesh
+    and placements, since a fused or foreach kernel takes one layout per
+    call), fused on the GPU.  Its state dict keeps a single device's two
+    groups (decayed, then undecayed), so a checkpoint reads the same with
+    the parameters sharded or whole."""
 
     def __init__(self, params: Dict[str, torch.Tensor], b1, b2, eps, weight_decay,
                  decay: Dict[str, bool]):
-        groups = [dict(params=[p for n, p in params.items() if decay[n] == d],
-                       weight_decay=weight_decay if d else 0.0) for d in (True, False)]
+        # the single-device order: torch's state is keyed by the index in it
+        self.order = [(n, p) for d in (True, False) for n, p in params.items()
+                      if decay[n] == d]
+        groups, self.decays, self.canon = [], [], []  # canon: internal -> single-device
+        for d in (True, False):
+            idx = [i for i, (n, _) in enumerate(self.order) if decay[n] == d]
+            for part in _layout_groups([self.order[i][1] for i in idx]):
+                members = [idx[j] for j in part]
+                groups.append(dict(params=[self.order[i][1] for i in members],
+                                   weight_decay=weight_decay if d else 0.0))
+                self.decays.append(d)
+                self.canon += members
         fused = bool(params) and all(p.is_cuda for p in params.values())
-        self.adamw = torch.optim.AdamW([g for g in groups if g["params"]], lr=0.0,
-                                       betas=(b1, b2), eps=eps,
+        self.adamw = torch.optim.AdamW(groups, lr=0.0, betas=(b1, b2), eps=eps,
                                        fused=True if fused else None)
 
     def step(self, params: List[torch.Tensor], grads: List[torch.Tensor], lr: float,
@@ -125,10 +191,40 @@ class TorchAdamW:
             p.grad = None
 
     def state_dict(self) -> dict:
-        return {"adamw": self.adamw.state_dict()}
+        sd = self.adamw.state_dict()
+        groups = {}
+        for d, g in zip(self.decays, sd["param_groups"]):
+            merged = groups.setdefault(d, dict(g, params=[]))
+            merged["params"] += [self.canon[i] for i in g["params"]]
+        return {"adamw": {"state": {self.canon[i]: st for i, st in sd["state"].items()},
+                          "param_groups": [dict(g, params=sorted(g["params"]))
+                                           for _, g in sorted(groups.items(),
+                                                              key=lambda kv: not kv[0])]}}
 
     def load_state_dict(self, state: dict) -> None:
-        self.adamw.load_state_dict(state["adamw"])
+        inner = state["adamw"]
+        present = [d for d in (True, False) if d in self.decays]
+        if len(inner["param_groups"]) != len(present):
+            raise ValueError("optimizer state does not match the parameter groups")
+        by_decay = dict(zip(present, inner["param_groups"]))
+        inv = {c: i for i, c in enumerate(self.canon)}
+        groups, start = [], 0
+        for d, g in zip(self.decays, self.adamw.param_groups):
+            n = len(g["params"])
+            groups.append(dict(by_decay[d], params=list(range(start, start + n))))
+            start += n
+        self.adamw.load_state_dict({"state": {inv[c]: st for c, st in inner["state"].items()},
+                                    "param_groups": groups})
+
+    def map_state(self, state: dict, fn) -> dict:
+        """``state`` with each moment ``t`` of parameter ``name`` replaced by
+        ``fn(name, t, param)``."""
+        inner = dict(state["adamw"])
+        inner["state"] = {i: {k: (fn(self.order[i][0], v, self.order[i][1])
+                                  if k != "step" and isinstance(v, torch.Tensor) else v)
+                              for k, v in st.items()}
+                          for i, st in inner["state"].items()}
+        return {"adamw": inner}
 
 
 class AdamMu:
@@ -140,34 +236,39 @@ class AdamMu:
     def __init__(self, params: Dict[str, torch.Tensor], b1, b2, eps, weight_decay,
                  decay: Dict[str, bool], mu_dtype: torch.dtype):
         self.b1, self.b2, self.eps, self.wd = b1, b2, eps, weight_decay
+        self.names = list(params)
         self.decayed = [decay[n] for n in params]
         self.mu = [torch.zeros_like(p, dtype=mu_dtype) for p in params.values()]
         self.nu = [torch.zeros_like(p) for p in params.values()]
 
     def step(self, params, grads, lr: float, count: int) -> None:
         b1, b2, t = self.b1, self.b2, count + 1
-        mu = torch._foreach_mul([g.float() for g in grads], _f32(1 - b1))
+        mu = foreach("mul", [g.float() for g in grads], _f32(1 - b1))
         # b1 rounded to mu's dtype (JAX's weak typing), the product in f32 (the
         # jitted step keeps it unrounded)
-        torch._foreach_add_(mu, [m.float() * _weak(b1, m) for m in self.mu])
-        torch._foreach_mul_(self.nu, b2)
-        torch._foreach_addcmul_(self.nu, grads, grads, value=_f32(1 - b2))
+        foreach("add_", mu, [m.float() * _weak(b1, m) for m in self.mu])
+        foreach("mul_", self.nu, b2)
+        foreach("addcmul_", self.nu, grads, grads, value=_f32(1 - b2))
         c1 = float(np.float32(1) - np.float32(b1) ** np.float32(t))
         c2 = float(np.float32(1) - np.float32(b2) ** np.float32(t))
-        den = torch._foreach_div(self.nu, c2)
-        torch._foreach_sqrt_(den)
-        torch._foreach_add_(den, self.eps)
-        upd = torch._foreach_div(mu, c1)
-        torch._foreach_div_(upd, den)
+        den = foreach("div", self.nu, c2)
+        foreach("sqrt_", den)
+        foreach("add_", den, self.eps)
+        upd = foreach("div", mu, c1)
+        foreach("div_", upd, den)
         if self.wd:
             dec = [i for i, d in enumerate(self.decayed) if d]
-            torch._foreach_add_([upd[i] for i in dec], [params[i] for i in dec], alpha=self.wd)
-        torch._foreach_add_(params, upd, alpha=-lr)
+            foreach("add_", [upd[i] for i in dec], [params[i] for i in dec], alpha=self.wd)
+        foreach("add_", params, upd, alpha=-lr)
         for dst, src in zip(self.mu, mu):
             dst.copy_(src)
 
     def state_dict(self) -> dict:
         return {"mu": self.mu, "nu": self.nu}
+
+    def map_state(self, state: dict, fn) -> dict:
+        return {k: [fn(n, t, like) for n, t, like in zip(self.names, state[k], getattr(self, k))]
+                for k in ("mu", "nu")}
 
     def load_state_dict(self, state: dict) -> None:
         for dst, src in zip(self.mu + self.nu, state["mu"] + state["nu"]):
@@ -195,6 +296,7 @@ class Adafactor:
                  eps: float = 1e-30, clipping_threshold: float = 1.0):
         self.momentum, self.wd = momentum, weight_decay_rate
         self.decay_rate, self.eps, self.threshold = decay_rate, eps, clipping_threshold
+        self.names = list(params)
         self.decayed = [decay[n] for n in params]
         self.dims = [factored_dims(tuple(p.shape), factor_min_dim) for p in params.values()]
         self.v_row, self.v_col, self.v = [], [], []
@@ -239,6 +341,16 @@ class Adafactor:
     def state_dict(self) -> dict:
         return {"v_row": self.v_row, "v_col": self.v_col, "v": self.v, "ema": self.ema}
 
+    def map_state(self, state: dict, fn) -> dict:
+        out = {}
+        for k in ("v_row", "v_col", "v", "ema"):
+            if state[k] is None:
+                out[k] = None
+                continue
+            out[k] = [None if t is None else fn(n, t, like)
+                      for n, t, like in zip(self.names, state[k], getattr(self, k))]
+        return out
+
     def load_state_dict(self, state: dict) -> None:
         for key in ("v_row", "v_col", "v", "ema"):
             for dst, src in zip(getattr(self, key) or [], state[key] or []):
@@ -264,6 +376,9 @@ class Optimizer:
         self.mini_step = 0   # micro-steps into the accumulation window
         self.acc = ({n: torch.zeros_like(p) for n, p in self.params.items()}
                     if self.k > 1 else None)
+        # parallel.sharding.ShardedParams when the parameters are sharded: the
+        # state dict then holds whole tensors (the single-device layout)
+        self.sharding = None
 
     @torch.no_grad()
     def update(self, grads: Dict[str, torch.Tensor],
@@ -276,9 +391,9 @@ class Optimizer:
         if self.acc is not None:
             acc = [self.acc[n] for n in names]
             # Welford: acc + (g - acc) / (n + 1)
-            delta = torch._foreach_sub(gs, acc)
-            torch._foreach_div_(delta, float(self.mini_step + 1))
-            torch._foreach_add_(acc, delta)
+            delta = foreach("sub", gs, acc)
+            foreach("div_", delta, float(self.mini_step + 1))
+            foreach("add_", acc, delta)
             del delta
             emit = self.mini_step == self.k - 1
             self.mini_step = (self.mini_step + 1) % self.k
@@ -288,18 +403,22 @@ class Optimizer:
         if self.grad_clip is not None:
             n = global_norm(gs) if grad_norm is None else grad_norm
             if not bool(n < self.grad_clip):  # one sync a step
-                gs = torch._foreach_div(gs, n)
-                torch._foreach_mul_(gs, self.grad_clip)
+                gs = foreach("div", gs, n)
+                foreach("mul_", gs, self.grad_clip)
         self.rule.step(list(self.params.values()), gs, self.lr(self.count), self.count)
         self.count += 1
         if self.acc is not None:
-            torch._foreach_zero_(list(self.acc.values()))
+            foreach("zero_", list(self.acc.values()))
         return True
 
     def state_dict(self) -> dict:
+        rule_state, acc = self.rule.state_dict(), self.acc
+        if self.sharding is not None:
+            full = lambda n, t, like: self.sharding.to_full(n, t)  # noqa: E731
+            rule_state = self.rule.map_state(rule_state, full)
+            acc = acc and {n: full(n, t, None) for n, t in acc.items()}
         return {"count": self.count, "mini_step": self.mini_step, "names": list(self.params),
-                "rule": type(self.rule).__name__, "state": self.rule.state_dict(),
-                "acc": self.acc}
+                "rule": type(self.rule).__name__, "state": rule_state, "acc": acc}
 
     @torch.no_grad()
     def load_state_dict(self, state: dict) -> None:
@@ -307,9 +426,14 @@ class Optimizer:
                 or (self.acc is None) != (state["acc"] is None)):
             raise ValueError("optimizer state does not match the parameters or the rule")
         self.count, self.mini_step = int(state["count"]), int(state["mini_step"])
-        self.rule.load_state_dict(state["state"])
+        rule_state, acc = state["state"], state["acc"]
+        if self.sharding is not None:
+            shard = self.sharding.from_full
+            rule_state = self.rule.map_state(rule_state, shard)
+            acc = acc and {n: shard(n, t, self.acc[n]) for n, t in acc.items()}
+        self.rule.load_state_dict(rule_state)
         for n, t in (self.acc or {}).items():
-            t.copy_(state["acc"][n])
+            t.copy_(acc[n])
 
 
 def make_optimizer(model: nn.Module, learning_rate: float = 5e-5, beta1: float = 0.9,

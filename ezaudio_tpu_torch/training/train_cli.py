@@ -34,7 +34,21 @@ their bf16 modes), the DiT in mixed precision (``trainer.py``: bf16
 compute, f32 parameters and optimizer state).  The ``opt:`` block's
 ``optimizer`` (``adamw`` or ``adafactor``) and ``mu_dtype`` reach
 ``optim.make_optimizer``.  Runs on CUDA unless ``--device cpu``.
-``--mesh-fsdp`` > 1 raises ``NotImplementedError``.
+
+Sharded training runs under torchrun, one process per GPU::
+
+    torchrun --nproc_per_node=N -m ezaudio_tpu_torch.training.train_cli \
+        --config-name train.json --mesh-fsdp 2 ...
+
+Each rank joins the group (``parallel.init_distributed``: NCCL on the
+cards, gloo with ``--device cpu``), builds the ``make_mesh(fsdp=N)`` mesh
+over the world (dp the rest, as the JAX CLI's), reads the whole batch,
+encodes and embeds its own rows (the VAE's posterior noise and the
+step's draws are still the whole batch's) and trains them
+(``Trainer.create(mesh=)``); rank 0 logs and writes the checkpoints, which
+keep the single-device layout.  In a world of one process the CLI trains
+without a mesh (a mesh of one is the identity); ``--mesh-fsdp`` must
+still divide the world.
 """
 
 from __future__ import annotations
@@ -142,12 +156,19 @@ def main(argv=None, *, t5_config=None, vae_config=None,
     from ezaudio_tpu_torch.training.trainer import PreemptionGuard, Trainer, latest_step, step_seed
     from ezaudio_tpu_torch.utils import resolve_device
 
+    from ezaudio_tpu_torch.parallel.mesh import (data_rank, data_world, init_distributed,
+                                                 make_mesh, mesh_shape)
+
     args = parse_args(argv)
     dtype = getattr(torch, args.dtype)
-    if args.mesh_fsdp > 1:
-        raise NotImplementedError("--mesh-fsdp > 1: sharded training is not ported yet "
-                                  "(ROADMAP queue 1 item 7)")
-    device = resolve_device(args.device)
+    mesh = None
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1 or torch.distributed.is_initialized():
+        device = init_distributed(args.device)
+        mesh = make_mesh(fsdp=args.mesh_fsdp)
+    else:
+        mesh_shape(1, fsdp=args.mesh_fsdp)
+        device = resolve_device(args.device)
+    rank0 = not torch.distributed.is_initialized() or torch.distributed.get_rank() == 0
     cfg = load_training_config(args.config_name)
     if args.remat == "off":
         cfg.model.use_checkpoint = False
@@ -168,7 +189,7 @@ def main(argv=None, *, t5_config=None, vae_config=None,
                              scale=cfg.autoencoder.get("scale", 1.0),
                              shift=cfg.autoencoder.get("shift", 0.0),
                              train_frames=cfg.data.get("train_frames"),
-                             cfg_dropout=cfg_dropout, dtype=dtype)
+                             cfg_dropout=cfg_dropout, dtype=dtype, mesh=mesh)
 
     train_set = EACaps(**train_cfg, seed=args.random_seed)
     batch_size = int(cfg.opt.batch_size)
@@ -189,7 +210,8 @@ def main(argv=None, *, t5_config=None, vae_config=None,
     os.makedirs(save_dir, exist_ok=True)
     latest = latest_step(save_dir)
     if latest is not None and args.ckpt is None:
-        print(f"resuming from checkpoint step {latest}")
+        if rank0:
+            print(f"resuming from checkpoint step {latest}")
         trainer.restore_checkpoint(save_dir, latest)
 
     global_step = trainer.step
@@ -197,23 +219,32 @@ def main(argv=None, *, t5_config=None, vae_config=None,
     total = args.max_steps or args.epochs * steps_per_epoch
     it.load_state_dict({"epoch": global_step // steps_per_epoch,
                         "step": global_step % steps_per_epoch})
+    # on a mesh each rank encodes and embeds its rows of the batch alone;
+    # the VAE's posterior noise and the step's draws are the whole batch's
+    world, rank = (data_world(mesh), data_rank(mesh)) if mesh is not None else (1, 0)
+    if batch_size % world:
+        raise ValueError(f"batch_size {batch_size} does not divide over the data world {world}")
+    k = batch_size // world
+    own = slice(rank * k, (rank + 1) * k)
     losses, t0 = [], time.time()
     with PreemptionGuard() as guard, deterministic_cudnn():
         try:
             for batch in (it if global_step < total else ()):
                 gen = torch.Generator(device=device).manual_seed(
                     step_seed(args.random_seed + 1, global_step))
-                audio = torch.from_numpy(batch["audio"]).to(device)
-                latents = autoencoder.encode(audio[:, :, None], generator=gen)
+                audio = torch.from_numpy(batch["audio"][own]).to(device)
+                latents = autoencoder.encode(audio[:, :, None], generator=gen,
+                                             rows=(own.start, batch_size))
                 text = text_mask = None
                 if audiocaps and "text_mask" in batch:  # offline embeddings
-                    text = torch.from_numpy(batch["text"]).to(device, dtype)
-                    text_mask = torch.from_numpy(batch["text_mask"]).to(device).bool()
+                    text = torch.from_numpy(batch["text"][own]).to(device, dtype)
+                    text_mask = torch.from_numpy(batch["text_mask"][own]).to(device).bool()
                 elif audiocaps:
-                    text, text_mask = embed(batch["text"])
+                    text, text_mask = embed(list(batch["text"])[own])
                 metrics = trainer.train_step(
                     {"latents": latents, "text": text, "text_mask": text_mask,
-                     "uncond": uncond, "uncond_mask": uncond_mask}, args.random_seed)
+                     "uncond": uncond, "uncond_mask": uncond_mask}, args.random_seed,
+                    local=mesh is not None)
                 losses.append(metrics["loss"])
                 global_step += 1
                 if on_step is not None:
@@ -223,9 +254,10 @@ def main(argv=None, *, t5_config=None, vae_config=None,
                     del losses[:-args.log_step]
                     msg = (f"{time.asctime()}  step {global_step}  loss {np.mean(window):.6f}  "
                            f"({args.log_step / (time.time() - t0):.2f} it/s)\n")
-                    with open(os.path.join(log_dir, "log.txt"), "a") as f:
-                        f.write(msg)
-                    print(msg, end="")
+                    if rank0:  # on a mesh the loss is the mean over the ranks already
+                        with open(os.path.join(log_dir, "log.txt"), "a") as f:
+                            f.write(msg)
+                        print(msg, end="")
                     t0 = time.time()
                 if global_step % args.save_every_step == 0:
                     trainer.save_checkpoint(save_dir, global_step, block=False)
@@ -244,3 +276,5 @@ def main(argv=None, *, t5_config=None, vae_config=None,
 
 if __name__ == "__main__":
     main()
+    if torch.distributed.is_initialized():
+        torch.distributed.destroy_process_group()

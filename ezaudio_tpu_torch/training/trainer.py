@@ -30,10 +30,29 @@ dict, the optimizer's state and the step into ``<dir>/<step>/state.pt``,
 the newest ``MAX_TO_KEEP`` kept.  ``block=False`` copies the state to the
 host and writes it from a thread; ``close()`` joins the thread and raises
 if the write failed.
+
+``Trainer.create(..., mesh=parallel.make_mesh(...))`` trains on a mesh,
+one process per GPU: the DiT placed by ``dit_param_shardings``
+(``parallel/sharding.py``: FSDP2 HSDP over dp x fsdp, Megatron tp), the
+optimizer built after, over the shards.  Every rank draws step ``n``'s
+randomness for the whole batch (noise, timesteps, span masks, CFG
+dropout), then keeps its rows of the batch and of the draws
+(``parallel.shard_batch``), so a sharded step computes the single-device
+step's function.  ``train_step(..., local=True)`` takes a batch of this
+rank's rows alone (``train_cli`` encodes only its rows) and still draws
+for the whole batch.  Each rank's loss is the mean over its rows; the gradients are
+averaged over dp x fsdp (``ShardedParams.grads``), the clip's global norm
+counts every shard once (``optim.global_norm``) and Adafactor's factored
+moments reduce over whole parameters (DTensor reductions).  The reported
+loss is the mean over the data-parallel ranks.  Checkpoints keep the
+single-device layout: every rank gathers the whole state, rank 0 writes
+it, and a sharded run resumes from a single-device checkpoint and the
+other way round.  Mixed precision on a mesh needs fsdp = 1.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import shutil
@@ -61,6 +80,20 @@ def step_seed(seed: int, step: int) -> int:
                >> np.uint64(1))
 
 
+def _data_mean(mesh, x: torch.Tensor) -> torch.Tensor:
+    """The mean of ``x`` over the data-parallel ranks."""
+    import torch.distributed as dist
+
+    from ezaudio_tpu_torch.parallel.mesh import data_group, data_world
+
+    world = data_world(mesh)
+    if world == 1:
+        return x
+    x = x.clone()
+    dist.all_reduce(x, group=data_group(mesh))
+    return x / world
+
+
 def noised(schedule: DDIMSchedule, latents, noise, t):
     """The latents noised to ``t`` and the epsilon or v target."""
     noisy = schedule.add_noise(latents, noise, t)
@@ -86,6 +119,7 @@ class StepLoop:
 
     model: Optional[nn.Module] = None
     dtype: Optional[torch.dtype] = None
+    sharding = None  # parallel.sharding.ShardedParams of a step on a mesh
 
     def draw_for(self, generator: torch.Generator, batch: dict) -> dict:
         return self.draw(generator, batch)
@@ -96,18 +130,38 @@ class StepLoop:
         return {"grad_norm": gnorm}
 
     def __call__(self, batch: dict, seed: int, draws: Optional[dict] = None,
-                 return_grads: bool = False) -> dict:
+                 return_grads: bool = False, local: bool = False) -> dict:
         """The loss and the metrics as device scalars; with
-        ``return_grads`` the gradients too."""
+        ``return_grads`` the gradients too.  ``local`` (on a mesh): ``batch``
+        holds this rank's rows already, of a batch the data world times as
+        large; the draws are still the whole batch's (given, or drawn for
+        that many rows), of which this rank keeps its rows."""
+        sh = self.sharding
+        if local and sh is None:
+            raise ValueError("local=True needs a step on a mesh")
+        if sh is not None:
+            from ezaudio_tpu_torch.parallel.mesh import (activation_sharding, axis_size,
+                                                         data_world, shard_batch)
         if draws is None:
             gen = torch.Generator(device=batch["latents"].device).manual_seed(
                 step_seed(seed, self.step))
-            draws = self.draw_for(gen, batch)
+            draws = (self.draw_for(gen, batch) if not local else
+                     self.draw_for(gen, batch, rows=len(batch["latents"]) * data_world(sh.mesh)))
+        if sh is not None:  # the whole batch's draws, then this rank's rows
+            if not local:
+                batch = shard_batch(sh.mesh, batch)
+            draws = shard_batch(sh.mesh, draws)
+            act = (activation_sharding(sh.mesh) if axis_size(sh.mesh, "sp") == 1
+                   else contextlib.nullcontext())
         with (quant_context("off"), mixed_precision(self.model, self.dtype),
-              deterministic_cudnn()):
+              deterministic_cudnn(), act if sh is not None else contextlib.nullcontext()):
             loss = self.loss(batch, draws)
-            grads = named_grads(self.params.items(), loss)
-        out = {"loss": loss.detach(), **self.update(grads)}
+            grads = (named_grads(self.params.items(), loss) if sh is None
+                     else sh.grads(loss, self.params))
+        loss = loss.detach()
+        if sh is not None:
+            loss = _data_mean(sh.mesh, loss)
+        out = {"loss": loss, **self.update(grads)}
         self.step += 1
         if return_grads:
             out["grads"] = grads
@@ -150,9 +204,11 @@ class TrainStep(StepLoop):
             d.update(self.model.draw_mask(generator, B, L, device))
         return d
 
-    def draw_for(self, generator: torch.Generator, batch: dict) -> dict:
-        latents = self._latents(batch)
-        return self.draw(generator, *latents.shape, latents.device)
+    def draw_for(self, generator: torch.Generator, batch: dict,
+                 rows: Optional[int] = None) -> dict:
+        """The draws of ``batch``, or of ``rows`` rows of its shape."""
+        B, L, C = self._latents(batch).shape
+        return self.draw(generator, rows or B, L, C, batch["latents"].device)
 
     def _latents(self, batch):
         latents = scale_shift(batch["latents"].to(self.dtype), self.scale, self.shift)
@@ -221,9 +277,26 @@ class Trainer:
     _writer: Optional[threading.Thread] = None
     _write_error: Optional[Exception] = None
 
+    sharding: object = None  # parallel.sharding.ShardedParams on a mesh
+
     @classmethod
     def create(cls, model, schedule, opt_cfg: dict, scale=1.0, shift=0.0,
-               train_frames=None, cfg_dropout=0.1, dtype=None) -> "Trainer":
+               train_frames=None, cfg_dropout=0.1, dtype=None, mesh=None,
+               placements=None) -> "Trainer":
+        """The trainer of ``model``; with ``mesh`` the model is placed on
+        it first (``placements``, default ``dit_param_shardings``) and the
+        optimizer built over the shards."""
+        sharding = None
+        if mesh is not None:
+            from ezaudio_tpu_torch.parallel.mesh import axis_size, check_mesh
+            from ezaudio_tpu_torch.parallel.sharding import shard_dit, shard_params
+
+            check_mesh(mesh)
+            if dtype not in (None, torch.float32) and axis_size(mesh, "fsdp") > 1:
+                raise NotImplementedError("mixed precision on a mesh with fsdp > 1 is not "
+                                          "ported: FSDP2 gathers the f32 weights")
+            sharding = (shard_dit(mesh, model) if placements is None
+                        else shard_params(mesh, model, placements))
         optimizer = make_optimizer(
             model,
             learning_rate=opt_cfg.get("learning_rate", 5e-5),
@@ -242,14 +315,16 @@ class Trainer:
                                   snr_gamma=opt_cfg.get("snr_gamma"),
                                   cfg_dropout=cfg_dropout, train_frames=train_frames,
                                   dtype=dtype)
-        return cls(model=model, schedule=schedule, optimizer=optimizer, step_fn=step_fn)
+        step_fn.sharding = optimizer.sharding = sharding
+        return cls(model=model, schedule=schedule, optimizer=optimizer, step_fn=step_fn,
+                   sharding=sharding)
 
     @property
     def step(self) -> int:
         return self.step_fn.step
 
-    def train_step(self, batch: dict, seed: int) -> dict:
-        return self.step_fn(batch, seed)
+    def train_step(self, batch: dict, seed: int, local: bool = False) -> dict:
+        return self.step_fn(batch, seed, local=local)
 
     def close(self) -> None:
         """Join the checkpoint write in flight, if any; raise if it failed."""
@@ -274,15 +349,25 @@ class Trainer:
         flight) where this step is saved already, instead of raising."""
         step = int(step if step is not None else self.step)
         self.close()
-        if step in all_steps(ckpt_dir):
+        exists = _agree(self.sharding, step in all_steps(ckpt_dir))
+        if exists:
             if skip_existing:
                 return
             raise FileExistsError(f"{ckpt_dir}: step {step} is saved already")
-        state = {"model": _to_host(self.model.state_dict()),
+        # on a mesh every rank gathers the whole (single-device layout) state
+        model_sd = (self.model.state_dict() if self.sharding is None
+                    else self.sharding.full_state_dict())
+        state = {"model": _to_host(model_sd),
                  "optimizer": _to_host(self.optimizer.state_dict()), "step": step}
+        if self.sharding is not None and _rank() != 0:
+            if block:
+                _barrier()
+            return
         os.makedirs(ckpt_dir, exist_ok=True)
         if block:
             _write(ckpt_dir, step, state)
+            if self.sharding is not None:
+                _barrier()
         else:
             self._writer = threading.Thread(target=self._write_in_thread,
                                             args=(ckpt_dir, step, state))
@@ -290,15 +375,41 @@ class Trainer:
 
     def restore_checkpoint(self, ckpt_dir: str, step: Optional[int] = None) -> "Trainer":
         self.close()
-        step = step if step is not None else latest_step(ckpt_dir)
+        step = _agree(self.sharding, step if step is not None else latest_step(ckpt_dir))
         if step is None:
             raise FileNotFoundError(f"{ckpt_dir}: no checkpoint")
         state = torch.load(os.path.join(ckpt_dir, str(step), STATE_FILE), map_location="cpu",
                            weights_only=True)
-        self.model.load_state_dict(state["model"])
+        if self.sharding is None:
+            self.model.load_state_dict(state["model"])
+        else:
+            self.sharding.load_full_state_dict(state["model"])
         self.optimizer.load_state_dict(state["optimizer"])
         self.step_fn.step = int(state["step"])
         return self
+
+
+def _rank() -> int:
+    import torch.distributed as dist
+
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def _agree(sharding, value):
+    """Rank 0's ``value`` on every rank of a sharded trainer."""
+    if sharding is None:
+        return value
+    import torch.distributed as dist
+
+    box = [value]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
+
+
+def _barrier() -> None:
+    import torch.distributed as dist
+
+    dist.barrier()
 
 
 class PreemptionGuard:

@@ -80,18 +80,28 @@ def test_istft_matches_jax(n_fft, hop, length):
         np.testing.assert_allclose(back.numpy(), x, atol=1e-5)
 
 
-def test_load_audio_and_save_audio_contract(wav_path, tmp_path):
+def test_load_audio_and_save_audio_contract(wav_path, tmp_path, monkeypatch):
+    """Wav against the JAX reader; a non-wav file goes through the codec
+    bridge (a garbage mp3 fails in libav, as in JAX) and, with the bridge
+    unavailable, raises ``ImportError`` both ways."""
     from ezaudio_tpu.data.audio_io import load_wav as jload
+    from ezaudio_tpu_torch.data import codec_loader
 
     for sr, mono in [(None, True), (None, False), (8000, True), (22050, False)]:
         got, got_sr = load_audio(wav_path, sr=sr, mono=mono)
         want, want_sr = jload(wav_path, sr=sr, mono=mono)
         assert got_sr == want_sr and got.dtype == want.dtype
         np.testing.assert_array_equal(got, want)
-    with pytest.raises(ImportError, match="bridge"):
-        save_audio(str(tmp_path / "x.mp3"), np.zeros(100, np.float32), 16000)
     mp3 = tmp_path / "y.mp3"
     mp3.write_bytes(b"ID3\x03" + bytes(64))
+    if codec_loader.available():
+        with pytest.raises(OSError):
+            load_audio(str(mp3))
+        with pytest.raises(OSError):
+            jload(str(mp3))
+    monkeypatch.setattr(codec_loader, "available", lambda: False)
+    with pytest.raises(ImportError, match="bridge"):
+        save_audio(str(tmp_path / "x.mp3"), np.zeros(100, np.float32), 16000)
     with pytest.raises(ImportError, match="bridge"):
         load_audio(str(mp3))
     out = str(tmp_path / "z.wav")
@@ -99,12 +109,23 @@ def test_load_audio_and_save_audio_contract(wav_path, tmp_path):
     assert load_audio(out)[1] == 16000
 
 
-def test_write_load_round_trip(wav_path, tmp_path):
+def test_write_load_round_trip(wav_path, tmp_path, monkeypatch):
+    """wav bit for bit; flac through the codec bridge to 16-bit precision;
+    without the bridge a non-wav write raises ``ImportError``."""
+    from ezaudio_tpu_torch.data import codec_loader
+
     sig = AudioSignal.load(wav_path)
     out = str(tmp_path / "rt.wav")
     sig.write(out)
     back = AudioSignal.load(out)
     assert back == sig and back.sample_rate == 16000
+    if codec_loader.available():
+        flac = str(tmp_path / "rt.flac")
+        sig.write(flac)
+        back = AudioSignal.load(flac)
+        assert back.audio_data.shape == sig.audio_data.shape and back.sample_rate == 16000
+        np.testing.assert_allclose(back.audio_data, sig.audio_data, atol=1.0 / 32768 + 1e-6)
+    monkeypatch.setattr(codec_loader, "available", lambda: False)
     with pytest.raises(ImportError):
         sig.write(str(tmp_path / "rt.mp3"))
 

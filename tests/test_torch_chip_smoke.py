@@ -1030,3 +1030,56 @@ def test_whisper_id_rule_catches_a_shifted_id(case, passes):
     assert (not bad) == passes, bad
     assert row["first_difference"] == {"equal": [None, None], "near_tie": [None, 3],
                                        "shifted": [None, 3], "prompt": [0, None]}[case]
+
+
+def test_parallel_phase_rehearses_on_cpu(monkeypatch, tmp_path):
+    """Phase 33 at a tiny size on the CPU: (a) the t2a stand-in through
+    flac (bit-exact), mp3 and ogg and the native batches into the VAE
+    encode with their kernel 2 launches; (b) a gloo world of one: the
+    meshed EzAudio equal to the plain one and the two meshed train steps
+    (one FSDP2-wrapped) held to the plain step; (c) the ring's hop math at
+    sp = 4 against the kernel's plain twin and SDPA."""
+    import dataclasses
+
+    import numpy as np
+    import torch.distributed as dist
+
+    import chip_smoke as cs
+    from ezaudio_tpu_torch.data import codec_loader, native_loader
+    from ezaudio_tpu_torch.text.t5 import T5EncoderConfig
+    from tests.tiny_config import TINY_CONFIG, TINY_T5, TINY_VAE_CONFIG
+
+    if not native_loader.available():
+        pytest.skip("g++ missing")
+    _counted_kernels(monkeypatch)
+    t = np.arange(12000) / 24000
+    clip = (0.3 * np.sin(2 * np.pi * 300 * t)
+            + 0.05 * np.random.default_rng(0).standard_normal(t.size))[None].astype(np.float32)
+    (tmp_path / "a").mkdir()
+    row = cs.nonwav_paths(clip, 24000, str(tmp_path / "a"), "cpu", clips=4, seconds=0.5,
+                          batch=2, vae_config=TINY_VAE_CONFIG)
+    assert row["libav"] == codec_loader.available()
+    assert row["launches_per_batch"] == [6, 6] and row["resunit_launches"] == 12
+    if row["libav"]:
+        assert row["formats"]["flac"]["bit_exact"]
+        assert row["formats"]["mp3"]["snr_db"] > cs.MP3_MIN_SNR_DB
+    cfg = json_copy(TINY_CONFIG)
+    rows = cs.world_one_paths("cpu", cfg=cfg,
+                              t5_config=T5EncoderConfig(**dataclasses.asdict(TINY_T5)),
+                              vae_config=TINY_VAE_CONFIG, length=1.0, steps=2,
+                              init_method=f"file://{tmp_path / 'rendezvous'}")
+    assert not dist.is_initialized()
+    assert [r["path"] for r in rows] == ["mesh_off[1]", "mesh_world1[1]", "train_world1_mesh",
+                                         "train_world1_hsdp"]
+    assert rows[1]["rel_err_vs_no_mesh"] <= cs.MESH_TOL
+    assert rows[1]["attention_launches"] == 2 * 5 * 2 and rows[1]["resunit_launches"] == 6
+    assert rows[3]["fsdp2_wrapped"] and rows[3]["dtensor_params"] > 0
+    ring = cs.ring_math("cpu", torch.Generator().manual_seed(0),
+                        cases=[(2, 2, 16, 16, 8)], sp=4, time_it=False)
+    assert len(ring) == 4 and all(r["sp"] == 4 for r in ring)
+
+
+def json_copy(obj):
+    import json
+
+    return json.loads(json.dumps(obj))

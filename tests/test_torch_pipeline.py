@@ -205,7 +205,8 @@ class TestPackageRules:
     @pytest.mark.parametrize("kw", [dict(attn_impl="bf16"), dict(attn_impl="chunked_bf16"),
                                     dict(attn_impl="ring")])
     def test_uncovered_arguments_raise(self, tiny_pair, kw):
-        """``'ring'`` is not ported and raises.  The attention variants
+        """``'ring'`` outside a ``ring_context`` raises (JAX asserts;
+        tests/test_torch_ring_attention.py runs it on a mesh).  The attention variants
         that keep their logits in bf16 (another function than kernel 1's)
         run, on the f32 model too: ``generate_audio`` against JAX with the
         same variant (3 DPM steps, same initial latents) within 2e-3 and
@@ -217,9 +218,9 @@ class TestPackageRules:
         clip = np.random.default_rng(1).standard_normal(400).astype(np.float32)
         edit = dict(boundary=0.1, gt_file=clip, mask_start=0.1, mask_length=0.2, ddim_steps=1)
         if kw["attn_impl"] == "ring":
-            with pytest.raises(NotImplementedError):
+            with pytest.raises(RuntimeError, match="ring_context"):
                 ez.generate_audio("x", length=0.5, ddim_steps=1, **kw)
-            with pytest.raises(NotImplementedError):
+            with pytest.raises(RuntimeError, match="ring_context"):
                 ez.editing_audio("x", **edit, **kw)
             return
         noise = np.random.default_rng(4).standard_normal((1, 50, 8)).astype(np.float32)
@@ -273,9 +274,11 @@ class TestPackageRules:
         assert np.corrcoef(wav, want)[0, 1] > 0.99 and not np.array_equal(wav, want)
 
     def test_mesh_raises(self):
+        """``mesh`` is ported (tests/test_torch_parallel.py); anything but a
+        ``make_mesh`` DeviceMesh raises."""
         from tests.tiny_config import TINY_CONFIG
 
-        with pytest.raises(NotImplementedError, match="mesh"):
+        with pytest.raises(TypeError, match="mesh"):
             EzAudio(config=TINY_CONFIG, device="cpu", mesh=object())
 
     @pytest.mark.parametrize("kw", [dict(sampler="ddim", cfg_refresh=2),

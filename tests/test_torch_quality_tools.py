@@ -15,7 +15,7 @@ import pytest
 import torch
 
 from ezaudio_tpu_torch.audio import display, effects, external, playback, quality, report
-from ezaudio_tpu_torch.data.audio_io import save_wav
+from ezaudio_tpu_torch.data.audio_io import save_audio, save_wav
 
 SR = 16000
 
@@ -206,9 +206,20 @@ def test_external_seams(tmp_path):
     p = str(tmp_path / "x.wav")
     save_wav(p, wav, 8000)
     if not external.ffmpeg_available():
+        from ezaudio_tpu_torch.data import codec_loader
+
         got, sr = external.ffmpeg_load(p, sr=16000)
         assert sr == 16000 and got.shape == (1600,)
-        with pytest.raises(ImportError, match="ffmpeg"):
-            external.ffmpeg_load(str(tmp_path / "x.mp3"))
+        if codec_loader.available():  # a non-wav file goes to the bridge
+            save_audio(str(tmp_path / "x.flac"), wav, 8000)
+            got, sr = external.ffmpeg_load(str(tmp_path / "x.flac"), sr=16000)
+            assert sr == 16000 and got.shape == (1600,)
+        saved = codec_loader.available
+        codec_loader.available = lambda: False
+        try:
+            with pytest.raises(ImportError, match="ffmpeg"):
+                external.ffmpeg_load(str(tmp_path / "x.mp3"))
+        finally:
+            codec_loader.available = saved
     with pytest.raises(ValueError, match="local"):
         external.transcribe(wav, 8000, model="openai/whisper-base", device="cpu")

@@ -132,11 +132,15 @@ def test_batches_bit_equal_to_jax(workspace, kw):
 
 
 def test_unported_data_options_raise(workspace):
-    """``use_native`` still raises; ``aug_config`` is ported (against the
-    JAX package in test_torch_train_tools.py)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 9"):
-        EACaps(**_data_kw(workspace, use_native=True))
-    assert EACaps(**_data_kw(workspace, aug_config={"phase180": {"p": 1.0}})).augmenter
+    """Both data options are ported now: ``use_native`` takes the native
+    batch loader where its policy applies (against the JAX package in
+    test_torch_native_audio.py) and falls back with an augmenter;
+    ``aug_config`` (against the JAX package in test_torch_train_tools.py)."""
+    from ezaudio_tpu_torch.data import native_loader
+
+    assert EACaps(**_data_kw(workspace, use_native=True)).use_native == native_loader.available()
+    aug = EACaps(**_data_kw(workspace, use_native=True, aug_config={"phase180": {"p": 1.0}}))
+    assert aug.augmenter and not aug.use_native
 
 
 def test_wav_io_matches_jax(workspace, tmp_path):
@@ -201,9 +205,12 @@ def test_mae_stage_and_remat(workspace):
     np.testing.assert_allclose(list(losses.values()), list(plain.values()), rtol=1e-6)
 
 
-@pytest.mark.parametrize("extra,match", [(["--mesh-fsdp", "2"], "ROADMAP queue 1 item 7")])
+@pytest.mark.parametrize("extra,match", [(["--mesh-fsdp", "2"], "fsdp=2")])
 def test_unported_flags_raise(workspace, extra, match):
-    with pytest.raises(NotImplementedError, match=match):
+    """``--mesh-fsdp 2`` in a world of one process cannot build its mesh
+    (``make_mesh``'s assertion, as JAX's); under torchrun with two or more
+    ranks it trains (tests/test_torch_parallel.py)."""
+    with pytest.raises(AssertionError, match=match):
         _main(workspace, save="unused", extra=extra)
 
 
