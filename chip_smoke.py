@@ -40,7 +40,7 @@ Phases, each fatal on failure:
      (M, K, N) of the int8 products the DiT gave, ``int8_dot`` on the card
      against its plain version on the CPU (bit-equal), the staged launches
      those of an f32 call, fused int8 equal to staged int8;
- 12. a ``GenerationServer`` (DPM 10 steps, batches of up to 4, length
+ 12. a ``GenerationServer`` (DPM ``CUT_SERVED_STEPS`` steps, batches of up to 4, length
      buckets 5 s and 10 s): four 10 s and two 4 s requests and phase 6's
      edit; fewer generate batches than generate requests, two served
      waveforms against their solo calls and the edit against the direct
@@ -56,7 +56,7 @@ Phases, each fatal on failure:
  14. the ControlNet path on the card against the CPU on the same weights
      and draws: energy config at full width, depth 4, a 1 s clip, 3 steps,
      eta 0;
- 15. a ``GenerationServer(cn.base, controlnet=cn)`` (DPM 10): two 10 s
+ 15. a ``GenerationServer(cn.base, controlnet=cn)`` (DPM ``CUT_SERVED_STEPS``): two 10 s
      generate requests and one ControlNet request; one ControlNet request
      counted and its waveform equal to the direct call within FUSED_TOL;
  16. s3_l in bf16: ``EzAudio("s3_l", dtype=torch.bfloat16)`` on phase 4's
@@ -88,7 +88,7 @@ Phases, each fatal on failure:
      the scoring timed alone; the candidates scored again by the CPU scorer:
      embeddings within CLAP_EMBED_ATOL, the same choice unless the CPU's
      top two are within CLAP_TIE;
- 21. a ``GenerationServer(ez, clap_scorer=)`` (DPM 10, ``fused=True`` in its
+ 21. a ``GenerationServer(ez, clap_scorer=)`` (DPM ``CUT_SERVED_STEPS``, ``fused=True`` in its
      recipe): one ``submit_reranked`` (run staged) and one plain request;
      the rerank equal to the direct call by phase 12's rule, one rerank
      request counted;
@@ -219,16 +219,29 @@ Phases, each fatal on failure:
      per-hop math at sp = 4 in one process at s3_l and s3_xl
      self-attention, f32 and bf16, with and without a key mask: forward
      against kernel 1, backward against SDPA, timed beside kernel 1;
- 34. the launches of each path, a ``{"kernels": [...]}`` line (launches
-     summed over the paths of phases 4-8, 10-13, 15, 16, 19-21, 24, 26-33),
+ 34. the quality harnesses (``ezaudio_tpu_torch/validation/``):
+     (a) ``quality_validate`` at its widths (depth 4, dim 128, 4 heads x
+     32, 4 text tokens), ``HARNESS_TOY_STEPS`` train steps, then DDIM-25
+     and DPM-10 rows at ``HARNESS_TOY_EVAL`` samples, scored; (b)
+     ``quality_validate_mid`` at s3_l's widths, depth ``HARNESS_MID_DEPTH``:
+     16 + 8 seeded 10 s clips through the VAE encode (12 launches a batch)
+     and the sanity gate (its accuracy printed), ``HARNESS_FIT_STEPS``
+     steps of the VAE fit (batch 4 x 1 s, 24 launches a step),
+     ``HARNESS_TEACHER_STEPS`` teacher steps, DDIM-10 and DPM-10 rows at 8
+     samples with the CLAP columns (a decode of 12 launches each); (c) card
+     against CPU: one encode batch (``HARNESS_ENCODE_REL_TOL``) and a
+     DPM-10 row at depth 2 (``HARNESS_ROW_REL_TOL``);
+ 35. the launches of each path, a ``{"kernels": [...]}`` line (launches
+     summed over the paths of phases 4-8, 10-13, 15, 16, 19-21, 24, 26-34),
      the card's name and power limit, and last ``{"ok": true,
      "device": {...}}``.
 
-Phase 3 also holds kernel 1 at phase 31's masked self-attention shapes,
-phase 23 its backward there (batch 8); phase 30 (a) also restarts the
+Phase 3 also holds kernel 1 at phase 31's masked self-attention shapes
+(phase 23 its backward there, batch 8) and at phase 34's (4 text tokens,
+head dim 32), kernel 2 at phase 34's VAE fit; phase 30 (a) also restarts the
 codec step from a checkpoint, bit-equal to the straight run (ROADMAP F14).
 
-Every path of phases 4, 6-8, 11-13, 15, 16, 19-21, 24, 26-33 is driven with the launch
+Every path of phases 4, 6-8, 11-13, 15, 16, 19-21, 24, 26-34 is driven with the launch
 counters set to 0 just before it and read just after, and must launch each
 kernel exactly as often as its model calls and decodes imply; the bf16
 paths count every launch by dtype (``launches_by_dtype``), so a path that
@@ -306,17 +319,18 @@ VC_REL_TOL = 1e-4
 
 
 # Depth cut from earlier card-only paths so that the whole run stays within
-# 600 s with phases 32 and 33 (PERF.md section 4, "cut:"): fused replays
+# 600 s with phases 32-34 (PERF.md section 4, "cut:"): fused replays
 # after the first call (phases 10, 16, 31; 2 before), DDIM steps of the
 # int8 calls (phase 11; 100 before) and of generate_long's windows (phase
-# 7; 100 before), DPM steps of the servers (phases 12, 15, 21; 25 before),
-# phase 31 (a)'s 1-prompt call run once (3 before), and the DDIM steps of
-# phase 31 (a)-(c)'s calls (VARIANT_STEPS; 100 before, for phase 33).  The
-# shapes each kernel sees, and every check, are unchanged.
+# 7; 100 before), DPM steps of the servers (phases 12, 15, 21; 25, then 10
+# before phase 34), phase 31 (a)'s 1-prompt call run once (3 before), and
+# the DDIM steps of phase 31 (a)-(c)'s calls (VARIANT_STEPS; 100, then 50
+# before phase 34).  The shapes each kernel sees, and every check, are
+# unchanged.
 CUT_REPLAYS = 1
 CUT_INT8_STEPS = 25
 CUT_LONG_STEPS = 25
-CUT_SERVED_STEPS = 10
+CUT_SERVED_STEPS = 5
 
 
 def log(msg: str) -> None:
@@ -391,7 +405,13 @@ ATTN_CASES = [(2, 16, 500, 500, 64, False),   # s3_l self-attention
               (2, 16, 500, 500, 72, False),   # s3_xl self-attention (head_dim 72)
               (2, 16, 500, 100, 72, True),    # s3_xl cross-attention
               (2, 16, 600, 600, 64, "concat"),   # s3_l width, concat context (phase 31)
-              (2, 16, 601, 601, 64, "concat")]   # the same with a time token
+              (2, 16, 601, 601, 64, "concat"),   # the same with a time token
+              # the quality harnesses (phase 34): 4 text tokens, no key mask;
+              # the toy's CFG pair of 32 samples (4 heads x 32), the mid
+              # harness's train batch (8 heads x 64), s3_l width's cross
+              (64, 4, 64, 64, 32, False), (64, 4, 64, 4, 32, False),
+              (16, 8, 500, 500, 64, False), (16, 8, 500, 4, 64, False),
+              (16, 16, 500, 4, 64, False)]
 CONCAT_CONTEXT = 100
 # (B, L, C, dilation): the four decoder blocks of one 10 s clip, which are
 # also the encoder's blocks of a 10 s window in reverse order.
@@ -422,6 +442,12 @@ RESUNIT_CODEC_CASES = [(CODEC_BATCH, L, C, d)
                        for L, C in ((12000, 128), (6000, 128), (1500, 256), (250, 512))
                        for d in (1, 3, 9)]
 RESUNIT_CASES += RESUNIT_CODEC_CASES
+# the quality harness's VAE fit (phase 34): batch 4 of 1 s (24 000 samples)
+# through the encoder's blocks and back through the decoder's
+RESUNIT_FIT_CASES = [(4, L, C, d)
+                     for L, C in ((24000, 128), (12000, 128), (3000, 256), (500, 512))
+                     for d in (1, 3, 9)]
+RESUNIT_CASES += RESUNIT_FIT_CASES
 # bf16: the decoder blocks of one 10 s clip, the shapes of phases 16 and
 # 19, and phase 28's bf16 encode of a training batch
 RESUNIT_BF16_CASES = ([(1, 5000, 512, d) for d in (1, 3, 9)]
@@ -3862,7 +3888,7 @@ SWITCH_CASES = {
     "snake": dict(act_layer="snake"),
 }
 SWITCH_FRAMES = 100  # latent frames of (d)'s module checks
-VARIANT_STEPS = 50  # DDIM steps of (a)-(c) (the reference recipe's 100; cut, see CUT_*)
+VARIANT_STEPS = 25  # DDIM steps of (a)-(c) (the reference recipe's 100; cut, see CUT_*)
 
 
 def variant_config(depth=None, **switches):
@@ -4940,6 +4966,225 @@ def ring_math(dev="cuda", gen=None, cases=RING_CASES, sp=RING_SP, time_it=True):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# Phase 34: the quality harnesses (``ezaudio_tpu_torch/validation/``) on the
+# card: (a) the toy harness at its widths (depth 4, dim 128, 4 heads x 32,
+# 64 frames, 4 text tokens), training cut to HARNESS_TOY_STEPS, then a
+# DDIM-25 and a DPM-10 row at HARNESS_TOY_EVAL samples; (b) the mid harness
+# at s3_l's widths (dim 1024, 16 heads x 64, 500 frames, 128 channels),
+# depth cut to HARNESS_MID_DEPTH: 16 + 8 seeded 10 s clips through the VAE
+# encode and the sanity gate, HARNESS_FIT_STEPS steps of the VAE fit (batch
+# 4 x 1 s), HARNESS_TEACHER_STEPS teacher steps, DDIM-10 and DPM-10 rows at
+# 8 samples with the CLAP columns; (c) the card against the CPU on the same
+# weights and inputs: the encoded latents of one batch (8 clips of 1 s) and
+# DPM-10's sampled latents at s3_l's widths, depth 2, 2 samples of
+# HARNESS_CVC_FRAMES frames.  Each within its limit of the CPU output's
+# largest magnitude: the encode as phase 33 (a)'s batch encode (kernel 2's
+# 3xTF32 against f32, TF32 off; that phase reads 6.1e-6), the row as
+# phase 9's PIPE_REL_TOL (kernel 1 in every call of a 10-step loop).
+HARNESS_TOY_STEPS = 100
+HARNESS_TOY_EVAL = 32
+HARNESS_MID_DEPTH = 4
+HARNESS_FIT_STEPS = 3
+HARNESS_TEACHER_STEPS = 5
+HARNESS_MID_EVAL = 8
+HARNESS_CVC_FRAMES = 100
+HARNESS_ENCODE_REL_TOL = 1e-4
+HARNESS_ROW_REL_TOL = PIPE_REL_TOL
+
+
+def harness_want(path: str, depth: int = 4, steps: int = 0, clips: int = 0,
+                 layer_cache=None) -> tuple:
+    """(kernel 1, kernel 2) launches of a harness path: a train step runs
+    one forward of ``depth + 1`` blocks (its backward recomputes the plain
+    twin, uncounted); a row runs its sampler's model calls
+    (``want_attention``) and decodes ``clips`` samples for the CLAP columns;
+    the encode runs 12 units a batch of ENCODE_BATCH clips; a VAE fit step
+    runs the encoder and the decoder (24)."""
+    from ezaudio_tpu_torch.validation.quality_validate_mid import ENCODE_BATCH
+
+    batches = -(-clips // ENCODE_BATCH)
+    if path == "train":
+        return 2 * (depth + 1) * steps, 0
+    if path == "row":
+        return want_attention(depth, steps, layer_cache), 12 * batches
+    if path == "encode":
+        return 0, 12 * batches
+    if path == "fit":
+        return 0, 24 * steps
+    raise ValueError(path)
+
+
+def harness_agreement(name: str, got, want, tol: float) -> float:
+    """``got`` (card) within ``tol`` of the largest magnitude of ``want``
+    (CPU), both finite and of one shape; returns the relative error."""
+    import numpy as np
+
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    if got.shape != want.shape or not (np.isfinite(got).all() and np.isfinite(want).all()):
+        raise AssertionError(f"{name}: shapes {got.shape} {want.shape} or not finite")
+    rel = float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+    log(f"{name} " + json.dumps(dict(rel_err=rel, tol=tol)))
+    if rel > tol:
+        raise AssertionError(f"{name}: card against CPU {rel:.3e} > {tol}")
+    return rel
+
+
+def harness_path(name, dev, fn, want):
+    """Drive one harness path between a counter reset and a read; check
+    its launches against ``want`` (kernel 1, kernel 2)."""
+    import torch
+
+    cuda = torch.device(dev).type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    sync(dev)
+    seen = set()
+    reset_counters()
+    with resunit_shapes(seen):
+        t0 = time.perf_counter()
+        out = fn()
+        sync(dev)
+        wall = time.perf_counter() - t0
+    attn, res = read_counters()
+    row = dict(path=name, wall_s=wall, attention_launches=attn, resunit_launches=res,
+               want=list(want), resunit_shapes=sorted(seen, reverse=True),
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30 if cuda else None)
+    log(f"{name} " + json.dumps(row))
+    if (attn, res) != tuple(want):
+        raise AssertionError(f"{name}: launch counts {attn}, {res}: want {want}")
+    row["out"] = out
+    return row
+
+
+def _harness_row(name, out, shape, extra):
+    import numpy as np
+
+    if tuple(out.shape) != tuple(shape) or not np.isfinite(out).all() or not all(
+            np.isfinite(v) for v in extra.values()):
+        raise AssertionError(f"{name}: output {out.shape} (want {shape}) or a score not finite: "
+                             f"{extra}")
+    log(f"{name} scores " + json.dumps(extra))
+
+
+def toy_harness_paths(dev="cuda", steps=HARNESS_TOY_STEPS, n_eval=HARNESS_TOY_EVAL,
+                      model_cfg=None):
+    """Phase 34 (a): ``quality_validate``'s training loop and two rows."""
+    import numpy as np
+    import torch
+
+    from ezaudio_tpu_torch.audio.metrics import frechet_audio_distance
+    from ezaudio_tpu_torch.validation import quality_validate as qv
+    from ezaudio_tpu_torch.validation import quality_validate_mid as qvm
+
+    cfg = model_cfg or qv.MODEL_CFG
+    sched = qv.schedule()
+    model = qv.seeded_maskdit(cfg, 0, dev)
+    rng = np.random.default_rng(0)
+    depth = cfg["depth"]
+    rows = [harness_path("harness_toy_train", dev,
+                         lambda: qv.train_toy(model, sched, steps, rng, dev, log_every=50),
+                         harness_want("train", depth, steps))]
+    if not np.isfinite(rows[0]["out"]).all():
+        raise AssertionError(f"toy training losses {rows[0]['out']}")
+    lat_ref, txt_eval, cls_eval = qv.make_batch(rng, n_eval)
+    txt = torch.as_tensor(txt_eval, device=dev)
+    noise = qv.eval_noise((n_eval, qv.L, qv.C), dev)
+    for name, builder, n in (("DDIM-25", qvm.ddim(sched, 25), 25),
+                             ("DPM-10", qvm.dpm(sched, 10), 10)):
+        row = harness_path(f"harness_toy_{name}", dev,
+                           lambda b=builder: qvm.run_config(model, b, noise, txt, n_eval),
+                           harness_want("row", depth, n))
+        out = row["out"]
+        _harness_row(row["path"], out, (n_eval, qv.L, qv.C),
+                     dict(fad=frechet_audio_distance(qv.features(out), qv.features(lat_ref)),
+                          acc=qv.class_accuracy(out, cls_eval)))
+        rows.append(row)
+    return rows
+
+
+def mid_harness_args(dev, root, depth=HARNESS_MID_DEPTH, n_eval=HARNESS_MID_EVAL, extra=()):
+    from ezaudio_tpu_torch.validation import quality_validate_mid as qvm
+
+    return qvm.parse_args(["--depth", str(depth), "--dim", "1024", "--heads", "16",
+                           "--frames", "500", "--n-train", "16", "--n-eval", str(n_eval),
+                           "--eval-chunk", str(n_eval), "--vae-steps", str(HARNESS_FIT_STEPS),
+                           "--cache", "0", "--cache-root", root, "--device", str(dev),
+                           *extra])
+
+
+def mid_harness_paths(dev="cuda", root=None, args=None, vae_config=None, clap_config=None):
+    """Phase 34 (b): ``quality_validate_mid``'s stages at s3_l's widths."""
+    from ezaudio_tpu_torch.validation import quality_validate_mid as qvm
+
+    a = args or mid_harness_args(dev, root)
+    h = qvm.MidHarness(a, dev, vae_config, clap_config)
+    depth, n_eval = a.depth, a.n_eval
+    rows = [harness_path("harness_mid_encode", dev, h.encode,
+                         (0, harness_want("encode", clips=a.n_train)[1]
+                          + harness_want("encode", clips=n_eval)[1]))]
+    acc = h.gate()
+    rows[0]["readout_acc"] = acc
+    log("harness_mid_gate " + json.dumps(dict(readout_acc=acc, limit=qvm.MIN_READOUT_ACC,
+                                              clips=n_eval)))
+    rows.append(harness_path("harness_mid_vae_fit", dev, h.fit_vae,
+                             harness_want("fit", steps=a.vae_steps)))
+    rows.append(harness_path("harness_mid_teacher", dev,
+                             lambda: h.train("diffusion", HARNESS_TEACHER_STEPS, seed=0),
+                             harness_want("train", depth, HARNESS_TEACHER_STEPS)))
+    diff = rows[-1].pop("out")
+    rows.append(harness_path("harness_mid_clap_ref", dev, h.setup_clap,
+                             harness_want("encode", clips=n_eval)))
+    for name, builder in (("DDIM-10", qvm.ddim(h.sched, 10)), ("DPM-10", qvm.dpm(h.sched, 10))):
+        row = harness_path(f"harness_mid_{name}", dev,
+                           lambda builder=builder: h.timed_row(name, diff, builder),
+                           harness_want("row", depth, 10, clips=n_eval))
+        _, fad, acc_row, cscore, cfad = h.rows[-1]
+        _harness_row(row["path"], row.pop("out"), (n_eval, a.frames, h.C),
+                     dict(fad=fad, acc=acc_row, clap_score=cscore, clap_fad=cfad))
+        rows.append(row)
+    del diff, h
+    return rows
+
+
+def harness_card_vs_cpu(dev="cuda", vae_config=None, model_cfg=None, frames=HARNESS_CVC_FRAMES,
+                        n=2, clips=8, clip_frames=50):
+    """Phase 34 (c): one encode batch and one DPM-10 row, card against CPU."""
+    import torch
+
+    from ezaudio_tpu_torch.validation import quality_validate as qv
+    from ezaudio_tpu_torch.validation import quality_validate_mid as qvm
+
+    lat = {}
+    for d in (dev, "cpu"):
+        facade, sr, ratio = qvm.make_vae(d, vae_config)
+        lat[d] = qvm.encode_dataset(clips, 0, facade, sr, ratio, clip_frames)[0]
+        del facade
+    enc = harness_agreement("harness_encode_card_vs_cpu", lat[dev], lat["cpu"],
+                            HARNESS_ENCODE_REL_TOL)
+    cfg = model_cfg or qvm.model_config(2, 1024, 16, frames, 128, False)
+    sched = qv.schedule()
+    out = {}
+    for d in (dev, "cpu"):
+        model = qv.seeded_maskdit(cfg, 0, d).eval().requires_grad_(False)
+        noise = qv.eval_noise((n, frames, cfg["in_chans"]), d)
+        txt = torch.as_tensor(qvm.class_text(torch.arange(n).numpy() % qvm.N_CLASS), device=d)
+        out[d] = qvm.run_config(model, qvm.dpm(sched, 10), noise, txt, n)
+        del model
+    row = harness_agreement("harness_dpm10_card_vs_cpu", out[dev], out["cpu"],
+                            HARNESS_ROW_REL_TOL)
+    return dict(encode_rel_err=enc, row_rel_err=row)
+
+
+def harness_paths(dev="cuda", root=None):
+    """Phase 34: (a), (b) and (c); returns the paths' rows."""
+    rows = toy_harness_paths(dev) + mid_harness_paths(dev, root)
+    for r in rows:
+        r.pop("out", None)
+    harness_card_vs_cpu(dev)
+    return rows
+
+
 def _kernel_class(name: str) -> str:
     n = name.lower()
     if "attn_fwd" in n:
@@ -5255,6 +5500,14 @@ def main(argv) -> int:
         check_freed("world of one", before)
         with phase("33 (c) ring"):
             ring_math("cuda", gen)
+    with phase("34 quality harnesses"):
+        root = tempfile.mkdtemp(prefix="ezaudio_harness_")
+        try:
+            harness = harness_paths("cuda", root)
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+        paths += harness
+    check_freed("quality harnesses", before)
 
     missing = uncovered_shapes(paths)
     if missing:

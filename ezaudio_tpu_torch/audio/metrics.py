@@ -124,16 +124,16 @@ def _np(x) -> np.ndarray:
 def frechet_distance(mu1, cov1, mu2, cov2) -> float:
     """Fréchet distance between two Gaussians (the FAD statistic, Kilgour et
     al., arXiv 1812.08466)."""
-    from scipy import linalg
+    from scipy import linalg  # scipy 1.18 took sqrtm's ``disp``: the root alone
 
     mu1, mu2, cov1, cov2 = (_np(a) for a in (mu1, mu2, cov1, cov2))
     diff = mu1 - mu2
-    covmean, _ = linalg.sqrtm(cov1 @ cov2, disp=False)
+    covmean = linalg.sqrtm(cov1 @ cov2)
     if not np.isfinite(covmean).all():
         # rank-deficient covariances (fewer clips than dimensions): the
         # eps * I offset of the reference FID/FAD implementations
         off = np.eye(cov1.shape[0]) * 1e-6
-        covmean, _ = linalg.sqrtm((cov1 + off) @ (cov2 + off), disp=False)
+        covmean = linalg.sqrtm((cov1 + off) @ (cov2 + off))
     if np.iscomplexobj(covmean):
         covmean = covmean.real
     return float(diff @ diff + np.trace(cov1) + np.trace(cov2) - 2 * np.trace(covmean))

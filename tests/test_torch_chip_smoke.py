@@ -1083,3 +1083,84 @@ def json_copy(obj):
     import json
 
     return json.loads(json.dumps(obj))
+
+
+def test_harness_phase_rehearses_on_cpu(monkeypatch, tmp_path):
+    """Phase 34 at a tiny size on the CPU, the kernels' plain twins counted
+    as launches: (a) the toy harness's training and two rows; (b) the mid
+    harness's encode, gate, VAE fit (on 0.1 s crops here), teacher steps
+    and two rows with the CLAP columns; (c) card against CPU with the CPU
+    on both sides (equal).  Every path's launches are those
+    ``harness_want`` computes from its model calls and encodes."""
+    import chip_smoke as cs
+    from ezaudio_tpu_torch.models.clap import ClapAudioConfig, ClapConfig, ClapTextConfig
+    from ezaudio_tpu_torch.validation import mid_common
+    from ezaudio_tpu_torch.validation import quality_validate as qv
+    from ezaudio_tpu_torch.validation import quality_validate_mid as qvm
+    from tests.test_torch_clap import AUDIO, TEXT
+    from tests.test_torch_quality_harness import TINY_MID_VAE
+
+    _counted_kernels(monkeypatch)
+    rows = cs.toy_harness_paths("cpu", steps=2, n_eval=4,
+                                model_cfg=dict(qv.MODEL_CFG, embed_dim=32))
+    assert [r["path"] for r in rows] == ["harness_toy_train", "harness_toy_DDIM-25",
+                                         "harness_toy_DPM-10"]
+    assert [[r["attention_launches"], r["resunit_launches"]] for r in rows] == [
+        [20, 0], [250, 0], [100, 0]]
+    fit = mid_common.fit_vae_facade
+    monkeypatch.setattr(mid_common, "fit_vae_facade",
+                        lambda *a, **k: fit(*a, **dict(k, seg_s=0.1)))
+    clap = ClapConfig(text=ClapTextConfig(**TEXT), audio=ClapAudioConfig(**AUDIO),
+                      projection_dim=20)
+    args = cs.mid_harness_args("cpu", str(tmp_path), extra=[
+        "--dim", "32", "--heads", "4", "--frames", "150", "--vae-steps", "2"])
+    rows = cs.mid_harness_paths("cpu", args=args, vae_config=TINY_MID_VAE, clap_config=clap)
+    got = {r["path"]: [r["attention_launches"], r["resunit_launches"]] for r in rows}
+    assert got == {"harness_mid_encode": [0, 36], "harness_mid_vae_fit": [0, 48],
+                   "harness_mid_teacher": [10 * cs.HARNESS_TEACHER_STEPS, 0],
+                   "harness_mid_clap_ref": [0, 12], "harness_mid_DDIM-10": [100, 12],
+                   "harness_mid_DPM-10": [100, 12]}
+    assert rows[0]["readout_acc"] >= qvm.MIN_READOUT_ACC
+    res = cs.harness_card_vs_cpu("cpu", vae_config=TINY_MID_VAE,
+                                 model_cfg=qvm.model_config(2, 32, 4, 20, 8, False), frames=20)
+    assert res == dict(encode_rel_err=0.0, row_rel_err=0.0)
+
+
+@pytest.mark.parametrize("path,kw,want", [
+    ("train", dict(depth=4, steps=100), (1000, 0)),
+    ("train", dict(depth=4, steps=5), (50, 0)),
+    ("row", dict(depth=4, steps=25), (250, 0)),
+    ("row", dict(depth=4, steps=10, clips=8), (100, 12)),
+    ("row", dict(depth=4, steps=100, clips=128, layer_cache=(2, 4)), (2 * (25 * 5 + 75 * 4), 192)),
+    ("encode", dict(clips=16), (0, 24)),
+    ("encode", dict(clips=9), (0, 24)),
+    ("fit", dict(steps=3), (0, 72)),
+])
+def test_harness_launch_counts(path, kw, want):
+    """Phase 34's expected launches: a train step one forward of depth + 1
+    blocks (self- and cross-attention each), a row its sampler's model calls
+    and one decode batch of 8 clips per 8 samples (12 units), the encode 12
+    a batch, a VAE fit step 24 (encoder and decoder)."""
+    import chip_smoke as cs
+
+    assert cs.harness_want(path, **kw) == want
+
+
+@pytest.mark.parametrize("case,passes", [("rounding", True), ("scaled", False),
+                                         ("shape", False), ("nan", False)])
+def test_harness_agreement_rule(case, passes):
+    """Card against CPU in phase 34 (c): within the limit of the CPU
+    output's largest magnitude.  f32 rounding passes; a 1 % scale error, a
+    dropped sample or a NaN fails."""
+    import numpy as np
+
+    import chip_smoke as cs
+
+    want = np.random.default_rng(0).standard_normal((2, 100, 8)).astype(np.float32)
+    got = {"rounding": want * (1 + 1e-6), "scaled": want * 1.01, "shape": want[:1],
+           "nan": np.where(want > 2.5, np.nan, want)}[case]
+    if passes:
+        assert cs.harness_agreement(case, got, want, cs.HARNESS_ROW_REL_TOL) < 1e-5
+    else:
+        with pytest.raises(AssertionError):
+            cs.harness_agreement(case, got, want, cs.HARNESS_ROW_REL_TOL)

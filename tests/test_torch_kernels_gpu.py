@@ -67,12 +67,14 @@ class TestKernelsOnGPU:
     bf16 limit stated there; ResidualUnit atol 1e-3)."""
 
     @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-    @pytest.mark.parametrize("D", [9, 64, 72, 128])
-    @pytest.mark.parametrize("Lk", [500, 100, 37])
+    @pytest.mark.parametrize("D", [9, 32, 64, 72, 128])
+    @pytest.mark.parametrize("Lk", [500, 100, 37, 4])
     @pytest.mark.parametrize("Lq", [500, 37])
     def test_attention(self, rng, dtype, Lq, Lk, D):
-        """Ragged query and key tiles (500 = 7 * 64 + 52, 37 < 64), head dims
-        padded (9), exact (64, 128) and between (72) the kernel's tile widths."""
+        """Ragged query and key tiles (500 = 7 * 64 + 52, 37 < 64; the quality
+        harnesses' 4 text tokens, one ragged key tile), head dims padded (9,
+        32: the toy harness's), exact (64, 128) and between (72) the kernel's
+        tile widths."""
         dev = _cuda()
         q, k, v = (torch.from_numpy(a).to(dev, dtype) for a in _qkv(rng, 2, 4, Lq, Lk, D))
         mask = torch.from_numpy(_tail_mask(2, Lk, [Lk - 7, Lk])).to(dev)

@@ -180,14 +180,17 @@ class TestPackageRules:
             "for m in pkgutil.walk_packages(ezaudio_tpu_torch.__path__, 'ezaudio_tpu_torch.'):\n"
             "    importlib.import_module(m.name)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax',\n"
-            "                                                      'transformers')\n"
+            "                                                      'transformers', 'scripts')\n"
             "       or m == 'ezaudio_tpu' or m.startswith('ezaudio_tpu.')]\n"
             "assert not bad, bad\n"
+            "harness = ('quality_validate', 'distill_validate', 'mid_common',\n"
+            "           'quality_validate_mid')\n"
+            "assert all('ezaudio_tpu_torch.validation.' + h in sys.modules for h in harness)\n"
             "print(len([m for m in sys.modules if m.startswith('ezaudio_tpu_torch')]))\n")
         out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                              text=True, timeout=120)
         assert out.returncode == 0, out.stderr
-        assert int(out.stdout.split()[-1]) >= 36
+        assert int(out.stdout.split()[-1]) >= 41
 
     def test_no_silent_cpu(self):
         from ezaudio_tpu_torch.utils import resolve_device
