@@ -51,8 +51,8 @@ Phases, each fatal on failure:
      on seeded random weights (a fresh base EzAudio; the ControlNet's 12
      in-blocks copied from it), ``generate_audio`` on a 10 s clip in 0.5 s
      bursts at its defaults (DDIM 50 steps, CFG 3.5, eta 1), with DPM 25,
-     with ``quant="int8"``, and with DPM at conditioning scale 0, which
-     must differ from scale 1;
+     with ``quant="int8"`` (DDIM ``CUT_INT8_STEPS``), and with DPM at
+     conditioning scale 0, which must differ from scale 1;
  14. the ControlNet path on the card against the CPU on the same weights
      and draws: energy config at full width, depth 4, a 1 s clip, 3 steps,
      eta 0;
@@ -84,7 +84,8 @@ Phases, each fatal on failure:
      ``laion/clap-htsat-unfused`` widths (HTSAT embed 96, depths 2/2/6/2;
      RoBERTa-base; projection 512) on seeded weights,
      ``generate_audio_reranked`` on 1 prompt with 4 candidates at the
-     reference recipe (seeded CLAP ids padded to 32, some rows shorter),
+     reference recipe but ``CUT_RERANK_STEPS`` DDIM steps (seeded CLAP ids
+     padded to 32, some rows shorter),
      the scoring timed alone; the candidates scored again by the CPU scorer:
      embeddings within CLAP_EMBED_ATOL, the same choice unless the CPU's
      top two are within CLAP_TIE;
@@ -231,17 +232,40 @@ Phases, each fatal on failure:
      samples with the CLAP columns (a decode of 12 launches each); (c) card
      against CPU: one encode batch (``HARNESS_ENCODE_REL_TOL``) and a
      DPM-10 row at depth 2 (``HARNESS_ROW_REL_TOL``);
- 35. the launches of each path, a ``{"kernels": [...]}`` line (launches
-     summed over the paths of phases 4-8, 10-13, 15, 16, 19-21, 24, 26-34),
+ 35. the mid product harnesses (``validation/{mid_common,distill_serve_mid,
+     quality_edit_controlnet_mid,verify_checkpoints}.py``) on EzAudio-Mid
+     (dim 512, 8 heads x 64, ``vae.json``'s VAE, the tiny T5 of 8 tokens),
+     depth ``PRODUCT_DEPTH``, every cache in a fresh temporary root: (a)
+     16 + 8 seeded 10 s clips encoded and gated, ``PRODUCT_FIT_STEPS`` VAE-fit
+     steps, ``PRODUCT_TEACHER_STEPS`` teacher steps, 2 + 2 distillation
+     steps (CFG folded in), the student saved and reloaded (its tensors
+     bit-equal), 4 prompts served at batch 4, the teacher at DDIM-10 + CFG
+     and the student at 4 calls, scored; the served student's waveform
+     against a direct ``generate_audio(sampler='distilled')``; (b) the
+     editing and ControlNet harness on (a)'s cached VAE, data and teacher:
+     2 class-changing edits with and without crossfade and 2 same-class
+     edits at 10 steps, the energy ControlNet from zero projections (its
+     output at scale 1 equal to scale 0), 3 fine-tune steps (then unequal),
+     one ControlNet and one t2a sample at 10 steps, Pearson r; (c) card
+     against CPU: the data encode and ``roundtrip_latents`` of 4 x 1 s
+     clips, and ``verify_checkpoints`` on reference-format files of (b)'s
+     models (counts equal, SI-SDR and the t-delta within ``PRODUCT_*``);
+     every path's launches as ``product_want`` counts, every attention
+     shape among phase 3's;
+ 36. the launches of each path, a ``{"kernels": [...]}`` line (launches
+     summed over the paths of phases 4-8, 10-13, 15, 16, 19-21, 24, 26-35),
      the card's name and power limit, and last ``{"ok": true,
      "device": {...}}``.
 
 Phase 3 also holds kernel 1 at phase 31's masked self-attention shapes
-(phase 23 its backward there, batch 8) and at phase 34's (4 text tokens,
-head dim 32), kernel 2 at phase 34's VAE fit; phase 30 (a) also restarts the
-codec step from a checkpoint, bit-equal to the straight run (ROADMAP F14).
+(phase 23 its backward there, batch 8), at phase 34's (4 text tokens, head
+dim 32) and at phase 35's (the tiny T5's 8 padded tokens, the served CFG
+pair of 32, an edit window's 280 frames, ``verify_dit``'s 100 unmasked
+context tokens), kernel 2 at phase 34's VAE fit and at phase 35's edit
+window; phase 30 (a) also restarts the codec step from a checkpoint,
+bit-equal to the straight run (ROADMAP F14).
 
-Every path of phases 4, 6-8, 11-13, 15, 16, 19-21, 24, 26-34 is driven with the launch
+Every path of phases 4, 6-8, 11-13, 15, 16, 19-21, 24, 26-35 is driven with the launch
 counters set to 0 just before it and read just after, and must launch each
 kernel exactly as often as its model calls and decodes imply; the bf16
 paths count every launch by dtype (``launches_by_dtype``), so a path that
@@ -319,16 +343,18 @@ VC_REL_TOL = 1e-4
 
 
 # Depth cut from earlier card-only paths so that the whole run stays within
-# 600 s with phases 32-34 (PERF.md section 4, "cut:"): fused replays
+# 600 s with phases 32-35 (PERF.md section 4, "cut:"): fused replays
 # after the first call (phases 10, 16, 31; 2 before), DDIM steps of the
-# int8 calls (phase 11; 100 before) and of generate_long's windows (phase
-# 7; 100 before), DPM steps of the servers (phases 12, 15, 21; 25, then 10
-# before phase 34), phase 31 (a)'s 1-prompt call run once (3 before), and
-# the DDIM steps of phase 31 (a)-(c)'s calls (VARIANT_STEPS; 100, then 50
-# before phase 34).  The shapes each kernel sees, and every check, are
-# unchanged.
+# int8 calls (phase 11 and, since phase 35, phase 13's; 100 and 50 before)
+# and of generate_long's windows (phase 7; 100 before), DPM steps of the
+# servers (phases 12, 15, 21; 25, then 10 before phase 34), phase 31 (a)'s
+# 1-prompt call run once (3 before), the DDIM steps of phase 31 (a)-(c)'s
+# calls (VARIANT_STEPS; 100, then 50 before phase 34) and of phase 20's
+# reranked call (100 before phase 35).  The shapes each kernel sees, and
+# every check, are unchanged.
 CUT_REPLAYS = 1
 CUT_INT8_STEPS = 25
+CUT_RERANK_STEPS = 25
 CUT_LONG_STEPS = 25
 CUT_SERVED_STEPS = 5
 
@@ -396,7 +422,9 @@ def bound_ms(nbytes: float, flops: float, dtype: str):
 # ---------------------------------------------------------------------------
 # (B, H, Lq, Lk, head_dim, key mask); B = 2 is one prompt's CFG pair.
 # The key mask: False (none), True (T5 padding: 23 valid keys in even
-# rows, all in odd ones) or "concat" (the self-attention of a UDiT with
+# rows, all in odd ones), "t5_8" (the tiny T5's 8 tokens: 6 valid in the
+# prompts' half of the batch, 1 in the empty prompts') or "concat" (the
+# self-attention of a UDiT with
 # concat context: Lk - 600 time/class tokens, the 100 context tokens with
 # 23 valid in even rows and 1 in odd ones (CFG's empty prompt), 500
 # latent frames).
@@ -411,7 +439,14 @@ ATTN_CASES = [(2, 16, 500, 500, 64, False),   # s3_l self-attention
               # harness's train batch (8 heads x 64), s3_l width's cross
               (64, 4, 64, 64, 32, False), (64, 4, 64, 4, 32, False),
               (16, 8, 500, 500, 64, False), (16, 8, 500, 4, 64, False),
-              (16, 16, 500, 4, 64, False)]
+              (16, 16, 500, 4, 64, False),
+              # the product harnesses (phase 35 and the default runs): the
+              # served teacher's CFG pair at batch 16 and cross-attention to
+              # the tiny T5's 8 padded tokens, an edit window of 5.6 s (280
+              # frames, CFG pair), verify_dit's 100 unmasked context tokens
+              (32, 8, 500, 500, 64, False), (32, 8, 500, 8, 64, "t5_8"),
+              (2, 8, 280, 280, 64, False), (2, 8, 280, 8, 64, "t5_8"),
+              (2, 8, 500, 100, 64, False)]
 CONCAT_CONTEXT = 100
 # (B, L, C, dilation): the four decoder blocks of one 10 s clip, which are
 # also the encoder's blocks of a 10 s window in reverse order.
@@ -448,6 +483,10 @@ RESUNIT_FIT_CASES = [(4, L, C, d)
                      for L, C in ((24000, 128), (12000, 128), (3000, 256), (500, 512))
                      for d in (1, 3, 9)]
 RESUNIT_CASES += RESUNIT_FIT_CASES
+# the product harness's edits (phase 35): a mask of [3 s, 7 s) with 0.8 s of
+# boundary, a 5.6 s window encoded and decoded
+RESUNIT_CASES += [(1, 134400, 128, 1), (1, 67200, 128, 3), (1, 16800, 256, 9),
+                  (1, 2800, 512, 1)]
 # bf16: the decoder blocks of one 10 s clip, the shapes of phases 16 and
 # 19, and phase 28's bf16 encode of a training batch
 RESUNIT_BF16_CASES = ([(1, 5000, 512, d) for d in (1, 3, 9)]
@@ -544,6 +583,9 @@ def key_mask(B: int, Lk: int, masked, dev):
     if not masked:
         return None
     pos = torch.arange(Lk, device=dev)[None, :]
+    if masked == "t5_8":
+        return pos < torch.tensor([6 if i < B // 2 else 1 for i in range(B)],
+                                  device=dev)[:, None]
     if masked == "concat":
         lead = Lk - 500 - CONCAT_CONTEXT
         valid = torch.tensor([23 if i % 2 == 0 else 1 for i in range(B)], device=dev)
@@ -1364,7 +1406,7 @@ CONTROLNET_PROMPT = "a dog barking in the rain"
 CONTROLNET_RUNS = [
     ("controlnet", {}),
     ("controlnet_dpm", dict(sampler="dpm", ddim_steps=25)),
-    ("controlnet_int8", dict(quant="int8")),
+    ("controlnet_int8", dict(quant="int8", ddim_steps=CUT_INT8_STEPS)),
     ("controlnet_dpm_scale0", dict(sampler="dpm", ddim_steps=25, conditioning_scale=0.0)),
 ]
 
@@ -1720,10 +1762,10 @@ def build_scorer(dev="cuda", cfg=None):
     return scorer
 
 
-def rerank_path(ez, scorer, ids, row=2, n_candidates=4, length=10.0):
+def rerank_path(ez, scorer, ids, row=2, n_candidates=4, length=10.0, steps=100):
     """Phase 20: ``generate_audio_reranked`` on 1 prompt at the reference
-    recipe, ``n_candidates`` candidates in one batched call, scored against
-    CLAP ids row ``row``; then the scoring alone, timed."""
+    recipe (``steps`` DDIM steps), ``n_candidates`` candidates in one batched
+    call, scored against CLAP ids row ``row``; then the scoring alone, timed."""
     import numpy as np
 
     from ezaudio_tpu_torch.audio.clap import prepare_clap_audio
@@ -1737,11 +1779,11 @@ def rerank_path(ez, scorer, ids, row=2, n_candidates=4, length=10.0):
     def call():
         sr, best, allw, scores = ez.generate_audio_reranked(
             PROMPTS[:1], scorer, n_candidates=n_candidates, text_ids=ids[row:row + 1],
-            return_all=True, length=length, random_seed=1234)
+            return_all=True, length=length, random_seed=1234, ddim_steps=steps)
         out.update(sr=sr, all=allw[0], scores=scores[0])
         return best[0]
 
-    res = run_path(f"rerank[1x{n_candidates}]", ez.device, call, want_attention(depth, 100),
+    res = run_path(f"rerank[1x{n_candidates}]", ez.device, call, want_attention(depth, steps),
                    per_decode * -(-n_candidates // 4), length, n_samples)
     if out["all"].shape != (n_candidates, n_samples) or not np.isfinite(out["scores"]).all():
         raise AssertionError(f"rerank: candidates {out['all'].shape}, scores {out['scores']}")
@@ -5185,6 +5227,379 @@ def harness_paths(dev="cuda", root=None):
     return rows
 
 
+# Phase 35: the mid product harnesses (``validation/{mid_common,
+# distill_serve_mid,quality_edit_controlnet_mid,verify_checkpoints}.py``) at
+# EzAudio-Mid's widths (dim 512, 8 heads x 64, vae.json's VAE, the tiny T5),
+# depth cut to PRODUCT_DEPTH, counts cut as below (the scripts': 1500 fit
+# steps, 1024 + 128 clips, 4000 teacher and 2 x 1500 distillation steps at
+# batch 16, 128 prompts served at batch 16 with the teacher at DDIM-100, 48 +
+# 24 edits at 50 steps, 1500 ControlNet steps on 512 clips, 32 + 32 samples
+# at 50 steps).  (c) holds the card against the CPU at 4 clips of 1 s (the
+# CPU encodes one 10 s clip of vae.json's VAE in ~9 s): the encode within
+# HARNESS_ENCODE_REL_TOL, the decode -> encode round trip within
+# PIPE_REL_TOL of the CPU output's largest magnitude; verify_checkpoints'
+# reports with equal counts, the SI-SDR within PRODUCT_SDR_ATOL dB (f32) and
+# the bf16 DiT's t-delta within PRODUCT_T_DELTA_REL of the CPU's (a mean of
+# 1.3e5 bf16 differences; the card's and the CPU's bf16 sums round apart).
+PRODUCT_DEPTH = 2
+PRODUCT_FIT_STEPS = 2
+PRODUCT_TEACHER_STEPS = 5
+PRODUCT_DISTILL_STEPS = 2
+PRODUCT_BATCH = 4
+PRODUCT_TRAIN, PRODUCT_EVAL = 16, 8
+PRODUCT_SERVE = 4
+PRODUCT_TEACHER_DDIM = 10
+PRODUCT_EDITS = 2
+PRODUCT_EDIT_STEPS = 10
+PRODUCT_CN_TRAIN = 8
+PRODUCT_CN_STEPS = 3
+PRODUCT_CVC_CLIPS, PRODUCT_CVC_FRAMES = 4, 50
+PRODUCT_SDR_ATOL = 1e-2
+PRODUCT_T_DELTA_REL = 2e-2
+
+
+def product_want(path: str, depth: int, steps: int = 0, clips: int = 0, batches: int = 1,
+                 edits: int = 0, n_eval: int = 0) -> tuple:
+    """(kernel 1, kernel 2) launches of a phase-35 path.  A model call runs
+    depth + 1 blocks, two attentions each (a CFG pair is one call); the
+    ControlNet adds its depth // 2 in-blocks; a distillation step makes
+    three calls (the teacher's two, the student's); a decode or encode call
+    runs 12 ResidualUnits, a clip chunk of 8 (``mid_common.ENCODE_CHUNK``)
+    at a time, a served batch of up to 4 clips in one call."""
+    blocks, half = depth + 1, depth // 2
+    chunks = -(-clips // 8)
+    if path == "distill":
+        return 6 * blocks * steps, 0
+    if path == "serve":   # ``batches`` generate calls of ``steps`` model calls, then scored
+        return 2 * blocks * steps * batches, 12 * batches + 12 * chunks
+    if path == "roundtrip":
+        return 0, 24 * chunks
+    if path == "edit_rows":
+        # three runs of ``edits`` edits (class-changing, crossfaded,
+        # same-class), each edit its window's encode, sampler and decode;
+        # each run's edited and gt clips encoded; the eval latents' round
+        # trip; the target-class clips encoded
+        per_run = -(-edits // 8)
+        return (2 * blocks * steps * 3 * edits,
+                24 * 3 * edits + 24 * 3 * per_run + 24 * -(-n_eval // 8) + 12 * per_run)
+    if path == "cn_call":   # one call through the ControlNet, ``clips`` scales
+        return 2 * (blocks + half) * clips, 0
+    if path == "cn_train":
+        return 2 * (blocks + half) * steps, 0
+    if path == "cn_eval":   # one ControlNet sample and one t2a sample, decoded
+        return 2 * (blocks + half) * steps + 2 * blocks * steps, 24
+    if path == "verify":    # verify_vae's encode and decode, verify_dit's two calls
+        return 2 * 2 * blocks, 24
+    raise ValueError(path)
+
+
+def product_args(root, depth=PRODUCT_DEPTH, dim=512, heads=8, frames=500,
+                 fit_steps=PRODUCT_FIT_STEPS):
+    """The two harnesses' arguments at phase 35's cut."""
+    from ezaudio_tpu_torch.validation import distill_serve_mid as ds
+    from ezaudio_tpu_torch.validation import quality_edit_controlnet_mid as qc
+
+    shared = ["--depth", str(depth), "--dim", str(dim), "--heads", str(heads), "--frames",
+              str(frames), "--train-steps", str(PRODUCT_TEACHER_STEPS), "--batch",
+              str(PRODUCT_BATCH), "--n-train", str(PRODUCT_TRAIN), "--vae-steps",
+              str(fit_steps), "--cache-root", root]
+    a = ds.parse_args(shared + ["--n-eval", str(PRODUCT_EVAL), "--distill-steps",
+                                str(PRODUCT_DISTILL_STEPS), "--serve-batch", str(PRODUCT_SERVE)])
+    q = qc.parse_args(shared + ["--n-edit", str(PRODUCT_EDITS), "--n-same", str(PRODUCT_EDITS),
+                                "--edit-steps", str(PRODUCT_EDIT_STEPS), "--cn-steps",
+                                str(PRODUCT_CN_STEPS), "--n-cn-train", str(PRODUCT_CN_TRAIN)])
+    return a, q
+
+
+def distill_serve_paths(dev, a, vae_config=None):
+    """Phase 35 (a): ``distill_serve_mid``'s pipeline at ``a``'s cut.
+    Returns the paths' rows, the teacher's weights and (b)'s model config."""
+    import numpy as np
+    import torch
+
+    from ezaudio_tpu_torch.validation import distill_serve_mid as ds
+    from ezaudio_tpu_torch.validation import mid_common as mc
+    from ezaudio_tpu_torch.validation.quality_validate_mid import features
+
+    ez, cfg, model_cfg, _ = mc.build_mid_ezaudio(a.depth, a.dim, a.heads, a.frames, device=dev,
+                                                 vae_config=vae_config)
+    d = a.depth
+    rows = [harness_path("product_vae_fit", dev,
+                         lambda: mc.fit_vae(ez, steps=a.vae_steps, cache_root=a.cache_root),
+                         harness_want("fit", steps=a.vae_steps))]
+    rows.append(harness_path("product_data", dev,
+                             lambda: mc.prepare_data(ez, a.frames, a.n_train, a.n_eval,
+                                                     cache_root=a.cache_root),
+                             (0, harness_want("encode", clips=a.n_train)[1]
+                              + harness_want("encode", clips=a.n_eval)[1])))
+    data = rows[-1].pop("out")
+    rows.append(harness_path("product_teacher", dev,
+                             lambda: mc.train_teacher(ez, model_cfg, data, a.train_steps,
+                                                      a.batch, cache_root=a.cache_root,
+                                                      log_every=1),
+                             harness_want("train", d, a.train_steps)))
+    teacher = rows[-1].pop("out")
+    before = snapshot(teacher)
+    sched = ez.noise_scheduler
+    rows.append(harness_path("product_distill", dev,
+                             lambda: ds.distill(teacher, data, sched, a, log_every=1),
+                             product_want("distill", d, steps=2 * a.distill_steps)))
+    student = rows[-1].pop("out")
+    moved = unchanged(teacher, before)
+    loaded, meta = ds.save_student(a.ckpt, student, model_cfg, data["mu"], data["sd"])
+    saved = snapshot(student)
+    reloaded = loaded.state_dict()
+    bit_equal = set(reloaded) == set(saved) and all(
+        torch.equal(reloaded[k], v) for k, v in saved.items())
+    want_meta = dict(distilled_steps=4, guidance=mc.GUIDANCE, latent_mu=data["mu"],
+                     latent_sd=data["sd"])
+    log("product_student " + json.dumps(dict(teacher_moved=moved, reload_bit_equal=bit_equal,
+                                             meta=meta)))
+    if moved or not bit_equal or meta != want_meta:
+        raise AssertionError(f"distillation moved the teacher ({moved[:3]}), or the reloaded "
+                             f"student differs (bit-equal {bit_equal}, meta {meta})")
+    del student
+    rows.append(harness_path("product_roundtrip", dev,
+                             lambda: mc.roundtrip_latents(ez, data["m_eval"], data["mu"],
+                                                          data["sd"]),
+                             product_want("roundtrip", d, clips=a.n_eval)))
+    feats_ref = features(rows[-1].pop("out"))
+    cls = data["cls_eval"][:a.serve_batch]
+    prompts = [mc.PROMPTS[c] for c in cls]
+    length_s = a.frames / ez.latent_sr
+    served = {}
+    for name, steps, kw in (("teacher", PRODUCT_TEACHER_DDIM,
+                             dict(ddim_steps=PRODUCT_TEACHER_DDIM, guidance_scale=mc.GUIDANCE,
+                                  guidance_rescale=0.0)),
+                            ("student", 4, dict(sampler="distilled", ddim_steps=4))):
+        ez.dit.load_state_dict(before if name == "teacher" else reloaded)
+        box = {}
+
+        def run(kw=kw, box=box):
+            wavs, wall, stats = ds.serve(ez, prompts, length_s, a.serve_batch, **kw)
+            box.update(stats=stats, wall=wall)
+            return wavs, ds.score(ez, wavs, data, feats_ref, cls)
+
+        # the server's batches decide the count: run, then check against them
+        seen = set()
+        reset_counters()
+        with resunit_shapes(seen):
+            t0 = time.perf_counter()
+            wavs, (fad, acc) = run()
+            sync(dev)
+            wall = time.perf_counter() - t0
+        attn, res = read_counters()
+        want = product_want("serve", d, steps=steps, clips=len(prompts),
+                            batches=box["stats"]["batches"])
+        row = dict(path=f"product_served_{name}", wall_s=wall, attention_launches=attn,
+                   resunit_launches=res, want=list(want), stats=box["stats"],
+                   audio_s_per_s=len(prompts) * length_s / box["wall"], fad=fad, acc=acc,
+                   resunit_shapes=sorted(seen, reverse=True))
+        log(row["path"] + " " + json.dumps(row))
+        if (attn, res) != want or not np.isfinite(wavs).all() or not np.isfinite(fad):
+            raise AssertionError(f"{row['path']}: launches {attn}, {res} (want {want}), "
+                                 f"finite {np.isfinite(wavs).all()}, FAD {fad}")
+        served[name] = wavs
+        rows.append(row)
+    # the served student (ez.dit holds it now) against a direct call for seed 0
+    direct = run_path("product_student_direct", dev,
+                      lambda: ez.generate_audio(prompts[0], length=length_s,
+                                                sampler="distilled", ddim_steps=4,
+                                                random_seed=0)[1],
+                      2 * (d + 1) * 4, 12, length_s, served["student"].shape[1])
+    agreement("product_served_vs_direct", served["student"][0], direct.pop("wav"), {})
+    rows.append(direct)
+    del ez, teacher, loaded
+    return rows, before, model_cfg
+
+
+def controlnet_outputs(cn_api, data, cond, frames: int):
+    """One model call through the ControlNet at conditioning scale 1 and at
+    0 on fixed inputs (``data``'s first prompt, the first curve of
+    ``cond``): the base's outputs, (2, frames, C)."""
+    import torch
+
+    ez = cn_api.base
+    dev = ez.device
+    x = torch.randn(1, frames, ez.latent_dim, generator=torch.Generator().manual_seed(35)).to(dev)
+    t = torch.tensor([500], device=dev)
+    ctx = torch.as_tensor(data["cond_emb"][:1], device=dev)
+    cm = torch.as_tensor(data["cond_mask"][:1], device=dev)
+    condition = torch.as_tensor(cond[:1], device=dev)
+    outs = []
+    with torch.inference_mode():
+        concat, _ = ez.dit(x, t, ctx, context_mask=cm, forward_model=False)
+        for scale in (1.0, 0.0):
+            skips = cn_api.controlnet(concat, t, ctx, context_mask=cm, condition=condition,
+                                      conditioning_scale=scale)
+            outs.append(ez.dit.forward_backbone(concat, t, ctx, context_mask=cm,
+                                                controlnet_skips=skips))
+    return torch.cat(outs, 0)
+
+
+def edit_controlnet_paths(dev, q, teacher, vae_config=None):
+    """Phase 35 (b): ``quality_edit_controlnet_mid`` at ``q``'s cut on (a)'s
+    cached VAE, data and teacher (no launches: every cache hits).  Returns
+    the rows, the ControlNet and the run's data."""
+    import numpy as np
+    import torch
+
+    from ezaudio_tpu_torch.validation import mid_common as mc
+    from ezaudio_tpu_torch.validation import quality_edit_controlnet_mid as qc
+
+    ez, cfg, model_cfg, _ = mc.build_mid_ezaudio(q.depth, q.dim, q.heads, q.frames,
+                                                 with_controlnet=True, device=dev,
+                                                 vae_config=vae_config)
+    d = q.depth
+    n_eval = PRODUCT_EVAL
+    rows = [harness_path("product_cached_vae", dev,
+                         lambda: mc.fit_vae(ez, steps=q.vae_steps, cache_root=q.cache_root),
+                         (0, 0))]
+    rows.append(harness_path("product_cached_data", dev,
+                             lambda: mc.prepare_data(ez, q.frames, q.n_train, n_eval,
+                                                     cache_root=q.cache_root), (0, 0)))
+    data = rows[-1].pop("out")
+    rows.append(harness_path("product_cached_teacher", dev,
+                             lambda: mc.train_teacher(ez, model_cfg, data, q.train_steps,
+                                                      q.batch, cache_root=q.cache_root),
+                             (0, 0)))
+    differ = unchanged(rows[-1].pop("out"), teacher)
+    if differ:
+        raise AssertionError(f"the cached teacher differs from (a)'s: {differ[:3]}")
+    h = qc.Harness(ez, data, q)
+    rows.append(harness_path("product_edit_rows", dev, h.edit_rows,
+                             product_want("edit_rows", d, steps=q.edit_steps,
+                                          edits=q.n_edit, n_eval=n_eval)))
+    edit = rows[-1].pop("out")
+    cn_api = h.controlnet()
+    rng = np.random.default_rng(3)
+    rows.append(harness_path("product_cn_data", dev,
+                             lambda: h.controlnet_data(cn_api, rng, q.n_cn_train),
+                             harness_want("encode", clips=q.n_cn_train)))
+    cn_cls, cn_lat, cn_cond = rows[-1].pop("out")
+    rows.append(harness_path("product_cn_start", dev,
+                             lambda: controlnet_outputs(cn_api, data, cn_cond, q.frames),
+                             product_want("cn_call", d, clips=2)))
+    start = rows[-1].pop("out")
+    rows.append(harness_path("product_cn_train", dev,
+                             lambda: h.train_controlnet(cn_api, ez.noise_scheduler, q.cn_steps,
+                                                        rng, cn_cls, cn_lat, cn_cond,
+                                                        log_every=1),
+                             product_want("cn_train", d, steps=q.cn_steps)))
+    rows.append(harness_path("product_cn_trained", dev,
+                             lambda: controlnet_outputs(cn_api, data, cn_cond, q.frames),
+                             product_want("cn_call", d, clips=2)))
+    trained = rows[-1].pop("out")
+    rows.append(harness_path("product_cn_eval", dev, lambda: h.controlnet_eval(cn_api, 1),
+                             product_want("cn_eval", d, steps=q.edit_steps)))
+    r = rows[-1].pop("out")
+    checks = dict(start_scale_diff=float((start[0] - start[1]).abs().max()),
+                  trained_scale_diff=float((trained[0] - trained[1]).abs().max()),
+                  **{k: v for k, v in {**edit, **r}.items()})
+    log("product_edit_controlnet " + json.dumps(checks))
+    if not (torch.equal(start[0], start[1]) and checks["trained_scale_diff"] > 0
+            and all(np.isfinite(v) for v in checks.values())):
+        raise AssertionError(f"ControlNet scale 1 against 0 or a row: {checks}")
+    return rows, cn_api, data
+
+
+def product_card_vs_cpu(dev, cn_api, data, vae_cfg, root, clips=PRODUCT_CVC_CLIPS,
+                        frames=PRODUCT_CVC_FRAMES):
+    """Phase 35 (c): the encode and the round trip of ``clips`` clips of
+    ``frames`` latent frames, and ``verify_checkpoints`` on reference-format
+    files of ``cn_api``'s models, card against CPU."""
+    import types
+
+    import numpy as np
+    import torch
+
+    from ezaudio_tpu_torch.codecs.facade import AutoencoderFacade
+    from ezaudio_tpu_torch.codecs.oobleck import vae_from_config
+    from ezaudio_tpu_torch.validation import mid_common as mc
+    from ezaudio_tpu_torch.validation import verify_checkpoints as vc
+    from ezaudio_tpu_torch.validation.quality_validate_mid import synth_clip
+
+    ez = cn_api.base
+    cpu_vae = vae_from_config(vae_cfg).eval().requires_grad_(False)
+    cpu_vae.load_state_dict({k: v.cpu() for k, v in ez.autoencoder.model.state_dict().items()})
+    cpu = types.SimpleNamespace(autoencoder=AutoencoderFacade(cpu_vae))
+    rng = np.random.default_rng(35)
+    ratio = ez.sr // ez.latent_sr
+    wavs = np.stack([mc.peak_wav(synth_clip(rng, int(c), frames * ratio, ez.sr))
+                     for c in rng.integers(0, len(mc.PROMPTS), clips)])
+    d = ez.params_cfg.model.depth
+    rows = [harness_path("product_cvc_encode", dev, lambda: mc.encode(ez, wavs),
+                         harness_want("encode", clips=clips))]
+    z = rows[-1].pop("out")
+    res = dict(encode_rel_err=harness_agreement("product_encode_card_vs_cpu", z,
+                                                mc.encode(cpu, wavs), HARNESS_ENCODE_REL_TOL))
+    m = (z - data["mu"]) / data["sd"]
+    rows.append(harness_path("product_cvc_roundtrip", dev,
+                             lambda: mc.roundtrip_latents(ez, m, data["mu"], data["sd"]),
+                             product_want("roundtrip", d, clips=clips)))
+    res["roundtrip_rel_err"] = harness_agreement(
+        "product_roundtrip_card_vs_cpu", rows[-1].pop("out"),
+        mc.roundtrip_latents(cpu, m, data["mu"], data["sd"]), PIPE_REL_TOL)
+    os.makedirs(root, exist_ok=True)
+    paths = write_checkpoints(cn_api, root)
+    model_cfg = ez.params_cfg.model.to_dict()
+
+    def verify(device):
+        return dict(vae=vc.verify_vae(paths["vae_path"], vae_cfg, sine_seconds=1.0,
+                                      device=device),
+                    dit=vc.verify_dit(paths["ckpt_path"], model_cfg, device=device))
+
+    rows.append(harness_path("product_verify", dev, lambda: verify(dev),
+                             product_want("verify", d)))
+    card, host = rows[-1].pop("out"), verify("cpu")
+    cn = vc.verify_controlnet(paths["controlnet_path"], model_cfg,
+                              ez.params_cfg.controlnet.to_dict())
+    sdr = abs(card["vae"]["roundtrip_si_sdr_db"] - host["vae"]["roundtrip_si_sdr_db"])
+    t_rel = (abs(card["dit"]["t_conditioning_delta"] - host["dit"]["t_conditioning_delta"])
+             / host["dit"]["t_conditioning_delta"])
+    res.update(verify_card=card, verify_cpu=host, verify_controlnet=cn, sdr_diff_db=sdr,
+               t_delta_rel=t_rel, verdicts=dict(
+                   vae="OK" if card["vae"]["roundtrip_ok"] else "SUSPICIOUS",
+                   dit="OK" if card["dit"]["t_conditioning_live"] else "SUSPICIOUS"))
+    log("product_card_vs_cpu " + json.dumps(res))
+    counts = [(r["converted_params"], r["reference_tensors"])
+              for x in (card, host) for r in x.values()]
+    if not (counts[:2] == counts[2:] and card["dit"]["count_ok"] and cn["count_ok"]
+            and sdr <= PRODUCT_SDR_ATOL and t_rel <= PRODUCT_T_DELTA_REL
+            and all(r["finite"] for x in (card, host) for r in x.values())):
+        raise AssertionError(f"verify_checkpoints card against CPU: {res}")
+    return rows, res
+
+
+def product_paths(dev="cuda", root=None, vae_config=None, depth=PRODUCT_DEPTH, dim=512,
+                  heads=8, frames=500, fit_steps=PRODUCT_FIT_STEPS, attn_cases=ATTN_CASES):
+    """Phase 35: (a), (b) and (c) under one fresh cache root; every
+    attention shape must be among ``attn_cases`` (phase 3's).  Returns the
+    paths' rows."""
+    from ezaudio_tpu_torch.validation.quality_validate_mid import vae_json
+
+    a, q = product_args(root, depth, dim, heads, frames, fit_steps)
+    seen = set()
+    with attention_shapes(seen):
+        with phase("35 (a) distill and serve"):
+            rows, teacher, _ = distill_serve_paths(dev, a, vae_config)
+        with phase("35 (b) editing and ControlNet"):
+            more, cn_api, data = edit_controlnet_paths(dev, q, teacher, vae_config)
+        rows += more
+        with phase("35 (c) card against CPU"):
+            more, _ = product_card_vs_cpu(dev, cn_api, data, vae_config or vae_json(),
+                                          os.path.join(root, "ckpt"))
+        rows += more
+    del cn_api
+    missing = uncovered_attention(seen, attn_cases)
+    log("product_attention_shapes " + json.dumps(sorted(seen)))
+    if missing:
+        raise AssertionError(f"attention shapes of phase 35 not in phase 3: {missing}")
+    for r in rows:
+        r.pop("out", None)
+    return rows
+
+
 def _kernel_class(name: str) -> str:
     n = name.lower()
     if "attn_fwd" in n:
@@ -5376,7 +5791,7 @@ def main(argv) -> int:
     before_clap = mem_gib(torch.cuda.memory_allocated)
     scorer, ids = build_scorer(), clap_ids()
     with phase("20 rerank"):
-        rerank = rerank_path(ez, scorer, ids)
+        rerank = rerank_path(ez, scorer, ids, steps=CUT_RERANK_STEPS)
         clap_card_vs_cpu(scorer, rerank, ids)
     with phase("21 served rerank"):
         paths += [rerank, served_rerank(ez, scorer, ids, steps=CUT_SERVED_STEPS)]
@@ -5508,6 +5923,13 @@ def main(argv) -> int:
             shutil.rmtree(root, ignore_errors=True)
         paths += harness
     check_freed("quality harnesses", before)
+    with phase("35 mid product harnesses"):
+        root = tempfile.mkdtemp(prefix="ezaudio_product_")
+        try:
+            paths += product_paths("cuda", root)
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+    check_freed("mid product harnesses", before)
 
     missing = uncovered_shapes(paths)
     if missing:

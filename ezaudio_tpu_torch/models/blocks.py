@@ -52,11 +52,14 @@ class RotaryEmbedding(nn.Module):
 
     def tables(self, L: int):
         # every length stays cached: a captured CUDA graph reads its tables
-        # in place, so a table must outlive the call that made it
+        # in place, so a table must outlive the call that made it.  They are
+        # made outside inference mode: a table first made by a sampler call
+        # is read by a later train step's autograd (ROADMAP F22)
         key = (L, self.inv_freq.device)
         if key not in self._cache:
-            self._cache[key] = rope_tables(L, self.inv_freq.numel() * 2,
-                                           freqs=self.inv_freq)
+            with torch.inference_mode(False):
+                self._cache[key] = rope_tables(L, self.inv_freq.numel() * 2,
+                                               freqs=self.inv_freq)
         return self._cache[key]
 
 

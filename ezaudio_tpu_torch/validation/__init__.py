@@ -1,10 +1,15 @@
-"""The quality-validation harnesses (counterparts of ``scripts/quality_validate.py``,
-``scripts/distill_validate.py``, ``scripts/quality_validate_mid.py`` and the
-parts of ``scripts/mid_common.py`` they use).
+"""The quality-validation and product harnesses (counterparts of
+``scripts/quality_validate.py``, ``distill_validate.py``,
+``quality_validate_mid.py``, ``mid_common.py``, ``distill_serve_mid.py``,
+``quality_edit_controlnet_mid.py``, ``verify_checkpoints.py`` and
+``calibrate_{pesq,nsim}_mnru.py``).
 
-Each trains a MaskDiT on synthetic class-conditional data, samples every
-acceleration recipe from shared seeds and scores it by a Frechet distance
-and a conditional-accuracy readout.  Run each as
+The first three train a MaskDiT on synthetic class-conditional data,
+sample every acceleration recipe from shared seeds and score it by a
+Frechet distance and a conditional-accuracy readout; the product harnesses
+take a mid-scale EzAudio through its public surfaces (a distilled student
+saved, reloaded and served, editing, the energy ControlNet); the last three
+check published checkpoints and calibrate the quality metrics.  Run each as
 ``python -m ezaudio_tpu_torch.validation.<module>``: on CUDA unless
 ``--device cpu``.
 """

@@ -184,13 +184,15 @@ class TestPackageRules:
             "       or m == 'ezaudio_tpu' or m.startswith('ezaudio_tpu.')]\n"
             "assert not bad, bad\n"
             "harness = ('quality_validate', 'distill_validate', 'mid_common',\n"
-            "           'quality_validate_mid')\n"
+            "           'quality_validate_mid', 'distill_serve_mid',\n"
+            "           'quality_edit_controlnet_mid', 'verify_checkpoints',\n"
+            "           'calibrate_pesq_mnru', 'calibrate_nsim_mnru')\n"
             "assert all('ezaudio_tpu_torch.validation.' + h in sys.modules for h in harness)\n"
             "print(len([m for m in sys.modules if m.startswith('ezaudio_tpu_torch')]))\n")
         out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                              text=True, timeout=120)
         assert out.returncode == 0, out.stderr
-        assert int(out.stdout.split()[-1]) >= 41
+        assert int(out.stdout.split()[-1]) >= 46
 
     def test_no_silent_cpu(self):
         from ezaudio_tpu_torch.utils import resolve_device
