@@ -252,8 +252,18 @@ Phases, each fatal on failure:
      models (counts equal, SI-SDR and the t-delta within ``PRODUCT_*``);
      every path's launches as ``product_want`` counts, every attention
      shape among phase 3's;
- 36. the launches of each path, a ``{"kernels": [...]}`` line (launches
-     summed over the paths of phases 4-8, 10-13, 15, 16, 19-21, 24, 26-35),
+ 36. the load harnesses (``validation/{serving_bench,fused_ab}.py``) through
+     their mains on their scripts' model, s3_xl in bf16 with the tiny T5:
+     (a) ``serving_bench`` at the reference recipe cut to ``LOAD_STEPS``
+     DDIM steps, ``--mixed`` (5 s and 10 s requests),
+     ``LOAD_RATE`` req/s for ``LOAD_WINDOW_S`` s, batches of up to
+     ``LOAD_MAX_BATCH``: every request served, the slot fill in (0, 1];
+     (b) ``fused_ab`` at batch ``LOAD_AB_BATCH``, both recipes cut likewise:
+     each fused waveform equal to the staged one; every staged call's and
+     fused replay's launches as its recipe and batch imply
+     (``load_call_launches``), all bf16;
+ 37. the launches of each path, a ``{"kernels": [...]}`` line (launches
+     summed over the paths of phases 4-8, 10-13, 15, 16, 19-21, 24, 26-36),
      the card's name and power limit, and last ``{"ok": true,
      "device": {...}}``.
 
@@ -261,11 +271,12 @@ Phase 3 also holds kernel 1 at phase 31's masked self-attention shapes
 (phase 23 its backward there, batch 8), at phase 34's (4 text tokens, head
 dim 32) and at phase 35's (the tiny T5's 8 padded tokens, the served CFG
 pair of 32, an edit window's 280 frames, ``verify_dit``'s 100 unmasked
-context tokens), kernel 2 at phase 34's VAE fit and at phase 35's edit
-window; phase 30 (a) also restarts the codec step from a checkpoint,
+context tokens), at phase 36's (s3_xl's 5 s bucket), kernel 2 at phase
+34's VAE fit, at phase 35's edit window and at phase 36's 5 s decode in
+bf16; phase 30 (a) also restarts the codec step from a checkpoint,
 bit-equal to the straight run (ROADMAP F14).
 
-Every path of phases 4, 6-8, 11-13, 15, 16, 19-21, 24, 26-35 is driven with the launch
+Every path of phases 4, 6-8, 11-13, 15, 16, 19-21, 24, 26-36 is driven with the launch
 counters set to 0 just before it and read just after, and must launch each
 kernel exactly as often as its model calls and decodes imply; the bf16
 paths count every launch by dtype (``launches_by_dtype``), so a path that
@@ -446,7 +457,9 @@ ATTN_CASES = [(2, 16, 500, 500, 64, False),   # s3_l self-attention
               # frames, CFG pair), verify_dit's 100 unmasked context tokens
               (32, 8, 500, 500, 64, False), (32, 8, 500, 8, 64, "t5_8"),
               (2, 8, 280, 280, 64, False), (2, 8, 280, 8, 64, "t5_8"),
-              (2, 8, 500, 100, 64, False)]
+              (2, 8, 500, 100, 64, False),
+              # the load harnesses (phase 36): s3_xl's 5 s length bucket
+              (2, 16, 250, 250, 72, False), (2, 16, 250, 100, 72, True)]
 CONCAT_CONTEXT = 100
 # (B, L, C, dilation): the four decoder blocks of one 10 s clip, which are
 # also the encoder's blocks of a 10 s window in reverse order.
@@ -488,11 +501,14 @@ RESUNIT_CASES += RESUNIT_FIT_CASES
 RESUNIT_CASES += [(1, 134400, 128, 1), (1, 67200, 128, 3), (1, 16800, 256, 9),
                   (1, 2800, 512, 1)]
 # bf16: the decoder blocks of one 10 s clip, the shapes of phases 16 and
-# 19, and phase 28's bf16 encode of a training batch
+# 19, phase 28's bf16 encode of a training batch, and the decode of phase
+# 36's 5 s length bucket
 RESUNIT_BF16_CASES = ([(1, 5000, 512, d) for d in (1, 3, 9)]
                       + [(1, 30000, 256, 9), (1, 120000, 128, 9)]
                       + [(1, 240000, 128, d) for d in (1, 3, 9)]
-                      + RESUNIT_TRAIN_CASES)
+                      + RESUNIT_TRAIN_CASES
+                      + [(2, 2500, 512, d) for d in (1, 3, 9)]
+                      + [(2, 15000, 256, 9), (2, 60000, 128, 9)])
 # The bf16 ResidualUnit's snake2 output g, read from the kernel itself:
 # with W1 = G_PROBE * I and b1 = 0 it returns round(x + G_PROBE * g), which
 # is G_PROBE * g exactly wherever |g| > 3e-9 (x is then below half a bf16
@@ -5024,7 +5040,7 @@ def ring_math(dev="cuda", gen=None, cases=RING_CASES, sp=RING_SP, time_it=True):
 # largest magnitude: the encode as phase 33 (a)'s batch encode (kernel 2's
 # 3xTF32 against f32, TF32 off; that phase reads 6.1e-6), the row as
 # phase 9's PIPE_REL_TOL (kernel 1 in every call of a 10-step loop).
-HARNESS_TOY_STEPS = 100
+HARNESS_TOY_STEPS = 50
 HARNESS_TOY_EVAL = 32
 HARNESS_MID_DEPTH = 4
 HARNESS_FIT_STEPS = 3
@@ -5600,6 +5616,144 @@ def product_paths(dev="cuda", root=None, vae_config=None, depth=PRODUCT_DEPTH, d
     return rows
 
 
+# ---------------------------------------------------------------------------
+# Phase 36: the load harnesses (validation/{serving_bench,fused_ab}.py) on
+# the scripts' model, s3_xl in bf16 with the tiny T5, through their mains;
+# cut (the scripts' in brackets): LOAD_STEPS steps (100; 25 and 100 in
+# fused_ab), one rate for LOAD_WINDOW_S s (0.5, 1 and 2 req/s for 60 s),
+# batches of up to LOAD_MAX_BATCH (8), fused_ab at batch LOAD_AB_BATCH (4).
+# --mixed serves 5 s and 10 s requests: the 5 s bucket's attention and
+# decode shapes are among phase 3's.
+LOAD_STEPS = 3
+LOAD_RATE = 2.0
+LOAD_WINDOW_S = 4.0
+LOAD_MAX_BATCH = 2
+LOAD_AB_BATCH = 2
+
+
+def load_call_launches(depth: int, want_res: int, batch: int, kw: dict):
+    """(kernel 1, kernel 2) launches of one ``generate_audio`` call with
+    ``kw``: the bf16-logit attention variants are plain torch; the decode
+    runs ``want_res`` units a chunk of up to 4 clips."""
+    plain = kw.get("attn_impl") in ("bf16", "chunked_bf16")
+    attn = 0 if plain else want_attention(depth, kw.get("ddim_steps", 100), kw.get("layer_cache"))
+    return attn, want_res * -(-batch // 4)
+
+
+@contextlib.contextmanager
+def counted_calls(ez, calls: list):
+    """Append ``(batch, kwargs)`` of every ``ez.generate_audio`` call to
+    ``calls`` (the server's and the harness's alike)."""
+    real = ez.generate_audio
+
+    def counted(text, *args, **kw):
+        calls.append((1 if isinstance(text, str) else len(text), kw))
+        return real(text, *args, **kw)
+
+    ez.generate_audio = counted
+    try:
+        yield
+    finally:
+        del ez.generate_audio  # no cycle through the instance (ROADMAP F8)
+
+
+def load_harness_run(name, ez, fn, want_res, attn_cases=ATTN_CASES):
+    """Drive one load harness between a counter reset and a read: every
+    staged call's launches must be what its recipe and batch imply, every
+    new fused program's per replay too, and every launch bf16 when the
+    model is.  Launches: the staged calls' and the replays'; a program's
+    warm-up and capture move the counters without running on the card."""
+    import torch
+
+    depth = ez.params_cfg.model.depth
+    cuda = torch.device(ez.device).type == "cuda"
+    calls, seen, attn_seen = [], set(), set()
+    before = {k: p.replays for k, p in ez._fused.items()}
+    sync(ez.device)
+    reset_counters()
+    with counted_calls(ez, calls), resunit_shapes(seen), attention_shapes(attn_seen):
+        t0 = time.perf_counter()
+        out = fn()
+        sync(ez.device)
+        wall = time.perf_counter() - t0
+    attn, res = read_counters()
+    by_dtype = read_dtype_counters()
+    graphs = cuda and any(kw.get("fused") for _, kw in calls)
+    staged = [load_call_launches(depth, want_res, b, kw) for b, kw in calls
+              if not (graphs and kw.get("fused"))]
+    want = [sum(x[0] for x in staged), sum(x[1] for x in staged)]
+    launches = list(want)
+    if graphs:
+        fused = {load_call_launches(depth, want_res, b, kw) for b, kw in calls if kw.get("fused")}
+        for k, p in ez._fused.items():
+            n = p.replays - before.get(k, 0)
+            if n and not any(p.launches == {"attention": a, "resunit": r} for a, r in fused):
+                raise AssertionError(f"{name}: launches per replay {p.launches}")
+            if k not in before:  # its warm-up and capture passed through the wrappers
+                want[0] += 2 * p.launches["attention"]
+                want[1] += 2 * p.launches["resunit"]
+            launches[0] += n * p.launches["attention"]
+            launches[1] += n * p.launches["resunit"]
+    row = dict(path=name, wall_s=wall, calls=len(calls), attention_launches=launches[0],
+               resunit_launches=launches[1], counters=[attn, res], want_counters=want,
+               launches_by_dtype=by_dtype, resunit_shapes=sorted(seen, reverse=True),
+               attention_shapes=sorted(attn_seen))
+    log(f"{name} " + json.dumps(row))
+    if [attn, res] != want:
+        raise AssertionError(f"{name}: counters {attn}, {res}: want {want}")
+    dt = str(ez.dtype).rsplit(".", 1)[-1]
+    if any(not k.endswith("." + dt) for k in by_dtype):
+        raise AssertionError(f"{name}: launches by dtype {by_dtype}, want all {dt}")
+    missing = uncovered_attention(attn_seen, attn_cases)
+    if missing:
+        raise AssertionError(f"{name}: attention shapes not in phase 3: {missing}")
+    row["out"] = out
+    return row
+
+
+def load_harness_paths(dev="cuda", ez=None, steps=LOAD_STEPS, length=10.0,
+                       rate=LOAD_RATE, window=LOAD_WINDOW_S, max_batch=LOAD_MAX_BATCH,
+                       ab_batch=LOAD_AB_BATCH, attn_cases=ATTN_CASES):
+    """Phase 36: (a) ``serving_bench`` at the reference recipe cut to
+    ``steps`` DDIM steps, ``--mixed`` (requests of ``length`` / 2 and
+    ``length`` s), one ``rate`` for ``window`` s, batches of up to
+    ``max_batch``: every request served; (b) ``fused_ab`` at batch
+    ``ab_batch``, both recipes cut to ``steps``: each fused waveform equal
+    to the staged one (the module raises otherwise).  ``ez`` defaults to
+    the scripts' model (``serving_bench.build_ezaudio``); every attention
+    shape must be among ``attn_cases`` (phase 3's)."""
+    from ezaudio_tpu_torch.codecs.oobleck import ResidualUnit
+    from ezaudio_tpu_torch.validation import fused_ab
+    from ezaudio_tpu_torch.validation import serving_bench as sb
+
+    if ez is None:
+        t0 = time.perf_counter()
+        ez = sb.build_ezaudio("s3_xl", dev)
+        log(f"load: s3_xl bf16 with the tiny T5 built in {time.perf_counter() - t0:.2f} s")
+    want_res = sum(isinstance(m, ResidualUnit) for m in ez.autoencoder.model.decoder.modules())
+    cut = ["--steps", str(steps), "--length", str(length)]
+    served = load_harness_run(
+        "load_served", ez,
+        lambda: sb.main([str(rate), "--recipe", "default", "--seconds", str(window),
+                         "--max-batch", str(max_batch), "--mixed", *cut], ez=ez), want_res,
+        attn_cases)
+    for r in served.pop("out"):
+        served.update(sent=r["sent"], served=r["served"], slot_fill=r["slot_fill"],
+                      p50_s=r["p50_s"], p99_s=r["p99_s"], batches=r["batches"])
+        if not (r["served"] == r["sent"] > 0 and 0 < r["slot_fill"] <= 1
+                and sorted(r["per_length"]) == [length / 2, length]):
+            raise AssertionError(f"load_served: {r}")
+    ab = load_harness_run("load_fused_ab", ez,
+                          lambda: fused_ab.main(["--batch", str(ab_batch), *cut], ez=ez),
+                          want_res, attn_cases)
+    ab["recipes"] = ab.pop("out")
+    if [r["max_abs_err"] for r in ab["recipes"]] != [0.0, 0.0]:
+        raise AssertionError(f"load_fused_ab: fused differs from staged: {ab['recipes']}")
+    log("load_harnesses " + json.dumps(dict(served={k: served[k] for k in (
+        "sent", "served", "slot_fill", "p50_s", "p99_s", "batches")}, fused_ab=ab["recipes"])))
+    return [served, ab]
+
+
 def _kernel_class(name: str) -> str:
     n = name.lower()
     if "attn_fwd" in n:
@@ -5930,6 +6084,9 @@ def main(argv) -> int:
         finally:
             shutil.rmtree(root, ignore_errors=True)
     check_freed("mid product harnesses", before)
+    with phase("36 load harnesses"):
+        paths += load_harness_paths("cuda")
+    check_freed("load harnesses", before)
 
     missing = uncovered_shapes(paths)
     if missing:

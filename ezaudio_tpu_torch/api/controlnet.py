@@ -16,7 +16,12 @@ device and dtype), as ``GenerationServer(controlnet=)`` does.
 ``controlnet_path`` loads the published ControlNet checkpoint (key
 ``model``, strictly) from a local file; without it the ControlNet's
 weights are random, drawn from ``seed + 1``, then its embedders and
-in-blocks are copied from the base (``init_from_base_``).
+in-blocks are copied from the base (``init_from_base_``).  Every drawn
+weight is non-zero, also where the JAX package's init writes zeros (ROADMAP
+F6); ``zero_projections=True`` zeroes those (``conv_out``, the zero blocks
+and ``mask_embed``, ``models/controlnet.py::zero_projections_``) before any
+checkpoint loads, so a fine-tune starts where the JAX package's does: the
+ControlNet adds nothing at any conditioning scale.
 ``dtype=torch.bfloat16`` runs the base and the ControlNet in bf16, as
 ``EzAudio`` does: a base built here is built in f32, its in-blocks copied,
 and both cast after, so the copies start from the f32 weights as the JAX
@@ -40,7 +45,8 @@ from ezaudio_tpu_torch.data.audio_io import load_wav, peak_normalize
 from ezaudio_tpu_torch.diffusion.dpm import dpm_solver_sample
 from ezaudio_tpu_torch.diffusion.sampling import sample_latents
 from ezaudio_tpu_torch.models.conditioners import Conditioner
-from ezaudio_tpu_torch.models.controlnet import controlnet_from_config, init_from_base_
+from ezaudio_tpu_torch.models.controlnet import (controlnet_from_config, init_from_base_,
+                                                  zero_projections_)
 from ezaudio_tpu_torch.ops.quant import quant_context
 from ezaudio_tpu_torch.utils import cast_params_, scale_shift_re
 
@@ -67,6 +73,7 @@ class EzAudioControlNet:
         device=None,
         mesh=None,
         base: Optional[EzAudio] = None,
+        zero_projections: bool = False,
     ):
         """``dtype`` (default: the base's, float32 for a base built here)."""
         own_base = base is None
@@ -93,6 +100,8 @@ class EzAudioControlNet:
             _init_from_state_dict_(cn, base._sharding.full_state_dict())
         else:
             cn = init_from_base_(cn, base.dit.model)
+        if zero_projections:
+            zero_projections_(cn)
         if controlnet_path:
             load_state_dict_strict(cn, load_torch_checkpoint(controlnet_path, "model"),
                                    controlnet_path)

@@ -26,7 +26,8 @@ at random as the JAX package does: per-sample ratios in
 The draws come in ``mask_draws`` (:meth:`ControlNetEmbed.draw_mask`), so a
 test can hand in the JAX package's (ROADMAP F1).  :func:`trainable_mask`
 names the subset a fine-tune trains (``controlnet_pre``, the in-blocks and
-the zero projections).
+the zero projections); :func:`zero_projections_` zeroes what the JAX
+package's init zeroes, the start of a fine-tune.
 """
 
 from __future__ import annotations
@@ -225,4 +226,21 @@ def init_from_base_(controlnet: DiTControlNet, base_udit: nn.Module) -> DiTContr
         mine = getattr(controlnet, name)
         if mine is not None:  # time_ada is None under time_fusion='ada'
             mine.load_state_dict(getattr(base_udit, name).state_dict())
+    return controlnet
+
+
+@torch.no_grad()
+def zero_projections_(controlnet: DiTControlNet) -> DiTControlNet:
+    """Zero what the JAX package's init zeroes in the ControlNet's own
+    parameters: the output projections (``controlnet_pre.conv_out`` and
+    every ``controlnet_zero_blocks`` linear, weight and bias) and the
+    condition mask's ``mask_embed``.  Then the ControlNet adds nothing at
+    any conditioning scale, and a fine-tune starts where JAX's does (the
+    rest is the base's, :func:`init_from_base_`, or drawn as JAX draws it)."""
+    pre = controlnet.controlnet_pre
+    for m in [pre.conv_out, *controlnet.controlnet_zero_blocks]:
+        for p in m.parameters():
+            p.zero_()
+    if pre.cond_mask:
+        pre.mask_embed.zero_()
     return controlnet

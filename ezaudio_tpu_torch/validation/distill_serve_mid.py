@@ -30,6 +30,10 @@ is a deep copy (``distill.student_from_teacher``); the teacher stays frozen.
 
 Each ``DS_*`` knob of the JAX script is the flag of the same name
 (``DS_TRAIN_STEPS`` -> ``--train-steps``, ``DS_CKPT`` -> ``--ckpt``, ...).
+``--seed-offset k`` adds ``k`` to the distillation's batch generator seed
+(7) and step seeds (``DISTILL_SEED0 + i``): another seed set on the same
+teacher (0 is the JAX script's run; a stage cache is kept per offset).
+Each stage's loss is printed as a running mean over each logging interval.
 Caches live under ``--cache-root`` (default ``mid_common.default_cache_root()``).
 """
 
@@ -91,22 +95,25 @@ def plain_builder(batch, teacher):
 
 
 def stage_dir(a, n_student: int) -> str:
+    offset = f"_s{a.seed_offset}" if a.seed_offset else ""
     return os.path.join(a.cache_root, "ds_stages",
                         f"d{a.depth}_w{a.dim}_L{a.frames}_t{a.train_steps}_ds{a.distill_steps}"
-                        f"_b{a.batch}_to{n_student}")
+                        f"_b{a.batch}_to{n_student}{offset}")
 
 
 def distill(teacher, data: dict, schedule, a, log_every: int = 500) -> torch.nn.Module:
     """Progressive distillation of ``teacher`` (frozen, untouched) through
     ``STAGES``: each stage's student a deep copy of its teacher, AdamW at lr
     1e-4 with warmup 100, batches of rows from one
-    ``np.random.default_rng(7)``; a finished stage is cached under
+    ``np.random.default_rng(7)``, step ``i`` seeded ``DISTILL_SEED0 + i``
+    (both shifted by the seed offset); a finished stage is cached under
     :func:`stage_dir` and reused (without its draws from the shared rng).
-    Returns the last student, frozen."""
+    Prints each logging interval's mean loss.  Returns the last student,
+    frozen."""
     device = next(teacher.parameters()).device
     unc_emb = torch.as_tensor(data["unc_emb"], device=device)
     unc_mask = torch.as_tensor(data["unc_mask"], device=device)
-    rng = np.random.default_rng(7)
+    rng = np.random.default_rng(7 + a.seed_offset)
     n_train = len(data["m_train"])
     t_model = teacher
     for si, n_student in enumerate(STAGES):
@@ -122,6 +129,7 @@ def distill(teacher, data: dict, schedule, a, log_every: int = 500) -> torch.nn.
         dstep = make_distill_step(student_apply(student), builder, schedule,
                                   make_optimizer(student, learning_rate=1e-4, warmup=100),
                                   distill_tables(schedule, n_student), teacher=t_model)
+        log = mc.RunningMean()
         t1 = time.time()
         for i in range(a.distill_steps):
             idx = rng.integers(0, n_train, a.batch)
@@ -129,9 +137,9 @@ def distill(teacher, data: dict, schedule, a, log_every: int = 500) -> torch.nn.
             batch = {"latents": torch.as_tensor(data["m_train"][idx], device=device),
                      "text": torch.as_tensor(data["cond_emb"][cls], device=device),
                      "text_mask": torch.as_tensor(data["cond_mask"][cls], device=device)}
-            loss = dstep(batch, seed=DISTILL_SEED0 + i)["loss"]
+            log.add(dstep(batch, seed=DISTILL_SEED0 + a.seed_offset + i)["loss"])
             if i % log_every == 0 or i == a.distill_steps - 1:
-                print(f"  [distill {16 >> si}->{n_student}] step {i}: loss {float(loss):.5f} "
+                print(f"  [distill {16 >> si}->{n_student}] step {i}: {log.take(i)} "
                       f"({time.time() - t1:.0f}s)", flush=True)
         t_model = student.eval().requires_grad_(False)
         mc._save_params(folder, student.state_dict(),
@@ -191,6 +199,8 @@ def parse_args(argv=None):
     p.add_argument("--vae-steps", type=int, default=1500)
     p.add_argument("--ckpt", default=None,
                    help="the student bundle (default: <cache-root>/ds_student_ckpt)")
+    p.add_argument("--seed-offset", type=int, default=0,
+                   help="added to the distillation's seeds (7, DISTILL_SEED0): another seed set")
     p.add_argument("--device", default=None, help="cuda (default) or cpu")
     p.add_argument("--cache-root", default=None,
                    help="caches (default: outside the checkout, mid_common.default_cache_root)")

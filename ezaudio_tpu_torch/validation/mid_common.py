@@ -160,6 +160,26 @@ MID_CONDITIONER = dict(condition_type="energy", hop_size=240, window_size=1920,
 ENCODE_CHUNK = 8  # clips per VAE call
 
 
+class RunningMean:
+    """A training loop's losses summed on the device (one sync a logging
+    interval, not one a step); :meth:`take` gives the interval's mean as a
+    log field and keeps ``(step, mean)`` in ``curve``."""
+
+    def __init__(self):
+        self.total, self.n, self.curve = 0.0, 0, []
+
+    def add(self, loss) -> None:
+        self.total = self.total + loss.detach()
+        self.n += 1
+
+    def take(self, step: int) -> str:
+        mean = float(self.total) / self.n
+        self.curve.append((step, mean))
+        text = f"mean loss {mean:.5f} over {self.n} steps"
+        self.total, self.n = 0.0, 0
+        return text
+
+
 def peak_wav(x) -> np.ndarray:
     return (x / (np.abs(x).max() + 1e-9)).astype(np.float32)
 

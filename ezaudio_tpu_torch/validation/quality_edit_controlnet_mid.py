@@ -21,10 +21,14 @@ ControlNet rows: the mid-scale energy ControlNet (``EzAudioControlNet(base=
 ez)``) fine-tuned (``training/controlnet_trainer.py``) on the conditioner
 curves of peak-normalised clips, then the Pearson r between a requested
 energy curve and the generated audio's, against the t2a baseline.  The
-fine-tune starts, as JAX's, from zero projections (``conv_out`` and the
-zero blocks, :func:`zero_projections_`) and the in-blocks copied from the
-base; the port's ``EzAudioControlNet`` draws those projections from a seed
-(ROADMAP F6), so the harness zeroes them first.
+fine-tune starts, as JAX's, from zero projections and a zero mask
+embedding (``EzAudioControlNet(zero_projections=True)``) and the in-blocks
+copied from the base; its loss is printed as a running mean over each
+logging interval.
+
+``--seed-offset k`` adds ``k`` to the data generators' seeds (2, 3 and 4)
+and to the fine-tune's step seeds: another seed set on the same trained
+base (the sampling seeds stay); 0 is the JAX script's run.
 
     python -m ezaudio_tpu_torch.validation.quality_edit_controlnet_mid [--depth 12] ...
     CPU smoke (frames stay 500: the ControlNet API's window is 10 s):
@@ -134,7 +138,7 @@ class Harness:
         a, n_class = self.a, len(mc.PROMPTS)
         _, _, m0, m1 = mask_geometry(a.frames, self.latent_sr)
         # class-changing edits on fresh gt clips
-        rng = np.random.default_rng(2)
+        rng = np.random.default_rng(2 + a.seed_offset)
         gt_cls = rng.integers(0, n_class, a.n_edit)
         edit_cls = (gt_cls + 1 + rng.integers(0, n_class - 1, a.n_edit)) % n_class
         m_edit, m_gt, gt_wavs = self.run_edits(rng, gt_cls, edit_cls, seed0=0)
@@ -200,15 +204,18 @@ class Harness:
             for i in range(0, len(wavs), mc.ENCODE_CHUNK)], 0)
 
     def train_controlnet(self, cn_api, schedule, steps: int, rng, cls, lat, cond,
-                         log_every: int = 500):
+                         log_every: int = 500) -> list:
         """``steps`` fine-tune steps of ``cn_api.controlnet`` (lr 2e-4,
         warmup 100) on batches of rows from ``rng``; step ``i`` draws from
-        seed ``i``.  Leaves the ControlNet frozen."""
+        seed ``i`` plus the seed offset.  Prints (and returns, as ``(step,
+        mean)`` pairs) the mean loss over each logging interval.  Leaves the
+        ControlNet frozen."""
         from ezaudio_tpu_torch.training.controlnet_trainer import make_controlnet_train_step
 
         a, dev, data = self.a, self.ez.device, self.data
         step = make_controlnet_train_step(self.ez.dit, cn_api.controlnet, schedule,
                                           learning_rate=2e-4, warmup=100)
+        log = mc.RunningMean()
         t1 = time.time()
         for i in range(steps):
             idx = rng.integers(0, len(cls), a.batch)
@@ -216,20 +223,19 @@ class Harness:
                      "condition": torch.as_tensor(cond[idx], device=dev),
                      "text": torch.as_tensor(data["cond_emb"][cls[idx]], device=dev),
                      "text_mask": torch.as_tensor(data["cond_mask"][cls[idx]], device=dev)}
-            loss = step(batch, seed=i)["loss"]
+            log.add(step(batch, seed=a.seed_offset + i)["loss"])
             if i % log_every == 0 or i == steps - 1:
-                print(f"  [controlnet] step {i}: loss {float(loss):.4f} "
-                      f"({time.time() - t1:.0f}s)", flush=True)
+                print(f"  [controlnet] step {i}: {log.take(i)} ({time.time() - t1:.0f}s)",
+                      flush=True)
         cn_api.controlnet.eval().requires_grad_(False)
+        return log.curve
 
     def controlnet(self):
-        """``EzAudioControlNet(base=ez)`` with its projections zeroed: the
+        """``EzAudioControlNet(base=ez, zero_projections=True)``: the
         fine-tune's start."""
         from ezaudio_tpu_torch.api.controlnet import EzAudioControlNet
 
-        cn_api = EzAudioControlNet(base=self.ez)
-        zero_projections_(cn_api.controlnet)
-        return cn_api
+        return EzAudioControlNet(base=self.ez, zero_projections=True)
 
     def controlnet_data(self, cn_api, rng, n: int):
         """``n`` peak-normalised clips of classes drawn from ``rng``: their
@@ -248,7 +254,7 @@ class Harness:
         of ControlNet samples against t2a samples on held-out clips."""
         a = self.a
         cn_api = self.controlnet()
-        rng = np.random.default_rng(3)
+        rng = np.random.default_rng(3 + a.seed_offset)
         cn_cls, cn_lat, cn_cond = self.controlnet_data(cn_api, rng, a.n_cn_train)
         self.train_controlnet(cn_api, schedule, a.cn_steps, rng, cn_cls, cn_lat, cn_cond)
         return self.controlnet_eval(cn_api, a.n_cn_eval)
@@ -256,7 +262,7 @@ class Harness:
     def controlnet_eval(self, cn_api, n_eval: int) -> dict:
         """The Pearson r rows on ``n_eval`` held-out reference clips."""
         a = self.a
-        rng = np.random.default_rng(4)
+        rng = np.random.default_rng(4 + a.seed_offset)
         ev_cls = rng.integers(0, len(mc.PROMPTS), n_eval)
         ev_wavs = _clips(rng, ev_cls, self.n_samples, self.sr)
         r_cn, r_base = [], []
@@ -285,17 +291,6 @@ class Harness:
         return r
 
 
-@torch.no_grad()
-def zero_projections_(controlnet) -> None:
-    """The ControlNet's output projections zeroed, as the JAX package
-    initialises them (``conv_out`` of the condition embedder and every
-    ``controlnet_zero_blocks`` linear): at the fine-tune's start the
-    ControlNet adds nothing, at any conditioning scale."""
-    for m in [controlnet.controlnet_pre.conv_out, *controlnet.controlnet_zero_blocks]:
-        for p in m.parameters():
-            p.zero_()
-
-
 def parse_args(argv=None):
     p = argparse.ArgumentParser(
         prog="python -m ezaudio_tpu_torch.validation.quality_edit_controlnet_mid",
@@ -318,6 +313,9 @@ def parse_args(argv=None):
                    help="same-class edits (default max(8, n_edit // 2))")
     p.add_argument("--skip-edit", action="store_true", help="no editing rows")
     p.add_argument("--skip-cn", action="store_true", help="no ControlNet rows")
+    p.add_argument("--seed-offset", type=int, default=0,
+                   help="added to the data generators' (2, 3, 4) and the fine-tune's step "
+                        "seeds: another seed set")
     p.add_argument("--device", default=None, help="cuda (default) or cpu")
     p.add_argument("--cache-root", default=None,
                    help="caches (default: outside the checkout, mid_common.default_cache_root)")

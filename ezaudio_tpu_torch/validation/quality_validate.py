@@ -188,11 +188,11 @@ def recipe_context(quant_int8: bool = False, attn_impl: Optional[str] = None):
         quant_mod.MIN_QUANT_ELEMENTS = prev
 
 
-def precision_line(device) -> str:
-    dev = torch.device(device)
+def precision_line(device, dtype: torch.dtype = torch.float32) -> str:
+    dev, name = torch.device(device), {torch.float32: "f32", torch.bfloat16: "bf16"}[dtype]
     if dev.type != "cuda":
-        return "precision: f32 on the CPU"
-    return (f"precision: f32, {torch.cuda.get_device_name(dev)}, TF32 matmul "
+        return f"precision: {name} on the CPU"
+    return (f"precision: {name}, {torch.cuda.get_device_name(dev)}, TF32 matmul "
             f"{'on' if torch.backends.cuda.matmul.allow_tf32 else 'off'}, cuDNN TF32 "
             f"{'on' if torch.backends.cudnn.allow_tf32 else 'off'}")
 

@@ -7,8 +7,11 @@ the JAX scripts on the CPU.
          table equal to the one the JAX script's ``main`` prints when both
          run on the same deterministic stand-in EzAudio (so the mask frames,
          the draws, the splices and every row agree); the ControlNet's
-         fine-tune starts from zero projections (scale 1 gives scale 0's
-         output, the in-blocks the base's) and leaves them after 2 steps;
+         fine-tune starts from zero projections, on the harness's path and
+         on the public one (``EzAudioControlNet(zero_projections=True)``;
+         scale 1 gives scale 0's output, the in-blocks the base's), the
+         zeroed leaves those the JAX init zeroes, and leaves them after a
+         step;
   (vi)   ``verify_*`` on the reference-format ``.pt`` fixtures of
          ``tests/test_export.py::TestVerifyCheckpoints`` give the JAX script's
          reports (the DiT's inputs JAX's draws); a missing or extra tensor
@@ -152,14 +155,25 @@ def tiny_controlnet(tmp_path):
 
 
 def test_controlnet_starts_from_zero_projections(tiny_controlnet):
+    """The harness's start and the public path's: ``EzAudioControlNet(base=,
+    zero_projections=True)`` has its projections and ``mask_embed`` zeroed
+    (the default keeps the seeded draw, F6), scale 1 gives scale 0's output,
+    and one ``make_controlnet_train_step`` step moves the zero blocks."""
     import chip_smoke as cs
+    from ezaudio_tpu_torch.api.controlnet import EzAudioControlNet
     from ezaudio_tpu_torch.models.controlnet import SHARED_WITH_BASE
+    from ezaudio_tpu_torch.training.controlnet_trainer import make_controlnet_train_step
 
     h = tiny_controlnet
+
+    def zeroed(cn):
+        pre = cn.controlnet.controlnet_pre
+        return [pre.mask_embed] + [p for m in [pre.conv_out, *cn.controlnet.controlnet_zero_blocks]
+                                   for p in m.parameters()]
+
+    assert all(p.any() for p in zeroed(EzAudioControlNet(base=h.ez)))  # the seeded default
     cn = h.controlnet()
-    zeroed = [p for m in [cn.controlnet.controlnet_pre.conv_out,
-                          *cn.controlnet.controlnet_zero_blocks] for p in m.parameters()]
-    assert zeroed and all(not p.any() for p in zeroed)
+    assert zeroed(cn) and all(not p.any() for p in zeroed(cn))
     base = h.ez.dit.model.state_dict()
     for name in SHARED_WITH_BASE:  # copied from the base, kept
         mine = getattr(cn.controlnet, name)
@@ -170,10 +184,57 @@ def test_controlnet_starts_from_zero_projections(tiny_controlnet):
     cls, lat, cond = h.controlnet_data(cn, rng, 4)
     start = cs.controlnet_outputs(cn, h.data, cond, 100)
     assert torch.equal(start[0], start[1])
-    h.train_controlnet(cn, h.ez.noise_scheduler, 2, rng, cls, lat, cond)
+    curve = h.train_controlnet(cn, h.ez.noise_scheduler, 2, rng, cls, lat, cond)
+    assert [s for s, _ in curve] == [0, 1] and all(np.isfinite(m) for _, m in curve)
     trained = cs.controlnet_outputs(cn, h.data, cond, 100)
     assert (trained[0] - trained[1]).abs().max() > 0
     assert not cn.controlnet.training
+
+    # the public path alone: the API's option, then one step of the trainer
+    pub = EzAudioControlNet(base=h.ez, zero_projections=True)
+    start = cs.controlnet_outputs(pub, h.data, cond, 100)
+    assert torch.equal(start[0], start[1])
+    step = make_controlnet_train_step(h.ez.dit, pub.controlnet, h.ez.noise_scheduler,
+                                      learning_rate=1e-3, warmup=0)
+    idx = np.arange(2)
+    step({"latents": torch.as_tensor(lat[idx]), "condition": torch.as_tensor(cond[idx]),
+          "text": torch.as_tensor(h.data["cond_emb"][cls[idx]]),
+          "text_mask": torch.as_tensor(h.data["cond_mask"][cls[idx]])}, seed=0)
+    # the zero blocks move; conv_out's gradient passes through them, zero
+    # at this first step (as in JAX)
+    for m in pub.controlnet.controlnet_zero_blocks:
+        assert m.weight.abs().max() > 0 and m.bias.abs().max() > 0
+    moved = cs.controlnet_outputs(pub, h.data, cond, 100)
+    assert (moved[0] - moved[1]).abs().max() > 0
+
+
+def test_zero_projections_zero_what_the_jax_init_zeroes():
+    """Among the ControlNet's own parameters (those not copied from the
+    base), ``zero_projections_`` zeroes exactly the leaves the JAX
+    package's init (flax, its own initializers) writes as zeros."""
+    from ezaudio_tpu.models.controlnet import controlnet_from_config as jax_cn_from_config
+    from ezaudio_tpu_torch.api.ezaudio import init_random_
+    from ezaudio_tpu_torch.convert.from_jax import controlnet_state_dict_from_jax
+    from ezaudio_tpu_torch.models.controlnet import (SHARED_WITH_BASE, controlnet_from_config,
+                                                      zero_projections_)
+    from tests.test_torch_finetune import CN_CFG
+    from tests.test_torch_training import MODEL
+
+    B, L, C, LC, CTX = 1, 20, 8, 6, 32
+    model = jax_cn_from_config(MODEL, CN_CFG)
+    params = jax.jit(lambda k: model.init(
+        {"params": k, "mask": k}, jnp.zeros((B, L, 2 * C + 1)), jnp.zeros((B,), jnp.int32),
+        jnp.zeros((B, LC, CTX)), condition=jnp.zeros((B, 2 * L, 1))))(
+            jax.random.PRNGKey(0))["params"]
+    zero_in_jax = controlnet_state_dict_from_jax(
+        jax.tree.map(lambda v: np.full(v.shape, float(np.any(v)), np.float32), params),
+        MODEL, CN_CFG)
+    cn = controlnet_from_config(MODEL, CN_CFG)
+    zero_projections_(init_random_(cn, torch.Generator().manual_seed(0)))
+    own = [n for n, _ in cn.named_parameters() if n.split(".", 1)[0] not in SHARED_WITH_BASE]
+    want = sorted(n for n in own if not zero_in_jax[n].any())
+    got = sorted(n for n, p in cn.named_parameters() if n in own and not p.any())
+    assert got == want and "controlnet_pre.mask_embed" in got
 
 
 # ---------------------------------------------------------------------------

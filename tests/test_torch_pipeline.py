@@ -186,7 +186,8 @@ class TestPackageRules:
             "harness = ('quality_validate', 'distill_validate', 'mid_common',\n"
             "           'quality_validate_mid', 'distill_serve_mid',\n"
             "           'quality_edit_controlnet_mid', 'verify_checkpoints',\n"
-            "           'calibrate_pesq_mnru', 'calibrate_nsim_mnru')\n"
+            "           'calibrate_pesq_mnru', 'calibrate_nsim_mnru', 'serving_bench',\n"
+            "           'fused_ab')\n"
             "assert all('ezaudio_tpu_torch.validation.' + h in sys.modules for h in harness)\n"
             "print(len([m for m in sys.modules if m.startswith('ezaudio_tpu_torch')]))\n")
         out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
