@@ -24,7 +24,7 @@ Phases, each fatal on failure:
      (CFG 3.5, rescale 0, 100 steps, eta 1) on a seeded 10 s clip, mask
      [4 s, 7 s), boundary 2 s (clamped to half the mask: a 6 s window);
   7. long generation: ``generate_long(length=20, window=10, overlap=2)``,
-     one generate and two outpainting edits, 25 DDIM steps each (``CUT_*``);
+     one generate and two outpainting edits, 10 DDIM steps each (``CUT_*``);
   8. the fast samplers, 10 s, 1 prompt: DPM-Solver++ at 25 steps; DPM +
      ``layer_cache=(2, 2)`` + ``guidance_interval`` + ``cfg_refresh=2`` at 25;
      DDIM + ``layer_cache=(2, 2)`` at 100; ``sampler='distilled'`` at 8;
@@ -216,7 +216,13 @@ Phases, each fatal on failure:
      ``CUT_MESH_STEPS`` DDIM steps equal to the mesh-less EzAudio
      (``MESH_TOL``), one s3_l f32 train step (batch 2) of
      ``Trainer.create(mesh=make_mesh())`` and of an FSDP2 (HSDP) wrapped
-     trainer against the plain step by phase 25's limits; (c) the ring's
+     trainer against the plain step by phase 25's limits, then the bf16
+     mixed-precision step of the HSDP-wrapped trainer (FSDP2 gathering in
+     bf16) against the plain bf16 step by phase 28's statistical rule
+     (``BF16_*``), both walls and kernel 1's bf16 launches logged; one
+     ``DiTControlNet`` forward over a base without text (``context_dim``
+     None) at the energy model's widths, depth 4, card (kernel 1) against
+     the CPU (its plain twin), at scale 1 and 0 (``controlnet_nocontext_path``); (c) the ring's
      per-hop math at sp = 4 in one process at s3_l and s3_xl
      self-attention, f32 and bf16, with and without a key mask: forward
      against kernel 1, backward against SDPA, timed beside kernel 1;
@@ -361,12 +367,14 @@ VC_REL_TOL = 1e-4
 # servers (phases 12, 15, 21; 25, then 10 before phase 34), phase 31 (a)'s
 # 1-prompt call run once (3 before), the DDIM steps of phase 31 (a)-(c)'s
 # calls (VARIANT_STEPS; 100, then 50 before phase 34) and of phase 20's
-# reranked call (100 before phase 35).  The shapes each kernel sees, and
-# every check, are unchanged.
+# reranked call (100 before phase 35); with phase 33 (b)'s bf16 steps, the
+# int8, reranked and generate_long calls and phase 31 (a)-(c) again, 25 ->
+# 10, and phase 33 (b)'s generate calls 10 -> 5.  The shapes each kernel
+# sees, and every check, are unchanged.
 CUT_REPLAYS = 1
-CUT_INT8_STEPS = 25
-CUT_RERANK_STEPS = 25
-CUT_LONG_STEPS = 25
+CUT_INT8_STEPS = 10
+CUT_RERANK_STEPS = 10
+CUT_LONG_STEPS = 10
 CUT_SERVED_STEPS = 5
 
 
@@ -3946,7 +3954,7 @@ SWITCH_CASES = {
     "snake": dict(act_layer="snake"),
 }
 SWITCH_FRAMES = 100  # latent frames of (d)'s module checks
-VARIANT_STEPS = 25  # DDIM steps of (a)-(c) (the reference recipe's 100; cut, see CUT_*)
+VARIANT_STEPS = 10  # DDIM steps of (a)-(c) (the reference recipe's 100; cut, see CUT_*)
 
 
 def variant_config(depth=None, **switches):
@@ -4623,7 +4631,7 @@ OGG_MIN_SNR_DB = 3.0
 # the parallel path at a world of one against the plain one on the card:
 # the same kernels on the same inputs in the same order
 MESH_TOL = 1e-5
-CUT_MESH_STEPS = 10      # DDIM steps of (b)'s generate calls (the recipe's 100)
+CUT_MESH_STEPS = 5       # DDIM steps of (b)'s generate calls (the recipe's 100)
 CUT_MESH_TRAIN_DEPTH = 4  # (b)'s train steps: s3_l's widths at this depth (24)
 RING_SP = 4
 RING_CASES = [(2, 16, 500, 500, 64), (2, 16, 500, 500, 72)]   # s3_l, s3_xl self
@@ -4780,8 +4788,8 @@ def world_one_paths(dev="cuda", cfg=None, t5_config=None, vae_config=None, lengt
     (HSDP over the (dp, fsdp) = (1, 1) sub-mesh, each parameter's fsdp
     axis taken as a 2-way split would) on the same weights, batch and
     draws, each held to the plain step by phase 25's limits, then two warm
-    steps of each timed (the plain trainer's again last).  Leaves the
-    process group."""
+    steps of each timed (the plain trainer's again last); then
+    :func:`bf16_hsdp_step`.  Leaves the process group."""
     import copy
 
     import numpy as np
@@ -4871,7 +4879,7 @@ def world_one_paths(dev="cuda", cfg=None, t5_config=None, vae_config=None, lengt
                     uncond=torch.randn(1, text_len, ctx, generator=host_gen),
                     uncond_mask=torch.arange(text_len)[None] < 1)
 
-        def step(kind):
+        def step(kind, dtype=None):
             with torch.device(rank_dev):
                 model = maskdit_from_config(m)
             model.load_state_dict(weights)
@@ -4881,20 +4889,22 @@ def world_one_paths(dev="cuda", cfg=None, t5_config=None, vae_config=None, lengt
                 extra["mesh"] = mesh
             if kind == "hsdp":
                 extra["placements"] = param_shardings(FsdpTwo(), model)
-            trainer = Trainer.create(model, schedule, opt, **extra)
+            trainer = Trainer.create(model, schedule, opt, dtype=dtype, **extra)
             sh = trainer.sharding
             full = (lambda n, t: sh.to_full(n, t)) if sh is not None else (lambda n, t: t)
             draws = trainer.step_fn.draw(torch.Generator().manual_seed(34), batch, frames, C,
                                          "cpu")
             draws["cfg"][:] = torch.tensor([0.05] + [0.9] * (batch - 1))
-            data = {k: v.to(rank_dev) for k, v in host.items()}
+            data = {k: v.to(rank_dev, dtype if dtype and v.is_floating_point() else v.dtype)
+                    for k, v in host.items()}
             sync(rank_dev)
             reset_counters()
             res = trainer.step_fn(data, seed=0,
                                   draws={k: v.to(rank_dev) for k, v in draws.items()},
                                   return_grads=True)
             sync(rank_dev)
-            launches = read_counters()
+            launches, by_dtype = read_counters(), read_dtype_counters()
+            faults = mixed_precision_faults(trainer) if dtype == torch.bfloat16 else []
             grads = {k: full(k, v).detach().cpu() for k, v in res["grads"].items()}
             params = {k: full(k, v).detach().cpu() for k, v in model.named_parameters()}
             walls = []
@@ -4905,7 +4915,8 @@ def world_one_paths(dev="cuda", cfg=None, t5_config=None, vae_config=None, lengt
                 sync(rank_dev)
                 walls.append(time.perf_counter() - t1)
             out = dict(loss=res["loss"].item(), grad_norm=res["grad_norm"].item(),
-                       grads=grads, params=params, launches=launches, wall_s=statistics.median(walls),
+                       grads=grads, params=params, launches=launches, by_dtype=by_dtype,
+                       faults=faults, wall_s=statistics.median(walls),
                        wrapped=bool(sh is not None and sh.wrapped),
                        dtensors=sum(hasattr(p, "device_mesh") for p in model.parameters()))
             del trainer, model, res, sh
@@ -4941,10 +4952,123 @@ def world_one_paths(dev="cuda", cfg=None, t5_config=None, vae_config=None, lengt
                                      "plain step: " + "; ".join(failed))
             rows.append(row)
         log(f"train_world1 plain step walls {plain_walls} s (first, last)")
+        rows.append(bf16_hsdp_step(step, plain_step, weights, m))
+        log(f"world: bf16 steps checked at {time.perf_counter() - t_phase:.1f} s")
     finally:
         dist.destroy_process_group()
         log(f"world: left the group at {time.perf_counter() - t_phase:.1f} s")
     return rows
+
+
+def bf16_hsdp_step(step, f32_step: dict, weights: dict, m: dict) -> dict:
+    """Phase 33 (b)'s bf16 steps: ``step(kind, dtype)`` of
+    ``world_one_paths`` for the plain and the HSDP-wrapped trainer in bf16
+    (FSDP2 gathering in bf16, ``parallel/sharding.py``), the wrapped one
+    held to the plain one by phase 28's rule with the f32 plain step
+    ``f32_step`` as its reference: the gradients and the updates (one
+    vector each) no farther from the plain bf16 ones than
+    ``BF16_REF_FACTOR`` times the plain bf16 step's distance from the f32
+    step, correlated above ``BF16_TRAIN_CORR``, the loss within
+    ``BF16_LOSS_REL``, every kernel 1 launch bf16, no
+    ``mixed_precision_faults``.  The row (a path: kernel 1's launches)."""
+    import torch
+
+    plain, hsdp = step("plain", torch.bfloat16), step("hsdp", torch.bfloat16)
+    names = sorted(f32_step["grads"])
+
+    def flat(run, key):
+        if key == "grads":
+            return torch.cat([run["grads"][n].float().ravel() for n in names])
+        return torch.cat([(run["params"][n] - weights[n]).float().ravel() for n in names])
+
+    d_grad, d_ref, corr = bf16_agreement_stats(flat(hsdp, "grads"), flat(plain, "grads"),
+                                               flat(f32_step, "grads"))
+    d_upd, d_upd_ref, upd_corr = bf16_agreement_stats(
+        flat(hsdp, "update"), flat(plain, "update"), flat(f32_step, "update"))
+    want = train_attention_launches(m)
+    row = dict(path="train_world1_hsdp_bf16", depth=m["depth"],
+               loss=[hsdp["loss"], plain["loss"], f32_step["loss"]], grad_to_plain=d_grad,
+               grad_plain_bf16_to_f32=d_ref, grad_corr=corr, update_to_plain=d_upd,
+               update_plain_bf16_to_f32=d_upd_ref, update_corr=upd_corr,
+               wall_s=hsdp["wall_s"], plain_wall_s=plain["wall_s"],
+               fsdp2_wrapped=hsdp["wrapped"], dtensor_params=hsdp["dtensors"],
+               faults=hsdp["faults"] + plain["faults"], by_dtype=hsdp["by_dtype"],
+               attention_launches=hsdp["launches"][0], resunit_launches=hsdp["launches"][1],
+               resunit_shapes=[])
+    log("train_world1 " + json.dumps(row))
+    bad = []
+    if not (hsdp["wrapped"] and hsdp["dtensors"] > 0):
+        bad.append("the bf16 HSDP trainer did not wrap its DiT in FSDP2")
+    if not (d_grad <= BF16_REF_FACTOR * d_ref and corr > BF16_TRAIN_CORR):
+        bad.append(f"gradients {d_grad} vs {d_ref}, corr {corr}")
+    if not (d_upd <= BF16_REF_FACTOR * d_upd_ref and upd_corr > BF16_TRAIN_CORR):
+        bad.append(f"updates {d_upd} vs {d_upd_ref}, corr {upd_corr}")
+    if not abs(hsdp["loss"] - plain["loss"]) <= BF16_LOSS_REL * abs(plain["loss"]):
+        bad.append(f"loss {hsdp['loss']} vs {plain['loss']}")
+    if row["faults"]:
+        bad.append(f"mixed precision {row['faults'][:4]}")
+    for run in (hsdp, plain):
+        if run["launches"][0] != want or run["by_dtype"] != want_by_dtype(want, 0, "bfloat16"):
+            bad.append(f"launches {run['by_dtype']}, want {want} bf16")
+    if bad:
+        raise AssertionError("bf16 HSDP step at a world of one against the plain bf16 step: "
+                             + "; ".join(bad))
+    return row
+
+
+def controlnet_nocontext_path(dev="cuda", cfg=None, depth=CUT_MESH_TRAIN_DEPTH, batch=2):
+    """Phase 33 (b), last: one ``DiTControlNet`` forward over a base without
+    text (the energy config's widths with ``context_dim`` None, at
+    ``depth``: depth // 2 blocks, self-attention only) on the card (kernel
+    1, its launches counted) against the CPU (the plain twin) on the same
+    seeded weights and inputs, by phase 14's rule (``agreement``); at
+    scale 0 every skip is 0 and at scale 1 none is (ROADMAP F6).  The row
+    (a path)."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from ezaudio_tpu_torch.api.ezaudio import init_random_
+    from ezaudio_tpu_torch.config import get_model_config
+    from ezaudio_tpu_torch.models.controlnet import controlnet_from_config
+
+    cfg = copy.deepcopy(cfg if cfg is not None else get_model_config("energy").to_dict())
+    m = dict(cfg["model"], context_dim=None, depth=depth)
+    with torch.device(dev):
+        card = controlnet_from_config(m, cfg["controlnet"])
+    init_random_(card, torch.Generator(device=dev).manual_seed(36)).eval()
+    cpu = controlnet_from_config(m, cfg["controlnet"]).eval()
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    gen = torch.Generator().manual_seed(37)
+    L = m["img_size"]
+    x = torch.randn(batch, L, m["in_chans"], generator=gen)
+    frames = L * 2 ** (len(cfg["controlnet"]["cond_blocks"]) - 1)
+    cond = torch.rand(batch, frames, cfg["controlnet"]["cond_in"], generator=gen)
+    t = torch.randint(0, 1000, (batch,), generator=gen)
+
+    def skips(model, device, scale):
+        with torch.no_grad():
+            out = model(x.to(device), t.to(device), condition=cond.to(device),
+                        conditioning_scale=scale)
+        return np.stack([s.float().cpu().numpy() for s in out])
+
+    sync(dev)
+    reset_counters()
+    t1 = time.perf_counter()
+    got = skips(card, dev, 1.0)
+    sync(dev)
+    wall = time.perf_counter() - t1
+    attn, res = read_counters()
+    zero = skips(card, dev, 0.0)
+    row = agreement("controlnet_nocontext", got, skips(cpu, "cpu", 1.0),
+                    dict(path="controlnet_nocontext", depth=depth, batch=batch, wall_s=wall,
+                         attention_launches=attn, resunit_launches=res, resunit_shapes=[]))
+    if (attn, res) != (depth // 2, 0):
+        raise AssertionError(f"controlnet_nocontext launches {attn}, {res}, want {depth // 2}, 0")
+    if zero.any() or not all(np.abs(s).max() > 0 for s in got):
+        raise AssertionError("controlnet_nocontext: scale 0 must add nothing, scale 1 something")
+    return row
 
 
 def ring_math(dev="cuda", gen=None, cases=RING_CASES, sp=RING_SP, time_it=True):
@@ -6065,7 +6189,7 @@ def main(argv) -> int:
         check_freed("native batch encode", before)
         with phase("33 (b) world of one"):
             world = world_one_paths()
-        paths += world[:2]
+            paths += world[:2] + world[-1:] + [controlnet_nocontext_path()]
         check_freed("world of one", before)
         with phase("33 (c) ring"):
             ring_math("cuda", gen)

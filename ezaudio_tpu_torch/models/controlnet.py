@@ -7,7 +7,8 @@
     Conv k3 p1 s2, SiLU] per stage; Conv1d(k1) out to the model width;
   * ``DiTControlNet``: patch embed plus the embedded condition, the
     positional embedding, the context (cross-attended, or prefixed to x
-    under ``concat``/``joint``) and time embedders, ``depth // 2`` DiT in-blocks (attention on
+    under ``concat``/``joint``; none over a base with ``context_dim``
+    None, the MAE pretraining stage) and time embedders, ``depth // 2`` DiT in-blocks (attention on
     kernel 1), each followed by its ``controlnet_zero_blocks`` projection,
     scaled by ``conditioning_scale``: the skips ``MaskDiT.forward_backbone``
     adds to the base model's long skips.
@@ -118,7 +119,9 @@ class DiTControlNet(nn.Module):
     ``udit`` is the base model's UDiT config: the AdaLN time fusions only
     (``token`` raises, as the JAX package asserts), the context by
     cross-attention or ``concat``/``joint`` (the embedded context, padded to
-    ``context_max_length``, prefixed to x; the skips then cover it too)."""
+    ``context_max_length``, prefixed to x; the skips then cover it too).
+    With ``context_dim`` None there is no ``context_embed``, no
+    ``context_pe`` and no cross-attention, and the context is ignored."""
 
     def __init__(self, udit: dict, cond_in: int = 1, cond_blocks: Sequence[int] = (64, 128),
                  cond_mask: bool = False, cond_mask_prob: Optional[float] = None,
@@ -131,10 +134,10 @@ class DiTControlNet(nn.Module):
             raise NotImplementedError(f"ControlNet time_fusion={time_fusion!r}: the AdaLN "
                                       "family only")
         fusion = cfg.get("context_fusion", "cross")
-        if cfg.get("context_dim") is None or fusion not in CONTEXT_FUSIONS:
-            raise NotImplementedError(f"context_fusion={fusion!r}, "
-                                      f"context_dim={cfg.get('context_dim')!r}")
-        self.concat = fusion != "cross"
+        has_context = cfg.get("context_dim") is not None
+        if has_context and fusion not in CONTEXT_FUSIONS:
+            raise NotImplementedError(f"context_fusion={fusion!r}")
+        self.concat = has_context and fusion != "cross"
         self.context_max_length = cfg.get("context_max_length")
         if self.concat and self.context_max_length is None:
             raise ValueError(f"context_fusion={fusion!r} needs context_max_length")
@@ -145,14 +148,16 @@ class DiTControlNet(nn.Module):
         self.x_pe = PEWrapper(cfg.get("pe_method", "none"), dim, cfg["img_size"] // patch)
         self.controlnet_pre = ControlNetEmbed(cond_in, dim, cond_blocks, cond_mask,
                                               cond_mask_prob, cond_mask_ratio, cond_mask_span)
-        self.context_embed = MLPEmbedder(cfg["context_dim"], dim)
-        self.context_pe = PEWrapper(cfg.get("context_pe_method", "none"), dim,
-                                    self.context_max_length)
+        self.context_embed = self.context_pe = None
+        if has_context:
+            self.context_embed = MLPEmbedder(cfg["context_dim"], dim)
+            self.context_pe = PEWrapper(cfg.get("context_pe_method", "none"), dim,
+                                        self.context_max_length)
         self.time_embed = TimestepEmbedder(dim)
         self.time_ada = QuantLinear(dim, 6 * dim) if time_fusion != "ada" else None
         half = cfg["depth"] // 2
         self.in_blocks = nn.ModuleList([DiTBlock(
-            dim, cfg["num_heads"], context_dim=None if self.concat else dim,
+            dim, cfg["num_heads"], context_dim=dim if has_context and not self.concat else None,
             mlp_ratio=cfg.get("mlp_ratio", 4.0),
             qkv_bias=cfg.get("qkv_bias", False), qk_scale=cfg.get("qk_scale"),
             qk_norm=cfg.get("qk_norm"), act_layer=cfg.get("act_layer", "gelu"),
@@ -166,11 +171,12 @@ class DiTControlNet(nn.Module):
         self.controlnet_zero_blocks = nn.ModuleList([QuantLinear(dim, dim)
                                                      for _ in range(half)])
 
-    def forward(self, x, timesteps, context, x_mask=None, context_mask=None, condition=None,
+    def forward(self, x, timesteps, context=None, x_mask=None, context_mask=None, condition=None,
                 cond_mask_infer=None, conditioning_scale: float = 1.0, train: bool = False,
                 mask_draws=None):
         """x: (B, T, in_chans), MaskDiT's concat; timesteps (B,) or scalar;
-        context (B, Lc, context_dim); condition (B, T * 2^(stages), cond_in).
+        context (B, Lc, context_dim), or None without a context;
+        condition (B, T * 2^(stages), cond_in).
         ``train`` with ``mask_draws`` masks the condition at random
         (:meth:`ControlNetEmbed.draw_mask`).  Returns the list of
         depth // 2 skips (B, extras + T, embed_dim)."""
@@ -180,7 +186,9 @@ class DiTControlNet(nn.Module):
         x = self.patch_embed(x) + self.controlnet_pre(condition, cond_mask_infer, train,
                                                       mask_draws)
         x = self.x_pe(x)
-        context_token = self.context_pe(self.context_embed(context))
+        context_token = None
+        if self.context_embed is not None:
+            context_token = self.context_pe(self.context_embed(context))
         if self.concat:
             x, x_mask = prefix_context(x, x_mask, context_token, context_mask,
                                        self.context_max_length)

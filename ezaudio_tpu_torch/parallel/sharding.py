@@ -14,7 +14,16 @@
   * **fsdp** placements: FSDP2 ``fully_shard`` of the model over the
     ``(dp, fsdp)`` sub-mesh (HSDP), ``shard_placement_fn`` giving each
     parameter its dimension; every other parameter is in
-    ``ignored_params``.
+    ``ignored_params``.  For a mixed-precision step (``dtype=bf16``) FSDP2
+    casts what it gathers itself (``MixedPrecisionPolicy``, gradients
+    reduced in f32) and only what ``utils.cast_params_`` casts: a
+    parameter that rule keeps f32 (a snake's ``alpha``, an absolute
+    positional embedding) sits in a nested ``fully_shard`` group without
+    a cast.  ``utils.mixed_precision`` leaves FSDP2's parameters alone
+    (``skip=``) and casts the rest, as without a mesh.  (FSDP2 sets the
+    gathered parameters into the modules in its forward hook: a bf16 copy
+    swapped in before it is not what the backward reaches, so the masters
+    it manages got no gradient.)
   * replicated parameters (and the tp-split ones, which JAX replicates
     over dp and fsdp) keep their gradients local; :meth:`reduce_grads`
     averages them over dp x fsdp, after summing over tp the ones a tp rank
@@ -36,6 +45,7 @@ from torch import nn
 from ezaudio_tpu_torch.parallel.mesh import (Placement, axis_rank, axis_size, data_group,
                                              data_world, dit_param_shardings, param_shardings,
                                              tp_role)
+from ezaudio_tpu_torch.utils import cast_names
 
 
 class TPInfo(NamedTuple):
@@ -87,6 +97,7 @@ class ShardedParams:
         self.perm: Dict[str, torch.Tensor] = {}  # gated projections' row order
         self.fsdp_names = {n for n, pl in placements.items() if pl.axis == "fsdp"}
         self.wrapped = False
+        self.dtype = torch.float32  # the compute dtype FSDP2 gathers for
 
     # -- gradients -----------------------------------------------------
     def grads(self, loss: torch.Tensor, named_params: Dict[str, torch.Tensor]
@@ -239,29 +250,68 @@ def _apply_tp(sh: ShardedParams) -> None:
         lin._wq_key = lin._weight_key()
 
 
-def shard_params(mesh, model: nn.Module, placements: Optional[Dict[str, Placement]] = None
-                 ) -> ShardedParams:
+def _mp_groups(model: nn.Module, fsdp_names: set, cast: set):
+    """FSDP2 groups each of whose parameters are all cast or all kept f32:
+    the modules to wrap below the root, inner first, as (module, casts),
+    and whether the root's group casts.  Where a module holds both kinds,
+    its children of the other kind than its own parameters are wrapped."""
+    groups = []
+
+    def visit(prefix, module):
+        own = {f"{prefix}{n}" in cast for n, _ in module.named_parameters(recurse=False)
+               if f"{prefix}{n}" in fsdp_names}
+        kids = [(c, visit(f"{prefix}{n}.", c)) for n, c in module.named_children()]
+        kinds = own | {k for _, k in kids if k is not None}
+        if len(kinds) < 2:
+            return next(iter(kinds), None)
+        if len(own) == 2:
+            raise NotImplementedError(f"{prefix or 'the model'}: its own parameters are both "
+                                      "cast and kept f32, and FSDP2 casts a group alike")
+        mine = next(iter(own), True)
+        groups.extend((c, k) for c, k in kids if k is not None and k != mine)
+        return mine
+
+    root = visit("", model)
+    return groups, root is not False
+
+
+def shard_params(mesh, model: nn.Module, placements: Optional[Dict[str, Placement]] = None,
+                 dtype: Optional[torch.dtype] = None) -> ShardedParams:
     """Place ``model``'s parameters on ``mesh`` by ``placements`` (default
-    :func:`param_shardings`); see the module docstring.  Returns the
-    :class:`ShardedParams` a trainer reduces gradients and writes
+    :func:`param_shardings`); see the module docstring.  ``dtype`` is the
+    compute dtype of a mixed-precision step (None or f32: f32).  Returns
+    the :class:`ShardedParams` a trainer reduces gradients and writes
     checkpoints through."""
     placements = placements if placements is not None else param_shardings(mesh, model)
     sh = ShardedParams(mesh, model, placements)
     if axis_size(mesh, "tp") > 1:
         _apply_tp(sh)
     if sh.fsdp_names:
-        from torch.distributed.fsdp import fully_shard
+        from torch.distributed.fsdp import MixedPrecisionPolicy, fully_shard
         from torch.distributed.tensor import Shard
 
         dims = {p: placements[n].dim for n, p in model.named_parameters()
                 if n in sh.fsdp_names}
-        ignored = {p for n, p in model.named_parameters() if n not in sh.fsdp_names}
-        fully_shard(model, mesh=mesh["dp", "fsdp"],
-                    shard_placement_fn=lambda p: Shard(dims[p]), ignored_params=ignored)
+        kw = dict(mesh=mesh["dp", "fsdp"], shard_placement_fn=lambda p: Shard(dims[p]),
+                  ignored_params={p for n, p in model.named_parameters()
+                                  if n not in sh.fsdp_names})
+        if dtype in (None, torch.float32):
+            fully_shard(model, **kw)
+        else:
+            def policy(casts):
+                return MixedPrecisionPolicy(param_dtype=dtype if casts else None,
+                                            reduce_dtype=torch.float32,
+                                            cast_forward_inputs=False)
+
+            groups, root_casts = _mp_groups(model, sh.fsdp_names, cast_names(model, dtype))
+            for module, casts in groups:
+                fully_shard(module, mp_policy=policy(casts), **kw)
+            fully_shard(model, mp_policy=policy(root_casts), **kw)
+            sh.dtype = dtype
         sh.wrapped = True
     return sh
 
 
-def shard_dit(mesh, model: nn.Module) -> ShardedParams:
+def shard_dit(mesh, model: nn.Module, dtype: Optional[torch.dtype] = None) -> ShardedParams:
     """A (Mask)DiT on ``mesh`` by :func:`dit_param_shardings`."""
-    return shard_params(mesh, model, dit_param_shardings(mesh, model))
+    return shard_params(mesh, model, dit_param_shardings(mesh, model), dtype)

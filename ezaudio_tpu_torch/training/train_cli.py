@@ -48,7 +48,13 @@ step's draws are still the whole batch's) and trains them
 (``Trainer.create(mesh=)``); rank 0 logs and writes the checkpoints, which
 keep the single-device layout.  In a world of one process the CLI trains
 without a mesh (a mesh of one is the identity); ``--mesh-fsdp`` must
-still divide the world.
+still divide the world.  ``--dtype bfloat16`` trains sharded too: FSDP2
+gathers the DiT's sharded weights in bf16 where the bf16 trainer casts
+them and reduces their gradients in f32 (``parallel/sharding.py``), the
+VAE encode (kernel 2) and T5 run in bf16 on each rank's rows::
+
+    torchrun --nproc_per_node=N -m ezaudio_tpu_torch.training.train_cli \\
+        --config-name train.json --mesh-fsdp 2 --dtype bfloat16 ...
 """
 
 from __future__ import annotations

@@ -47,7 +47,11 @@ moments reduce over whole parameters (DTensor reductions).  The reported
 loss is the mean over the data-parallel ranks.  Checkpoints keep the
 single-device layout: every rank gathers the whole state, rank 0 writes
 it, and a sharded run resumes from a single-device checkpoint and the
-other way round.  Mixed precision on a mesh needs fsdp = 1.
+other way round.  Mixed precision runs on every mesh: FSDP2 gathers the
+parameters it shards in bf16 where ``utils.cast_params_`` casts them
+(its norms, snakes and positional embeddings stay f32) and reduces their
+gradients in f32 (``parallel/sharding.py``); ``mixed_precision`` casts the
+rest.
 """
 
 from __future__ import annotations
@@ -139,6 +143,9 @@ class StepLoop:
         sh = self.sharding
         if local and sh is None:
             raise ValueError("local=True needs a step on a mesh")
+        if sh is not None and sh.wrapped and sh.dtype != (self.dtype or torch.float32):
+            raise ValueError(f"a {self.dtype} step on a model FSDP2 gathers in {sh.dtype}: "
+                             "shard it with the step's dtype (shard_params(dtype=))")
         if sh is not None:
             from ezaudio_tpu_torch.parallel.mesh import (activation_sharding, axis_size,
                                                          data_world, shard_batch)
@@ -153,7 +160,8 @@ class StepLoop:
             draws = shard_batch(sh.mesh, draws)
             act = (activation_sharding(sh.mesh) if axis_size(sh.mesh, "sp") == 1
                    else contextlib.nullcontext())
-        with (quant_context("off"), mixed_precision(self.model, self.dtype),
+        skip = sh.fsdp_names if sh is not None and sh.wrapped else ()
+        with (quant_context("off"), mixed_precision(self.model, self.dtype, skip),
               deterministic_cudnn(), act if sh is not None else contextlib.nullcontext()):
             loss = self.loss(batch, draws)
             grads = (named_grads(self.params.items(), loss) if sh is None
@@ -285,18 +293,15 @@ class Trainer:
                placements=None) -> "Trainer":
         """The trainer of ``model``; with ``mesh`` the model is placed on
         it first (``placements``, default ``dit_param_shardings``) and the
-        optimizer built over the shards."""
+        optimizer built over the shards (FSDP2 gathering in ``dtype``)."""
         sharding = None
         if mesh is not None:
-            from ezaudio_tpu_torch.parallel.mesh import axis_size, check_mesh
+            from ezaudio_tpu_torch.parallel.mesh import check_mesh
             from ezaudio_tpu_torch.parallel.sharding import shard_dit, shard_params
 
             check_mesh(mesh)
-            if dtype not in (None, torch.float32) and axis_size(mesh, "fsdp") > 1:
-                raise NotImplementedError("mixed precision on a mesh with fsdp > 1 is not "
-                                          "ported: FSDP2 gathers the f32 weights")
-            sharding = (shard_dit(mesh, model) if placements is None
-                        else shard_params(mesh, model, placements))
+            sharding = (shard_dit(mesh, model, dtype) if placements is None
+                        else shard_params(mesh, model, placements, dtype))
         optimizer = make_optimizer(
             model,
             learning_rate=opt_cfg.get("learning_rate", 5e-5),

@@ -4,7 +4,7 @@ from __future__ import annotations
 
 import contextlib
 import math
-from typing import Callable, Dict, Iterator, List, Optional, Tuple, Union
+from typing import Callable, Collection, Dict, Iterator, List, Optional, Tuple, Union
 
 import torch
 
@@ -95,8 +95,23 @@ def cast_params_(module: torch.nn.Module, dtype: torch.dtype,
     return module
 
 
+def _qualified(module: torch.nn.Module) -> Callable[[torch.nn.Module, str], str]:
+    """``(submodule, name) -> the dotted name under module``."""
+    prefix = {id(m): p for p, m in module.named_modules()}
+    return lambda m, n: f"{prefix[id(m)]}.{n}".lstrip(".")
+
+
+def cast_names(module: torch.nn.Module, dtype: torch.dtype) -> set:
+    """The names of the parameters :func:`cast_params_` casts to ``dtype``
+    (the rest stay f32)."""
+    name, out = _qualified(module), set()
+    cast_params_(module, dtype, lambda m, n: out.add(name(m, n)) if n in m._parameters else None)
+    return out
+
+
 @contextlib.contextmanager
-def mixed_precision(module: torch.nn.Module, dtype: Optional[torch.dtype]) -> Iterator[None]:
+def mixed_precision(module: torch.nn.Module, dtype: Optional[torch.dtype],
+                    skip: Collection[str] = ()) -> Iterator[None]:
     """Compute ``module`` in ``dtype`` while its parameters stay f32 masters:
     inside, each parameter (and buffer) :func:`cast_params_` would cast is
     replaced by a differentiable ``dtype`` copy of itself, made once on entry, so the
@@ -104,13 +119,21 @@ def mixed_precision(module: torch.nn.Module, dtype: Optional[torch.dtype]) -> It
     norms and RoPE in f32, convolutions summing in f32) and gradients flow
     through the casts to the f32 parameters, as flax's ``kernel.astype``
     at each use does.  The backward (and remat's recompute in it) must
-    run inside too.  ``None`` or f32 changes nothing."""
+    run inside too.  ``None`` or f32 changes nothing.  The parameters
+    named in ``skip`` are left as they are: those FSDP2 casts itself as it
+    gathers them (``parallel/sharding.py``)."""
     if dtype is None or dtype == torch.float32:
         yield
         return
     plan: List[Tuple[Dict[str, torch.Tensor], str]] = []
-    cast_params_(module, dtype, lambda m, n: plan.append(
-        (m._parameters if n in m._parameters else m._buffers, n)))
+    name = _qualified(module)
+
+    def visit(m: torch.nn.Module, n: str) -> None:
+        if n in m._parameters and name(m, n) in skip:
+            return
+        plan.append((m._parameters if n in m._parameters else m._buffers, n))
+
+    cast_params_(module, dtype, visit)
     masters = [slots[n] for slots, n in plan]
     try:
         for (slots, n), t in zip(plan, masters):

@@ -1037,8 +1037,9 @@ def test_parallel_phase_rehearses_on_cpu(monkeypatch, tmp_path):
     flac (bit-exact), mp3 and ogg and the native batches into the VAE
     encode with their kernel 2 launches; (b) a gloo world of one: the
     meshed EzAudio equal to the plain one and the two meshed train steps
-    (one FSDP2-wrapped) held to the plain step; (c) the ring's hop math at
-    sp = 4 against the kernel's plain twin and SDPA."""
+    (one FSDP2-wrapped) held to the plain step, the wrapped bf16 step to
+    the plain bf16 step, and the no-context ControlNet forward; (c) the
+    ring's hop math at sp = 4 against the kernel's plain twin and SDPA."""
     import dataclasses
 
     import numpy as np
@@ -1070,10 +1071,17 @@ def test_parallel_phase_rehearses_on_cpu(monkeypatch, tmp_path):
                               init_method=f"file://{tmp_path / 'rendezvous'}")
     assert not dist.is_initialized()
     assert [r["path"] for r in rows] == ["mesh_off[1]", "mesh_world1[1]", "train_world1_mesh",
-                                         "train_world1_hsdp"]
+                                         "train_world1_hsdp", "train_world1_hsdp_bf16"]
     assert rows[1]["rel_err_vs_no_mesh"] <= cs.MESH_TOL
     assert rows[1]["attention_launches"] == 2 * 5 * 2 and rows[1]["resunit_launches"] == 6
     assert rows[3]["fsdp2_wrapped"] and rows[3]["dtensor_params"] > 0
+    bf16 = rows[4]
+    assert bf16["fsdp2_wrapped"] and bf16["dtensor_params"] > 0 and not bf16["faults"]
+    assert bf16["by_dtype"] == {"attention.bfloat16": 2 * 5}  # depth 4, no remat
+    assert bf16["grad_to_plain"] <= cs.BF16_REF_FACTOR * bf16["grad_plain_bf16_to_f32"]
+    cn = cs.controlnet_nocontext_path("cpu", cfg=json_copy(dict(TINY_CONFIG, controlnet=dict(
+        cond_in=1, cond_blocks=[8, 16], cond_mask=True))))
+    assert cn["attention_launches"] == 2 and cn["rel_err"] == 0.0
     ring = cs.ring_math("cpu", torch.Generator().manual_seed(0),
                         cases=[(2, 2, 16, 16, 8)], sp=4, time_it=False)
     assert len(ring) == 4 and all(r["sp"] == 4 for r in ring)

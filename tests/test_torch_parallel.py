@@ -13,7 +13,11 @@ JAX's sharded step directly in ``tests/test_torch_parallel_anchor.py``);
 the checkpoints both
 ways; ``EzAudio(mesh=)``, the ControlNet and a ``GenerationServer`` drain
 against single-device runs; ``train_cli --mesh-fsdp 2`` against the
-single-process CLI, each rank encoding only its rows.
+single-process CLI, each rank encoding only its rows; bf16 mixed
+precision on both meshes (FSDP2 gathering in bf16) against the
+single-process bf16 step, and ``train_cli --dtype bfloat16 --mesh-fsdp 2``.
+In this process, a gloo world of one: the bf16 step of a DiT FSDP2 wraps
+by explicit fsdp placements against the plain bf16 step.
 """
 
 import csv
@@ -30,6 +34,7 @@ from ezaudio_tpu_torch.parallel.mesh import (AXES, Placement, activation_shardin
                                              constrain_batch, dit_param_shardings, jax_layout,
                                              mesh_shape, param_shardings, shard_batch)
 from tests import torch_worlds
+from tests.test_torch_bf16 import assert_bf16_close
 from tests.torch_worlds import spawn_world
 
 
@@ -240,15 +245,19 @@ def world(tmp_path_factory):
             ckpt_a[opt] = torch.load(str(root / "ckpt_a" / opt / "1" / "state.pt"),
                                      weights_only=True)
         data = dict(ckpt_a=str(root / "ckpt_a"), ckpt_b=str(root / "ckpt_b"),
+                    ckpt_bf16=str(root / "ckpt_bf16"),
                     cli_config=_cli_workspace(root), cli_save=str(root / "cli_mesh"),
                     cli_log=str(root / "cli_log"))
         out = spawn_world(torch_worlds.parallel_rank, data, deadline=300.0)
         single = {}
-        train_cli.main(["--config-name", data["cli_config"], "--max-steps", "2",
-                        "--save-every-step", "100", "--save-dir", str(root / "cli_single"),
-                        "--log-dir", data["cli_log"], "--device", "cpu"],
-                       t5_config=_t5(), vae_config=VAE_CONFIG,
-                       on_step=lambda s, m: single.__setitem__(s, float(m["loss"])))
+        for dtype in ("float32", "bfloat16"):
+            losses = single.setdefault(dtype, {})
+            train_cli.main(["--config-name", data["cli_config"], "--max-steps", "2",
+                            "--save-every-step", "100", "--save-dir",
+                            str(root / "cli_single" / dtype), "--log-dir", data["cli_log"],
+                            "--device", "cpu", "--dtype", dtype],
+                           t5_config=_t5(), vae_config=VAE_CONFIG,
+                           on_step=lambda s, m, d=losses: d.__setitem__(s, float(m["loss"])))
     finally:
         torch.set_num_threads(n)
     return out, ckpt_a, single, data
@@ -352,7 +361,7 @@ def test_server_drain_on_a_mesh_equals_solo(world):
 def test_train_cli_mesh_fsdp_2_equals_single_process(world):
     """``train_cli --mesh-fsdp 2`` in a world of 4 (dp 2 x fsdp 2): its
     losses are the single-process CLI's within 1e-5."""
-    got, want = world[0]["train_cli"]["losses"], world[2]
+    got, want = world[0]["train_cli"]["losses"], world[2]["float32"]
     assert got.keys() == want.keys() == {1, 2}
     for s in want:
         assert abs(got[s] - want[s]) <= 1e-5 * abs(want[s]), (got, want)
@@ -365,3 +374,129 @@ def test_train_cli_encodes_and_embeds_only_its_rows(world):
     rows = world[0]["train_cli"]["rows"]
     assert rows["encode"] == [1, 1], rows
     assert rows["t5"] == [1, 1, 1], rows
+
+
+# ---------------------------------------------------------------------------
+# bf16 mixed precision on a mesh
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("case", ["dp2xfsdp2/adamw", "dp2xfsdp2/adamw_mu_bf16",
+                                  "fsdp2xtp2/adafactor"])
+def test_bf16_sharded_step_equals_single_process(world, case):
+    """The bf16 mixed-precision step on the mesh against the single-process
+    bf16 step, same weights, bf16 batch and draws:
+      * the loss within 1e-5 relative at dp 2 x fsdp 2, where the forward
+        is row-wise (each rank computes its rows as the whole batch does);
+        within 2^-8 (bf16's resolution) at fsdp 2 x tp 2, where the row
+        splits sum bf16 partial products across the tp ranks;
+      * the gradients (one vector) and the updates (one vector) by
+        ``tests/test_torch_train_bf16.py``'s rule at 0.99: no farther from
+        the single-process bf16 ones than twice the bf16 step's distance
+        from the f32 step (the shards reduce bf16 products in another
+        order; an Adam-family update near a gradient of 0 flips with any
+        rounding);
+      * the parameters within 1e-6 of a single-process optimizer fed the
+        sharded run's gradients (the optimizer's rounding over DTensor
+        shards: AdamW, AdamW with a bf16 first moment, Adafactor), the
+        masters and gradients f32."""
+    e = world[0][f"train_bf16/{case}"]
+    loss = e["loss"]
+    rtol = 1e-5 if case.startswith("dp2xfsdp2") else 2.0 ** -8
+    assert abs(loss[0] - loss[1]) <= rtol * abs(loss[1]), loss
+    assert loss[1] != loss[2]  # bf16 computes another function than f32
+    assert_bf16_close(*e["grads"], 0.99)
+    assert_bf16_close(*e["update"], 0.99)
+    assert e["fed_param"] < 1e-6, e["fed_param"]
+    assert e["f32"]
+
+
+def test_bf16_wrapped_dit_computes_each_weight_in_its_dtype(world):
+    """A MaskDiT whose snakes and absolute positional embedding FSDP2
+    shards, bf16 on dp 2 x fsdp 2: the norms, snakes and embedding read
+    f32 in the forward, every linear bf16, exactly as in the single-process
+    bf16 step (whose loss it equals within 1e-5: the forward is row-wise);
+    those f32 parameters sit in FSDP2 groups of their own; masters and
+    gradients stay f32; a checkpoint read back into a fresh sharded
+    trainer equals the written state bit for bit, model and optimizer."""
+    e = world[0]["bf16_wrapped"]
+    read = e["mesh"]["read"]
+    assert read == e["one"]["read"]
+    f32 = {n for n, d in read.items() if d == "torch.float32"}
+    assert f32 == {n for n in read if n.rsplit(".", 1)[-1] in ("alpha", "beta", "abs_pe")
+                   or "norm" in n.rsplit(".", 2)[-2]}
+    assert "model.x_pe.abs_pe" in e["sharded_f32"]
+    assert any(n.endswith("mlp.net.0.alpha") for n in e["sharded_f32"])
+    assert e["groups"] > 1
+    assert abs(e["mesh"]["loss"] - e["one"]["loss"]) <= 1e-5 * abs(e["one"]["loss"])
+    assert e["masters_f32"] and e["grads_f32"] and e["ckpt_model"]
+    _same(*e["ckpt_opt"], "optimizer")
+    saved = torch.load(os.path.join(world[3]["ckpt_bf16"], "1", "state.pt"),
+                       weights_only=True)["model"]
+    _same({k: v for k, v in saved.items()}, e["saved"], "saved")
+
+
+def test_train_cli_bf16_mesh_fsdp_2_equals_single_process(world):
+    """``train_cli --dtype bfloat16 --mesh-fsdp 2`` in a world of 4 against
+    the single-process bf16 CLI: the first loss within 1e-5 relative (the
+    same weights, a row-wise forward), the second within 2^-8 (bf16's
+    resolution: the first update follows gradients reduced across the
+    ranks in bf16 products); every rank encoded and embedded its own row."""
+    got, want = world[0]["train_cli_bf16"]["losses"], world[2]["bfloat16"]
+    assert got.keys() == want.keys() == {1, 2}
+    assert abs(got[1] - want[1]) <= 1e-5 * abs(want[1]), (got, want)
+    assert abs(got[2] - want[2]) <= 2.0 ** -8 * abs(want[2]), (got, want)
+    assert want[1] != world[2]["float32"][1]
+    rows = world[0]["train_cli_bf16"]["rows"]
+    assert rows["encode"] == [1, 1] and rows["t5"] == [1, 1, 1], rows
+
+
+def test_bf16_hsdp_at_a_world_of_one_equals_the_plain_step(tmp_path):
+    """A gloo world of one, the DiT FSDP2-wrapped by explicit fsdp
+    placements (a 2-way split's, as ``chip_smoke.py`` phase 33 (b) places
+    it): two bf16 steps equal the plain bf16 steps, loss and every gradient
+    bit for bit (FSDP2 casts in bf16 what ``mixed_precision`` casts, the
+    reductions of a world of one are the identity), the parameters within
+    2^-22 of their size (AdamW over DTensor shards rounds apart).  Before
+    this was ported the wrapped step got zero gradients for every
+    parameter FSDP2 held, silently; a step whose dtype differs from the
+    one FSDP2 gathers in now raises."""
+    import torch.distributed as dist
+
+    from ezaudio_tpu_torch.diffusion.ddim import DDIMSchedule
+    from ezaudio_tpu_torch.parallel import init_distributed, make_mesh
+    from ezaudio_tpu_torch.parallel.sharding import shard_params
+    from ezaudio_tpu_torch.training.trainer import Trainer, make_train_step
+
+    sched, bf16 = DDIMSchedule.from_config(torch_worlds.DIFF), torch.bfloat16
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # as the spawned ranks: many threads crawl on a loaded host
+    init_distributed("cpu", init_method=f"file://{tmp_path / 'rendezvous'}", rank=0,
+                     world_size=1)
+    try:
+        model = torch_worlds.tiny_dit()
+        placements = param_shardings(StubMesh(fsdp=2), model)
+        hsdp = Trainer.create(model, sched, torch_worlds.opt_cfg("adamw"), dtype=bf16,
+                              mesh=make_mesh(), placements=placements)
+        plain = Trainer.create(torch_worlds.tiny_dit(), sched, torch_worlds.opt_cfg("adamw"),
+                               dtype=bf16)
+        assert hsdp.sharding.wrapped and len(hsdp.sharding.fsdp_names) > 0
+        for seed in (3, 4):
+            batch = torch_worlds._bf16(torch_worlds.train_batch())
+            a = hsdp.step_fn(batch, seed, return_grads=True)
+            b = plain.step_fn(batch, seed, return_grads=True)
+            assert float(a["loss"]) == float(b["loss"])
+            for n, g in b["grads"].items():
+                assert torch.equal(hsdp.sharding.to_full(n, a["grads"][n]), g), n
+        got = hsdp.sharding.full_state_dict()
+        for n, p in plain.model.named_parameters():
+            assert (got[n] - p).abs().max() <= 2.0 ** -22 * max(p.abs().max(), 1.0), n
+        # the fault's guard: a model FSDP2 gathers in f32 under a bf16 step
+        f32_placed = torch_worlds.tiny_dit()
+        sh = shard_params(make_mesh(), f32_placed, param_shardings(StubMesh(fsdp=2), f32_placed))
+        step = make_train_step(f32_placed, sched, plain.optimizer, dtype=bf16)
+        step.sharding = sh
+        with pytest.raises(ValueError, match="FSDP2 gathers in torch.float32"):
+            step(torch_worlds._bf16(torch_worlds.train_batch()), 3)
+    finally:
+        dist.destroy_process_group()
+        torch.set_num_threads(threads)

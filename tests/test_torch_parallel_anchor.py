@@ -3,7 +3,9 @@ JAX's train step on ``make_mesh(fsdp=2, tp=2)`` (its parameters placed by
 its ``dit_param_shardings``, the batch by its ``shard_batch``) against the
 port's ``Trainer.create(..., mesh=make_mesh(fsdp=2, tp=2))`` step in a
 spawned gloo world of 4 (``tests/torch_worlds.py``), from the same
-weights, batch and draws.
+weights, batch and draws; in f32, and in bf16 mixed precision (JAX's
+MaskDiT built with ``dtype=jnp.bfloat16``, f32 parameters) by the
+statistical rule of ``tests/test_torch_train_bf16.py``.
 """
 
 import jax
@@ -13,12 +15,19 @@ import pytest
 import torch
 from flax import linen as nn
 
+from ezaudio_tpu_torch.parallel.dryrun import MODEL
 from tests import torch_worlds
+from tests.test_torch_bf16 import assert_bf16_close
 from tests.torch_worlds import spawn_world
 
 ANCHOR_B = 8
 ANCHOR_OPT = dict(learning_rate=1e-3, warmup=0, grad_clip=0.5, weight_decay=0.01,
                   snr_gamma=5.0)
+# the bf16 anchor's MaskDiT: the dry run's at depth 2 without remat (XLA
+# compiles the depth-4 remat bf16 step on the mesh in ~28 s, this in ~17 s;
+# the sharded bf16 step under remat is held to the single-process one in
+# tests/test_torch_parallel.py)
+BF16_MODEL = dict(MODEL, depth=2, use_checkpoint=False)
 
 
 @pytest.fixture(scope="module")
@@ -30,8 +39,6 @@ def anchor():
     to the port's ``draws=``.  ``port`` holds numpy alone (the ranks import
     no JAX)."""
     from ezaudio_tpu.models.maskdit import maskdit_from_config as jax_maskdit
-    from ezaudio_tpu_torch.convert.from_jax import maskdit_state_dict_from_jax
-    from ezaudio_tpu_torch.parallel.dryrun import MODEL
     from tests.test_torch_controlnet import _seeded_init
 
     L, C, Lc, D = MODEL["img_size"], MODEL["out_chans"], 5, MODEL["context_dim"]
@@ -55,10 +62,29 @@ def anchor():
                  span_round=rng.uniform(size=B).astype(np.float32),
                  span_scores=rng.uniform(size=(B, L - MODEL["mask_span"])).astype(np.float32),
                  select=np.array([0.1, 0.9] * 4, np.float32))
-    weights = {k: v.numpy() for k, v in
-               maskdit_state_dict_from_jax(jax.device_get(params), MODEL).items()}
-    return dict(model=model, params=params,
-                port=dict(weights=weights, batch=batch, draws=draws, opt=ANCHOR_OPT))
+    # the bf16 step: the same MaskDiT at BF16_MODEL's depth (its first
+    # in- and out-blocks, the mid block), the batch and the noise rounded
+    # to bf16 (the port rounds its f32 noise draw to the latents' dtype)
+    params16 = dict(params, model={k: v for k, v in params["model"].items()
+                                   if k not in ("in_blocks_1", "out_blocks_1")})
+    bf16 = dict(model=BF16_MODEL, weights=_weights(params16, BF16_MODEL),
+                batch={k: (_round_bf16(v) if v.dtype == np.float32 else v)
+                       for k, v in batch.items()},
+                draws=dict(draws, noise=_round_bf16(draws["noise"])), opt=ANCHOR_OPT)
+    return dict(model=model, params=params, params16=params16,
+                port=dict(model=MODEL, weights=_weights(params, MODEL), batch=batch,
+                          draws=draws, opt=ANCHOR_OPT, bf16=bf16))
+
+
+def _weights(params, cfg):
+    from ezaudio_tpu_torch.convert.from_jax import maskdit_state_dict_from_jax
+
+    return {k: v.numpy() for k, v in
+            maskdit_state_dict_from_jax(jax.device_get(params), cfg).items()}
+
+
+def _round_bf16(x):
+    return np.asarray(jnp.asarray(x, jnp.bfloat16).astype(jnp.float32))
 
 
 @pytest.fixture(scope="module")
@@ -73,13 +99,34 @@ def world(anchor):
 
 @pytest.fixture(scope="module")
 def jax_step(anchor):
+    """JAX's f32 step (``_jax_sharded_step``)."""
+    port = anchor["port"]
+    return _jax_sharded_step(anchor["params"], port["model"], anchor["model"], port["batch"],
+                             port["draws"])
+
+
+@pytest.fixture(scope="module")
+def jax_step_bf16(anchor):
+    """JAX's bf16 trainer's step: the MaskDiT built with
+    ``dtype=jnp.bfloat16`` (f32 parameters), the batch in bf16, the noise
+    rounded to bf16."""
+    from ezaudio_tpu.models.maskdit import maskdit_from_config as jax_maskdit
+
+    a = anchor["port"]["bf16"]
+    batch = {k: (jnp.asarray(v, jnp.bfloat16) if v.dtype == np.float32 else v)
+             for k, v in a["batch"].items()}
+    return _jax_sharded_step(anchor["params16"], a["model"],
+                             jax_maskdit(a["model"], dtype=jnp.bfloat16), batch, a["draws"])
+
+
+def _jax_sharded_step(params, cfg, model, batch, d):
     """JAX's train step (AdamW, clip 0.5, weight decay 0.01, snr_gamma 5)
-    on ``make_mesh(fsdp=2, tp=2)`` over 4 of the 8 virtual devices, its
-    parameters placed by its ``dit_param_shardings`` and the batch by its
-    ``shard_batch``, the draws replaced while it traces: the loss, the
-    global norm, the gradients (kept by a transformation wrapped round the
-    optimizer: one compiled step) and the updated parameters, under the
-    port's names."""
+    of ``model`` on ``make_mesh(fsdp=2, tp=2)`` over 4 of the 8 virtual
+    devices, its parameters placed by its ``dit_param_shardings`` and the
+    batch by its ``shard_batch``, the draws ``d`` replaced while it traces:
+    the loss, the global norm, the gradients (kept by a transformation
+    wrapped round the optimizer: one compiled step) and the updated
+    parameters, under the port's names."""
     import optax
 
     from ezaudio_tpu.diffusion.ddim import DDIMSchedule as JaxSchedule
@@ -88,35 +135,27 @@ def jax_step(anchor):
     from ezaudio_tpu.parallel.mesh import shard_batch as jax_shard_batch
     from ezaudio_tpu.training.optim import make_optimizer as jax_make_optimizer
     from ezaudio_tpu.training.trainer import TrainState, make_train_step
-    from ezaudio_tpu_torch.convert.from_jax import maskdit_state_dict_from_jax
-    from ezaudio_tpu_torch.parallel.dryrun import DIFF, MODEL
+    from ezaudio_tpu_torch.parallel.dryrun import DIFF
     from tests.test_torch_training import jax_draws
 
-    port = anchor["port"]
-    opt = dict(port["opt"])
+    opt = dict(ANCHOR_OPT)
     snr_gamma = opt.pop("snr_gamma")
-    inner = jax_make_optimizer(anchor["params"], **opt)
+    inner = jax_make_optimizer(params, **opt)
     tx = optax.GradientTransformation(
         lambda p: (jax.tree.map(jnp.zeros_like, p), inner.init(p)),
         lambda g, s, p=None: (lambda u: (u[0], (g, u[1])))(inner.update(g, s[1], p)))
     mesh = jax_make_mesh(fsdp=2, tp=2, devices=jax.devices()[:4])
-    params = jax.tree.map(jax.device_put, jax.tree.map(jnp.array, anchor["params"]),
-                          jax_dit(mesh, anchor["params"]))
-    state = TrainState.create(params, tx)
-    step = make_train_step(anchor["model"], JaxSchedule.from_config(DIFF), tx,
-                           snr_gamma=snr_gamma, mesh=mesh)
-    batch = jax_shard_batch(mesh, {k: jnp.asarray(v) for k, v in port["batch"].items()})
-    d = port["draws"]
+    state = TrainState.create(jax.tree.map(jax.device_put, jax.tree.map(jnp.array, params),
+                                           jax_dit(mesh, params)), tx)
+    step = make_train_step(model, JaxSchedule.from_config(DIFF), tx, snr_gamma=snr_gamma,
+                           mesh=mesh)
+    batch = jax_shard_batch(mesh, {k: jnp.asarray(v) for k, v in batch.items()})
     with jax_draws([d["cfg"], d["ratio"], d["span_round"], d["span_scores"], d["select"]],
                    normal=d["noise"], randint=d["t"]):
         state, m = step(state, batch, jax.random.PRNGKey(0))
 
-    def mapped(tree):
-        return {k: v.numpy() for k, v in
-                maskdit_state_dict_from_jax(jax.device_get(tree), MODEL).items()}
-
     return dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
-                grads=mapped(state.opt_state[0]), params=mapped(state.params))
+                grads=_weights(state.opt_state[0], cfg), params=_weights(state.params, cfg))
 
 
 def test_loss_and_global_norm_equal_jax(world, jax_step):
@@ -167,3 +206,31 @@ def test_updated_parameters_equal_jax(world, jax_step, anchor):
     moved = max(float(np.abs(world["params"][n] - anchor["port"]["weights"][n]).max())
                 for n in world["grads"])
     assert moved > 0.5 * lr
+
+
+def _flat(tree, names):
+    return np.concatenate([np.asarray(tree[n], np.float32).ravel() for n in names])
+
+
+def test_bf16_step_equals_jax_bf16(world, jax_step_bf16, anchor):
+    """The port's bf16 step on fsdp 2 x tp 2 (FSDP2 gathering in bf16,
+    ``mixed_precision`` casting the tp shards and the replicated weights)
+    against JAX's bf16 step on its ``make_mesh(fsdp=2, tp=2)``, from the same
+    weights, bf16 batch and draws, by ``tests/test_torch_train_bf16.py``'s
+    rule: the gradients (one vector) and the first step's updates (one
+    vector) no farther from JAX bf16's than twice JAX bf16's distance from
+    the port's f32 step on the same rounded inputs (which holds JAX's f32
+    step within 1e-4 of each gradient's scale, above), correlated above
+    0.99; the loss, one scalar mean where XLA's fusions keep f32 inside
+    while torch rounds every op, within 2^-8 of JAX bf16's, relative."""
+    got, ref, want = world["bf16"], world["bf16_ref"], jax_step_bf16
+    names = sorted(got["grads"])
+    assert set(names) == {k for k in want["grads"] if not k.endswith("inv_freq")}
+    assert_bf16_close(_flat(got["grads"], names), _flat(want["grads"], names),
+                      _flat(ref["grads"], names), 0.99)
+    start = anchor["port"]["bf16"]["weights"]
+    upd = [{n: t["params"][n] - start[n] for n in names} for t in (got, want, ref)]
+    assert_bf16_close(*(_flat(u, names) for u in upd), 0.99)
+    assert abs(got["loss"] - want["loss"]) <= 2.0 ** -8 * abs(want["loss"])
+    assert all(g.dtype == np.float32 for g in got["grads"].values())
+    assert all(p.dtype == np.float32 for p in got["params"].values())

@@ -181,13 +181,14 @@ def ring_rank(rank, path, data, q):
 # tests/test_torch_parallel.py
 # ---------------------------------------------------------------------------
 
-def tiny_dit():
-    """The dry run's tiny MaskDiT (remat on), seeded weights."""
+def tiny_dit(**switches):
+    """The dry run's tiny MaskDiT (remat on; ``switches`` over its
+    config), seeded weights."""
     from ezaudio_tpu_torch.api.ezaudio import init_random_
     from ezaudio_tpu_torch.models.maskdit import maskdit_from_config
     from ezaudio_tpu_torch.parallel.dryrun import MODEL
 
-    m = maskdit_from_config(MODEL)
+    m = maskdit_from_config(dict(MODEL, **switches))
     init_random_(m, torch.Generator().manual_seed(0))
     return m
 
@@ -264,24 +265,130 @@ def _train_case(mesh, opt):
     return errs
 
 
-def _jax_anchor_case(data):
-    """One fsdp 2 x tp 2 step from the weights, batch and draws that the
-    JAX package's step on ``make_mesh(fsdp=2, tp=2)`` takes in
-    ``tests/test_torch_parallel_anchor.py``: the loss, the global norm, every
-    gradient and every updated parameter, whole."""
+def _bf16(batch):
+    return {k: (v.bfloat16() if torch.is_tensor(v) and v.is_floating_point() else v)
+            for k, v in batch.items()}
+
+
+def _flat(grads):
+    return torch.cat([grads[n].float().reshape(-1) for n in sorted(grads)]).numpy()
+
+
+def _train_bf16_case(mesh, opt_kw):
+    """The bf16 mixed-precision step on ``mesh``, the single-process bf16
+    step and the single-process f32 step (the statistical rule's
+    reference) from the same weights, bf16 batch and draws: the losses, the
+    gradients and the updates as flat vectors (the sharded run's whole),
+    the parameters' largest difference from a single-process optimizer fed
+    the sharded run's gradients, and whether every master and gradient
+    stayed f32."""
+    from ezaudio_tpu_torch.diffusion.ddim import DDIMSchedule
+    from ezaudio_tpu_torch.training.optim import make_optimizer
+    from ezaudio_tpu_torch.training.trainer import Trainer
+
+    sched, cfg, bf16 = DDIMSchedule.from_config(DIFF), dict(opt_cfg("adamw"), **opt_kw), \
+        torch.bfloat16
+    sh = Trainer.create(tiny_dit(), sched, cfg, dtype=bf16, mesh=mesh)
+    one = Trainer.create(tiny_dit(), sched, cfg, dtype=bf16)
+    ref = Trainer.create(tiny_dit(), sched, cfg)
+    fed_model = tiny_dit()
+    fed = make_optimizer(fed_model, **cfg)
+    start = tiny_dit().state_dict()
+    a = sh.step_fn(_bf16(train_batch()), 3, return_grads=True)
+    b = one.step_fn(_bf16(train_batch()), 3, return_grads=True)
+    c = ref.step_fn(train_batch(), 3, return_grads=True)
+    full = {n: sh.sharding.to_full(n, g) for n, g in a["grads"].items()}
+    fed.update(full)
+    p_sh = sh.sharding.full_state_dict()
+    upd = [{n: v - start[n] for n, v in sd.items() if n in full}
+           for sd in (p_sh, one.model.state_dict(), ref.model.state_dict())]
+    return {"loss": [float(a["loss"]), float(b["loss"]), float(c["loss"])],
+            "grads": [_flat(full), _flat(b["grads"]), _flat(c["grads"])],
+            "update": [_flat(u) for u in upd],
+            "fed_param": max(float((p_sh[n] - v).abs().max())
+                             for n, v in fed_model.state_dict().items()),
+            "f32": (all(g.dtype == torch.float32 for g in full.values())
+                    and all(p.dtype == torch.float32 for p in sh.model.parameters()))}
+
+
+VARIANT = dict(act_layer="gesnake", pe_method="abs")  # f32-kept parameters FSDP2 shards
+
+
+def _bf16_wrapped_case(data):
+    """A MaskDiT whose snakes and absolute positional embedding FSDP2
+    shards (``VARIANT``) on dp 2 x fsdp 2 in bf16: the dtype of each weight
+    its layers read in the forward (norms, snakes, the embedding, the
+    linears), the FSDP2 groups, the masters' and gradients' dtypes, the
+    loss against the single-process bf16 step, and a checkpoint written
+    and read back into a fresh sharded trainer (model and optimizer)."""
+    from torch.distributed.fsdp import FSDPModule
+
+    from ezaudio_tpu_torch.diffusion.ddim import DDIMSchedule
+    from ezaudio_tpu_torch.ops.embeddings import PEWrapper
+    from ezaudio_tpu_torch.ops.mlp import ActProj
+    from ezaudio_tpu_torch.ops.norms import LayerNorm
+    from ezaudio_tpu_torch.ops.quant import QuantLinear
+    from ezaudio_tpu_torch.parallel import make_mesh
+    from ezaudio_tpu_torch.training.trainer import Trainer
+    from ezaudio_tpu_torch.utils import cast_names
+
+    mesh, sched, bf16 = make_mesh(dp=2, fsdp=2), DDIMSchedule.from_config(DIFF), torch.bfloat16
+
+    def create(sharded):
+        return Trainer.create(tiny_dit(**VARIANT), sched, opt_cfg("adamw"), dtype=bf16,
+                              mesh=mesh if sharded else None)
+
+    def read_dtypes(model, seen):
+        kinds = {LayerNorm: ("weight", "bias"), ActProj: ("alpha", "beta"),
+                 PEWrapper: ("abs_pe",), QuantLinear: ("weight",)}
+        hooks = []
+        for name, m in model.named_modules():
+            for kind, attrs in kinds.items():
+                if isinstance(m, kind) and getattr(m, attrs[0], None) is not None:
+                    hooks.append(m.register_forward_pre_hook(
+                        lambda mod, _, n=name, a=attrs: seen.update(
+                            {f"{n}.{x}": str(getattr(mod, x).dtype) for x in a})))
+        return hooks
+
+    out = {}
+    for key, sharded in (("one", False), ("mesh", True)):
+        tr, seen = create(sharded), {}
+        hooks = read_dtypes(tr.model, seen)
+        m = tr.step_fn(_bf16(train_batch()), 3, return_grads=True)
+        for h in hooks:
+            h.remove()
+        out[key] = {"loss": float(m["loss"]), "read": seen}
+    out["groups"] = sum(isinstance(m, FSDPModule) for m in tr.model.modules())
+    out["sharded_f32"] = sorted(tr.sharding.fsdp_names - cast_names(tr.model, bf16))
+    out["masters_f32"] = all(p.dtype == torch.float32 for p in tr.model.parameters())
+    out["grads_f32"] = all(g.dtype == torch.float32 for g in m["grads"].values())
+    tr.save_checkpoint(data["ckpt_bf16"])
+    back = create(True).restore_checkpoint(data["ckpt_bf16"])
+    out["ckpt_model"] = all(torch.equal(a, b) for a, b in zip(
+        tr.sharding.full_state_dict().values(), back.sharding.full_state_dict().values()))
+    out["ckpt_opt"] = _numpy(tr.optimizer.state_dict()), _numpy(back.optimizer.state_dict())
+    out["saved"] = {k: v.numpy().copy() for k, v in tr.sharding.full_state_dict().items()}
+    return out
+
+
+def _jax_anchor_case(a, dtype=None):
+    """One fsdp 2 x tp 2 step from the model config, weights, batch and
+    draws ``a`` that the JAX package's step on ``make_mesh(fsdp=2, tp=2)``
+    takes in ``tests/test_torch_parallel_anchor.py`` (the batch in
+    ``dtype``): the loss, the global norm, every gradient and every
+    updated parameter, whole."""
     from ezaudio_tpu_torch.diffusion.ddim import DDIMSchedule
     from ezaudio_tpu_torch.models.maskdit import maskdit_from_config
     from ezaudio_tpu_torch.parallel import make_mesh
-    from ezaudio_tpu_torch.parallel.dryrun import MODEL
     from ezaudio_tpu_torch.training.trainer import Trainer
 
-    a = data["anchor"]
     T = torch.from_numpy
-    model = maskdit_from_config(MODEL)
+    model = maskdit_from_config(a["model"])
     model.load_state_dict({k: T(v) for k, v in a["weights"].items()})
-    tr = Trainer.create(model, DDIMSchedule.from_config(DIFF), a["opt"],
+    tr = Trainer.create(model, DDIMSchedule.from_config(DIFF), a["opt"], dtype=dtype,
                         mesh=make_mesh(fsdp=2, tp=2))
-    m = tr.step_fn({k: T(v) for k, v in a["batch"].items()}, 0,
+    b = {k: T(v) for k, v in a["batch"].items()}
+    m = tr.step_fn(b if dtype is None else _bf16(b), 0,
                    draws={k: T(v) for k, v in a["draws"].items()}, return_grads=True)
     sh = tr.sharding
     return {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
@@ -371,9 +478,9 @@ def _api_case():
     return errs, buckets
 
 
-def _train_cli_case(data):
-    """``train_cli --mesh-fsdp 2``: its losses, and the rows that each call
-    of the VAE encode and of T5 was given on this rank."""
+def _train_cli_case(data, dtype="float32"):
+    """``train_cli --mesh-fsdp 2 --dtype <dtype>``: its losses, and the rows
+    that each call of the VAE encode and of T5 was given on this rank."""
     from ezaudio_tpu_torch.codecs.facade import AutoencoderFacade
     from ezaudio_tpu_torch.parallel.dryrun import VAE_CONFIG, _t5
     from ezaudio_tpu_torch.text.t5 import T5Encoder
@@ -393,8 +500,9 @@ def _train_cli_case(data):
     AutoencoderFacade.encode, T5Encoder.forward = counted_encode, counted_t5
     try:
         train_cli.main(["--config-name", data["cli_config"], "--max-steps", "2",
-                        "--save-every-step", "100", "--save-dir", data["cli_save"],
-                        "--log-dir", data["cli_log"], "--device", "cpu", "--mesh-fsdp", "2"],
+                        "--save-every-step", "100", "--save-dir", f"{data['cli_save']}/{dtype}",
+                        "--log-dir", data["cli_log"], "--device", "cpu", "--mesh-fsdp", "2",
+                        "--dtype", dtype],
                        t5_config=_t5(), vae_config=VAE_CONFIG,
                        on_step=lambda s, m: losses.__setitem__(s, float(m["loss"])))
     finally:
@@ -469,9 +577,18 @@ def _parallel_cases(rank, data):
         mesh = make_mesh(**shape)
         for opt in ("adamw", "adafactor"):
             out[f"train/{name}/{opt}"] = _train_case(mesh, opt)
+    for name, shape, opts in (("dp2xfsdp2", dict(dp=2, fsdp=2), ("adamw", "adamw_mu_bf16")),
+                              ("fsdp2xtp2", dict(fsdp=2, tp=2), ("adafactor",))):
+        mesh = make_mesh(**shape)
+        for opt in opts:
+            kw = (dict(mu_dtype="bfloat16") if opt == "adamw_mu_bf16"
+                  else dict(optimizer=opt))
+            out[f"train_bf16/{name}/{opt}"] = _train_bf16_case(mesh, kw)
+    out["bf16_wrapped"] = _bf16_wrapped_case(data)
     out["checkpoint"] = _checkpoint_case(data)
     out["api"] = _api_case()
     out["train_cli"] = _train_cli_case(data)
+    out["train_cli_bf16"] = _train_cli_case(data, "bfloat16")
     return out
 
 
@@ -479,5 +596,15 @@ def parallel_rank(rank, path, data, q):
     _run_rank(_parallel_cases, rank, path, data, q, WORLD)
 
 
+def _anchor_cases(rank, data):
+    """The f32 step; the bf16 step and the f32 step (its rule's reference)
+    of the bf16 case's model on its batch and noise rounded to bf16."""
+    a = data["anchor"]
+    out = _jax_anchor_case(a)
+    out["bf16"] = _jax_anchor_case(a["bf16"], torch.bfloat16)
+    out["bf16_ref"] = _jax_anchor_case(a["bf16"])
+    return out
+
+
 def anchor_rank(rank, path, data, q):
-    _run_rank(lambda r, d: _jax_anchor_case(d), rank, path, data, q, WORLD)
+    _run_rank(_anchor_cases, rank, path, data, q, WORLD)
